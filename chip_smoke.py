@@ -10,25 +10,37 @@ Phases (any failure exits non-zero and prints no result line):
      every CUDA kernel from csrc/ (one nvcc per source, all at once);
   2. each kernel against its plain PyTorch version on the card, in bf16
      at the serving path's shapes (atol = rtol = 2e-2: bf16 outputs
-     rounded against an f32-accumulated reference);
+     rounded against an f32-accumulated reference): flash, and the four
+     paged decode kernels — one query per slot (q [8, 32, 128]) or the
+     verify step's four (q [8, 4, 32, 128]), over bf16 pools
+     [257, 8, 64, 128] or int8 ones from quantize_kv with f32 scales
+     [257, 8, 64];
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
-     ragged prefill), then a lone request (single prefill). Every
-     request must return its tokens, both kernels' launch counters must
-     rise during the run, and one prefill's last-token logits must match
-     the same model run with the plain attention (check_logits);
+     ragged prefill, one request sampled), then a lone request (single
+     prefill). Every request must return its tokens, the path's kernels'
+     launch counters (set to 0 just before, read just after) must rise,
+     and one prefill's last-token logits must match the same model run
+     with the plain attention (check_logits). Then the same model object
+     serves three more engines, each freed before the next: (a)
+     kv_dtype='int8', (b) spec_decode=3, (c) both — spec runs with a
+     repeated prompt in the burst and at least one verify step; each
+     must launch its kernel, and one paged step (s = 1 for (a), the
+     s = 4 verify step for (b) and (c)) on a fixed prefilled cache must
+     match its plain version within LOGIT_REL_L2 (check_step);
   4. kernel timings: device time per call from CUDA events around a
      replayed CUDA graph of many calls (eager_ms: the same with Python's
      launch overhead), for the kernel, its plain version and one PyTorch
      library call where one computes the same function; and the bound
      (the larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s, counted
-     from this run's inputs);
+     from this run's inputs); then the {"kernels": [...]} line;
   5. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 import argparse
+import gc
 import json
 import math
 import os
@@ -171,42 +183,57 @@ def check_flash(gen):
     return res
 
 
-def paged_inputs(gen):
-    """q [8, 32, 128], pools [257, 8, 64, 128]; slots of mixed lengths
-    (0 included) and a freed slot (all-zero row, stale length)."""
+def paged_inputs(gen, t=1, quant=False):
+    """The slice's decode shapes: q [8, 32, 128] (t == 1) or
+    [8, t, 32, 128], pools [257, 8, 64, 128] — bf16, or int8 from
+    quantize_kv of bf16 data with f32 scales [257, 8, 64]; slots of mixed
+    lengths (0 included, the longest run ending at position 2047) and a
+    freed slot (all-zero row, stale length). Returns (q, k_pool, v_pool,
+    tables, lengths), or with quant (q, k_pool, v_pool, k_scale,
+    v_scale, tables, lengths)."""
     import numpy as np
     import torch
+    from skypilot_tpu_torch.infer import paged_cache
     slots, hq, hkv, d, page, n_pages, mp = 8, 32, 8, 128, 64, 257, 32
-    q = torch.randn((slots, hq, d), generator=gen, device='cuda',
+    qshape = (slots, hq, d) if t == 1 else (slots, t, hq, d)
+    q = torch.randn(qshape, generator=gen, device='cuda',
                     dtype=torch.bfloat16)
     kp = torch.randn((n_pages, hkv, page, d), generator=gen, device='cuda',
                      dtype=torch.bfloat16)
     vp = torch.randn((n_pages, hkv, page, d), generator=gen, device='cuda',
                      dtype=torch.bfloat16)
-    lengths = np.array([0, 63, 64, 600, 1500, 2047, 130, 777], np.int32)
+    lengths = np.array([0, 63, 64, 600, 1500, 2048 - t, 130, 777], np.int32)
     tables = np.zeros((slots, mp), np.int32)
     perm = np.random.default_rng(SEED).permutation(np.arange(1, n_pages))
     nxt = 0
     for s in range(slots - 1):          # the last slot is freed
-        n = -(-(int(lengths[s]) + 1) // page)
+        n = -(-(int(lengths[s]) + t) // page)
         tables[s, :n] = perm[nxt:nxt + n]
         nxt += n
-    return (q, kp, vp, torch.as_tensor(tables, device='cuda'),
+    rest = (torch.as_tensor(tables, device='cuda'),
             torch.as_tensor(lengths, device='cuda'))
+    if not quant:
+        return (q, kp, vp) + rest
+    (kq, ks), (vq, vs) = (paged_cache.quantize_kv(x) for x in (kp, vp))
+    return (q, kq, vq, ks, vs) + rest
 
 
-def visible_rows(tables, lengths, page):
-    """KV rows the paged kernel must read: positions <= lengths[s] on
-    pages that pass kernel 2's skip rule."""
-    t, ln = tables.cpu().numpy(), lengths.cpu().numpy()
-    total = 0
-    for s in range(t.shape[0]):
-        pos = int(ln[s])
-        for j in range(min(t.shape[1], pos // page + 1)):
-            if t[s, j] == 0 and j != 0:
+def visible_rows(tables, lengths, page, t=1):
+    """(KV rows the paged kernel must read, query-key pairs it must
+    score): rows at positions <= lengths[s] + t-1 on pages that pass the
+    kernels' skip rule; token i of the slot scores the rows at positions
+    <= lengths[s] + i."""
+    tb, ln = tables.cpu().numpy(), lengths.cpu().numpy()
+    rows = pairs = 0
+    for s in range(tb.shape[0]):
+        last = int(ln[s]) + t - 1
+        for j in range(min(tb.shape[1], last // page + 1)):
+            if tb[s, j] == 0 and j != 0:
                 continue
-            total += min(page, pos - j * page + 1)
-    return total
+            rows += min(page, last - j * page + 1)
+            for i in range(t):
+                pairs += max(0, min(page, int(ln[s]) + i - j * page + 1))
+    return rows, pairs
 
 
 def check_paged(gen):
@@ -236,6 +263,67 @@ def check_paged(gen):
         _log(f'paged {name} {list(a[0].shape)} pools {list(a[1].shape)}: '
              f'max|out-ref| {err:.3e} (atol=rtol=2e-2)')
         res[name] = {'shape': list(a[0].shape), 'max_abs_err': err}
+    return res
+
+
+# Kernels 3-5 (same source and design as kernel 2): their wrappers and
+# plain versions, whether they take T > 1 queries and int8 pools.
+FAMILY = {
+    'paged_decode_mq': ('paged_decode_attention_mq', 4, False,
+                        'skypilot_tpu/ops/paged_attention.py:98 _kernel_mq'),
+    'paged_decode_q': ('paged_decode_attention_q', 1, True,
+                       'skypilot_tpu/ops/paged_attention.py:150 _kernel_q'),
+    'paged_decode_mq_q': ('paged_decode_attention_mq_q', 4, True,
+                          'skypilot_tpu/ops/paged_attention.py:210 '
+                          '_kernel_mq_q'),
+}
+
+
+def small_family_inputs(gen, t, quant):
+    """head_dim 64, 8 query heads per kv head (T*G = 8 or 16 rows),
+    32-token pages, a freed slot and an unreserved gap."""
+    import torch
+    from skypilot_tpu_torch.infer import paged_cache
+    qshape = (3, 16, 64) if t == 1 else (3, t, 16, 64)
+    q = torch.randn(qshape, generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    pools = [torch.randn((5, 2, 32, 64), generator=gen, device='cuda',
+                         dtype=torch.bfloat16) for _ in range(2)]
+    rest = (torch.tensor([[3, 1, 0, 0], [0, 0, 0, 0], [2, 0, 4, 0]],
+                         dtype=torch.int32, device='cuda'),
+            torch.tensor([40, 300, 100 - t], dtype=torch.int32,
+                         device='cuda'))
+    if not quant:
+        return (q, *pools) + rest
+    (kq, ks), (vq, vs) = (paged_cache.quantize_kv(x) for x in pools)
+    return (q, kq, vq, ks, vs) + rest
+
+
+def check_family(gen):
+    """Kernels 3-5 against their plain versions on the card: the slice's
+    shapes (T = 4 for the verify kernels), then head_dim 64 with 8 query
+    heads per kv head (T = 2: 16 rows)."""
+    import torch
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    res = {}
+    for kname, (fn, t, quant, _) in FAMILY.items():
+        wrapper = getattr(pa, fn)
+        plain = getattr(pa, fn + '_reference')
+        for name, a in (('slice', paged_inputs(gen, t, quant)),
+                        ('d64_g8_p32', small_family_inputs(
+                            gen, min(t, 2), quant))):
+            out = wrapper(*a)
+            ref = plain(*a)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all(), \
+                f'{kname} {name}: non-finite'
+            torch.testing.assert_close(out.float(), ref.float(), **TOL)
+            err = max_abs(out, ref)
+            _log(f'{kname} {name} q {list(a[0].shape)} pools '
+                 f'{list(a[1].shape)} {a[1].dtype}: max|out-ref| {err:.3e} '
+                 '(atol=rtol=2e-2)')
+            res.setdefault(kname, {})[name] = {'shape': list(a[0].shape),
+                                               'max_abs_err': err}
     return res
 
 
@@ -326,42 +414,14 @@ def drain(q):
         toks.append(tok)
 
 
-def run_engine(card):
-    import numpy as np
-    import torch
+def serve(eng, burst, params, lone):
+    """Drive one engine as a user would: the burst submitted before
+    start() (packed ragged prefill), drained, then the lone request. The
+    launch counters are set to 0 just before and read just after.
+    Returns (token lists, launches, burst TTFT max s, lone wall s)."""
     from skypilot_tpu_torch.infer import engine as engine_lib
-    from skypilot_tpu_torch.infer import server
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import paged_attention as pa
-
-    t0 = time.perf_counter()
-    eng = server.build_engine(MODEL, seed=SEED)
-    torch.cuda.synchronize()
-    _log(f'build_engine({MODEL!r}): {eng.model.cfg.num_params() / 1e9:.2f}B '
-         f'params, {time.perf_counter() - t0:.1f}s; paged pool '
-         f'{list(eng.cache["k"].shape)} {eng.cache["k"].dtype}')
-    vocab = eng.model.cfg.vocab_size
-    rng = np.random.default_rng(SEED)
-    burst = [rng.integers(1, vocab, n).tolist() for n in BURST]
-    lone = rng.integers(1, vocab, LONE).tolist()
-    params = [engine_lib.SamplingParams(max_new_tokens=MAX_NEW)
-              for _ in burst]
-    params[1] = engine_lib.SamplingParams(max_new_tokens=MAX_NEW,
-                                          temperature=0.8, top_k=40,
-                                          seed=SEED)
-
-    # Warm-up request: the process's first CUDA/cuBLAS calls pay one-time
-    # set-up that is not serving time.
-    t_w = time.perf_counter()
-    eng.start()
-    try:
-        eng.generate(rng.integers(1, vocab, 64).tolist(),
-                     engine_lib.SamplingParams(max_new_tokens=4))
-    finally:
-        eng.stop()
-    cold_s = time.perf_counter() - t_w
-    eng.reset_perf()
-
     fa.reset_launches()
     pa.reset_launches()
     queues = [eng.submit(p, sp)[1] for p, sp in zip(burst, params)]
@@ -375,11 +435,65 @@ def run_engine(card):
         lone_s = time.perf_counter() - t_lone
     finally:
         eng.stop()
-    launches = {'flash_fwd': fa.launches, 'paged_decode': pa.launches}
-    perf = eng.perf_stats()
+    launches = {'flash_fwd': fa.launches, **pa.launches}
+    vocab = eng.model.cfg.vocab_size
     for i, toks in enumerate(outs):
         assert len(toks) == MAX_NEW, f'request {i}: {len(toks)} tokens'
         assert all(0 <= t < vocab for t in toks), f'request {i}: bad id'
+    return outs, launches, burst_ttft, lone_s
+
+
+def warm_up(eng, rng):
+    """A short request first: the process's (or the path's) first
+    CUDA/cuBLAS calls pay one-time set-up that is not serving time."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    t_w = time.perf_counter()
+    eng.start()
+    try:
+        eng.generate(rng.integers(1, eng.model.cfg.vocab_size, 64).tolist(),
+                     engine_lib.SamplingParams(max_new_tokens=4))
+    finally:
+        eng.stop()
+    eng.reset_perf()
+    return time.perf_counter() - t_w
+
+
+def traffic(vocab, repeat=False):
+    """The burst (BURST lengths, request 1 sampled at temperature 0.8 and
+    top-k 40) and the lone prompt; with repeat, request 0 is a seeded
+    40-token sequence repeated to 600 tokens (n-gram hits for the
+    speculative proposer)."""
+    import numpy as np
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    rng = np.random.default_rng(SEED)
+    burst = [rng.integers(1, vocab, n).tolist() for n in BURST]
+    lone = rng.integers(1, vocab, LONE).tolist()
+    if repeat:
+        seq = np.random.default_rng(SEED + 1).integers(1, vocab, 40).tolist()
+        burst[0] = (seq * 15)[:BURST[0]]
+    params = [engine_lib.SamplingParams(max_new_tokens=MAX_NEW)
+              for _ in burst]
+    params[1] = engine_lib.SamplingParams(max_new_tokens=MAX_NEW,
+                                          temperature=0.8, top_k=40,
+                                          seed=SEED)
+    return burst, params, lone
+
+
+def run_engine(card):
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import server
+
+    t0 = time.perf_counter()
+    eng = server.build_engine(MODEL, seed=SEED)
+    torch.cuda.synchronize()
+    _log(f'build_engine({MODEL!r}): {eng.model.cfg.num_params() / 1e9:.2f}B '
+         f'params, {time.perf_counter() - t0:.1f}s; paged pool '
+         f'{list(eng.cache["k"].shape)} {eng.cache["k"].dtype}')
+    burst, params, lone = traffic(eng.model.cfg.vocab_size)
+    cold_s = warm_up(eng, np.random.default_rng(SEED + 2))
+    outs, launches, burst_ttft, lone_s = serve(eng, burst, params, lone)
+    perf = eng.perf_stats()
     assert perf['ragged_dispatches'] >= 1, 'no ragged admission ran'
     assert perf['prefill_dispatches'] >= 2, 'no single prefill ran'
     assert launches['flash_fwd'] > 0, 'flash kernel never launched'
@@ -403,6 +517,188 @@ def run_engine(card):
            'perf': perf}
     res['logits'] = check_logits(eng.model, lone)
     return eng, res
+
+
+# The int8 and speculative paths: (label, engine options, the kernel the
+# path adds).
+PATHS = (('int8', dict(kv_dtype='int8'), 'paged_decode_q'),
+         ('spec', dict(spec_decode=3), 'paged_decode_mq'),
+         ('int8_spec', dict(kv_dtype='int8', spec_decode=3),
+          'paged_decode_mq_q'))
+
+
+def run_paths(model, card, bf16_ms_per_token):
+    """Engine runs (a) int8 KV, (b) spec_decode=3, (c) both, on the same
+    model object, each engine's pools freed before the next. Each takes
+    the burst + lone traffic (spec runs: with the repeated prompt); its
+    kernel must launch, spec runs must verify, and one decode step on a
+    fixed prefilled cache must match its plain version."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    out = {}
+    for label, opts, kernel in PATHS:
+        eng = engine_lib.InferenceEngine(
+            model, num_slots=8, max_seq_len=2048, decode_chunk=16,
+            page_size=64, **opts)
+        spec = 'spec_decode' in opts
+        burst, params, lone = traffic(model.cfg.vocab_size, repeat=spec)
+        warm_up(eng, np.random.default_rng(SEED + 2))
+        outs, launches, burst_ttft, lone_s = serve(eng, burst, params, lone)
+        perf = eng.perf_stats()
+        assert launches['flash_fwd'] > 0, f'{label}: flash never launched'
+        assert launches[kernel] > 0, f'{label}: {kernel} never launched'
+        if spec:
+            assert perf['spec_verify_steps'] > 0, f'{label}: no verify step'
+        lone_ttft = eng.ttfts()[-1]
+        ms_tok = (lone_s - lone_ttft) / (MAX_NEW - 1) * 1e3
+        accept = perf.get('spec_accept_per_step')
+        del eng                          # frees its pools
+        gc.collect()
+        torch.cuda.empty_cache()
+        _log(f'{label}: engine freed, {torch.cuda.memory_allocated() / 2**30:.1f}'
+             ' GiB allocated (the model\'s weights)')
+        steps = check_step(model, 'int8' in label, 4 if spec else 1)
+        res = {'launches': launches, 'burst_ttft_max_s': burst_ttft,
+               'lone_ttft_s': lone_ttft, 'lone_ms_per_token': ms_tok,
+               'steady_decode_tok_s': perf.get('steady_decode_tok_s'),
+               'spec_accept_per_step': accept, 'perf': perf,
+               'step_rel_kernel_plain': steps['rel']}
+        if label == 'int8':
+            bf16 = check_step(model, False, 1)
+            res['step_rel_bf16_kernel_plain'] = bf16['rel']
+            res['rel_int8_vs_bf16'] = rel_l2(steps['logits'],
+                                             bf16['logits'])
+            _log(f'{label}: decode-step logits int8-KV vs bf16-KV '
+                 f'(rel L2, printed, not asserted): '
+                 f'{res["rel_int8_vs_bf16"]:.3e}; bf16 step kernel vs '
+                 f'plain {bf16["rel"]:.3e}')
+        _log(f'engine {label} [{card}]: {len(outs)} requests x {MAX_NEW} '
+             f'tokens; launches {launches}; burst TTFT max '
+             f'{burst_ttft * 1e3:.1f} ms; lone {ms_tok:.1f} ms per token '
+             f'(bf16 run: {bf16_ms_per_token:.1f}); steady decode '
+             f'{perf.get("steady_decode_tok_s", 0):.1f} tok/s'
+             + (f'; spec_accept_per_step {accept:.3f} over '
+                f'{perf["spec_verify_steps"]} verify steps' if spec else ''))
+        out[label] = res
+    return out
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def plain_step_logits(model, toks, positions, cache):
+    """The model's paged step (s tokens per slot) with each paged kernel's
+    plain version in its place; the same appends, in place on `cache`."""
+    import torch
+    from skypilot_tpu_torch.infer.paged_cache import PagePool
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    from skypilot_tpu_torch.ops import rope
+    cfg = model.cfg
+    b, s = toks.shape
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = model.tok_embed[toks]
+    cos, sin = rope.rope_freqs(positions, hd, cfg.rope_theta,
+                               use_llama31_scaling=cfg.use_llama31_rope)
+    pos = positions[:, 0].to(torch.int32).contiguous()
+    tables = cache['tables']
+    for i, layer in enumerate(model.layers):
+        a = layer.attn
+        hn = layer.attn_norm(x)
+        q = rope.apply_rope(a.wq(hn).view(b, s, h, hd), cos, sin)
+        k = rope.apply_rope(a.wk(hn).view(b, s, hk, hd), cos, sin)
+        v = a.wv(hn).view(b, s, hk, hd)
+        kp, vp = cache['k'][i], cache['v'][i]
+        if 'k_scale' in cache:
+            ks, vs = cache['k_scale'][i], cache['v_scale'][i]
+            PagePool.append_tokens_layer_q(kp, ks, k, tables, pos)
+            PagePool.append_tokens_layer_q(vp, vs, v, tables, pos)
+            out = pa.paged_decode_attention_q_reference(
+                q[:, 0], kp, vp, ks, vs, tables, pos)[:, None] if s == 1 \
+                else pa.paged_decode_attention_mq_q_reference(
+                    q, kp, vp, ks, vs, tables, pos)
+        else:
+            PagePool.append_tokens_layer(kp, k, tables, pos)
+            PagePool.append_tokens_layer(vp, v, tables, pos)
+            out = pa.paged_decode_attention_reference(
+                q[:, 0], kp, vp, tables, pos)[:, None] if s == 1 \
+                else pa.paged_decode_attention_mq_reference(
+                    q, kp, vp, tables, pos)
+        x = x + a.wo(out.reshape(b, s, h * hd))
+        x = x + layer.mlp(layer.mlp_norm(x))
+    return model.lm_head(model.final_norm(x)).float()
+
+
+# A fixed prefilled cache: four live slots of these prompt lengths, four
+# released slots (all-zero rows) at these stale lengths.
+STEP_LIVE = (600, 64, 590, 300)
+STEP_FREED = (1000, 5, 2040, 77)
+
+
+def check_step(model, quant, s):
+    """One paged step of s tokens per slot (s = 1: decode; s = 4: verify)
+    on a fixed prefilled cache (bf16 or int8 pools), through the kernels
+    (the model's forward) and through their plain versions (the same
+    layers by hand): rel L2 of the live slots' logits <= LOGIT_REL_L2."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer.paged_cache import PagePool
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    page, mp = 64, 32
+    rng = np.random.default_rng(SEED + 7)
+    spans = [-(-(n + s) // page) for n in STEP_LIVE]
+    n_pages = sum(spans) + 1
+    shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page, cfg.head_dim)
+    pool_dt = torch.int8 if quant else model.dtype
+    cache = {'k': torch.zeros(shape, dtype=pool_dt, device=dev),
+             'v': torch.zeros(shape, dtype=pool_dt, device=dev)}
+    if quant:
+        for name in ('k_scale', 'v_scale'):
+            cache[name] = torch.zeros(shape[:-1], device=dev)
+    tables = np.zeros((8, mp), np.int32)
+    nxt = 1
+    with torch.inference_mode():
+        for slot, (n, span) in enumerate(zip(STEP_LIVE, spans)):
+            tables[slot, :span] = np.arange(nxt, nxt + span)
+            nxt += span
+            n_pad = -(-n // page) * page
+            toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, n_pad)),
+                                   device=dev)
+            pshape = (cfg.n_layers, 1, n_pad, cfg.n_kv_heads, cfg.head_dim)
+            _, pc = model(toks, cache={
+                'k': torch.zeros(pshape, dtype=model.dtype, device=dev),
+                'v': torch.zeros(pshape, dtype=model.dtype, device=dev)},
+                logit_positions=torch.zeros((1, 1), dtype=torch.long,
+                                            device=dev))
+            ids = torch.as_tensor(tables[slot, :n_pad // page], device=dev)
+            for name in ('k', 'v'):
+                if quant:
+                    PagePool.insert_prompt_q(cache[name],
+                                             cache[f'{name}_scale'],
+                                             pc[name], ids)
+                else:
+                    PagePool.insert_prompt(cache[name], pc[name], ids)
+        lens = np.array(STEP_LIVE + STEP_FREED, np.int32)
+        toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (8, s)),
+                               device=dev)
+        positions = torch.as_tensor(lens[:, None] + np.arange(s),
+                                    device=dev)
+        cache['tables'] = torch.as_tensor(tables, device=dev)
+        copy = {k: v.clone() for k, v in cache.items()}
+        got, _ = model(toks, positions=positions, cache=cache)
+        ref = plain_step_logits(model, toks, positions, copy)
+        torch.cuda.synchronize()
+    live = len(STEP_LIVE)
+    got, ref = got[:live].float(), ref[:live]
+    assert torch.isfinite(got).all(), 'non-finite step logits'
+    r = rel_l2(got, ref)
+    _log(f'{"int8" if quant else "bf16"} paged step s={s}: logits kernel vs '
+         f'plain rel L2 {r:.3e} (limit {LOGIT_REL_L2}), argmax equal '
+         f'{float((got.argmax(-1) == ref.argmax(-1)).float().mean()):.3f}')
+    assert r <= LOGIT_REL_L2, r
+    return {'rel': r, 'logits': got}
 
 
 def profile_decode(eng, card):
@@ -485,21 +781,29 @@ def time_flash(gen, s, seg_np=None):
             else 'bytes', 'flops': flops, 'bytes': nbytes}
 
 
-def time_paged(gen):
+def time_paged(gen, kname):
+    """Kernel 2 (kname 'paged_decode') or one of FAMILY at the slice's
+    decode shapes. The bound counts each visible K/V row (and its scales)
+    once, q and out once, and 4*d flops per query head and visible
+    (token, key) pair."""
     from skypilot_tpu_torch.ops import paged_attention as pa
-    q, kp, vp, tables, lengths = paged_inputs(gen)
-    def kernel():
-        return pa.paged_decode_attention(q, kp, vp, tables, lengths)
-    ms = time_ms(kernel, 50)
-    launch_ms = eager_ms(kernel, 50)
-    plain_ms = time_ms(lambda: pa.paged_decode_attention_reference(
-        q, kp, vp, tables, lengths), 5)
-    s_slots, hq, d = q.shape
+    fn, t, quant, _ = FAMILY.get(kname, ('paged_decode_attention', 1,
+                                         False, None))
+    args = paged_inputs(gen, t, quant)
+    wrapper = getattr(pa, fn)
+    plain = getattr(pa, fn + '_reference')
+    ms = time_ms(lambda: wrapper(*args), 50)
+    launch_ms = eager_ms(lambda: wrapper(*args), 50)
+    plain_ms = time_ms(lambda: plain(*args), 5)
+    q, kp, tables, lengths = args[0], args[1], args[-2], args[-1]
+    hq, d = q.shape[-2:]
     hkv, page = kp.shape[1], kp.shape[2]
-    rows = visible_rows(tables, lengths, page)
-    nbytes = 2 * hkv * d * 2 * rows + 2 * 2 * q.numel() + \
+    rows, pairs = visible_rows(tables, lengths, page, t)
+    row_bytes = 2 * hkv * d * kp.element_size() + (2 * hkv * 4 if quant
+                                                   else 0)
+    nbytes = row_bytes * rows + 2 * 2 * q.numel() + \
         4 * (tables.numel() + lengths.numel())
-    flops = 4.0 * hq * d * rows / hkv
+    flops = 4.0 * hq * d * pairs
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_flops = flops / BF16_FLOPS_PER_S * 1e3
     return {'shape': list(q.shape), 'ms': ms, 'eager_ms': launch_ms,
@@ -545,6 +849,7 @@ def main() -> int:
     with torch.inference_mode():
         flash_res = check_flash(gen)
         paged_res = check_paged(gen)
+        family_res = check_family(gen)
     if args.quick:
         _log(card)
         print(json.dumps({'ok': True, 'device': {
@@ -555,21 +860,31 @@ def main() -> int:
     eng, eng_res = run_engine(card)
     if args.profile:
         eng_res['profile'] = profile_decode(eng, card)
+    model = eng.model
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths_res = run_paths(model, card, eng_res['lone_ms_per_token'])
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
 
     with torch.inference_mode():
         tf = time_flash(gen, 2048, packed_segments(BURST, 64, 2048))
         tf_causal = time_flash(gen, 512)
-        tp = time_paged(gen)
-    for label, t in (('flash packed [1, 2048, 32, 128]', tf),
-                     ('flash unpacked causal [1, 512, 32, 128]', tf_causal),
-                     ('paged [8, 32, 128]', tp)):
+        tp = {k: time_paged(gen, k) for k in ('paged_decode', *FAMILY)}
+    timed = [('flash packed [1, 2048, 32, 128]', tf),
+             ('flash unpacked causal [1, 512, 32, 128]', tf_causal)] + [
+        (f'{k} {t["shape"]}', t) for k, t in tp.items()]
+    for label, t in timed:
         lib = f'{t["library_ms"]:.4f}' if t['library_ms'] else 'none'
         _log(f'{label} [{card}]: {t["ms"]:.4f} ms (eager '
              f'{t["eager_ms"]:.4f}), plain {t["plain_ms"]:.4f} ms, '
              f'library {lib} ms, bound {t["bound_ms"]:.4f} ms '
              f'({t["bound_by"]})')
+    # Each kernel's launches come from the run of the path it serves:
+    # flash and kernel 2 from the bf16 run, kernels 3-5 from theirs.
+    path_of = {kernel: label for label, _, kernel in PATHS}
     kernels = [
         {'name': 'flash_fwd', 'route': 'cuda',
          'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
@@ -578,20 +893,28 @@ def main() -> int:
          'max_abs_err': flash_res['packed']['max_abs_err'],
          'ms': tf['ms'], 'kernel_ms': tf['ms'], 'plain_ms': tf['plain_ms'],
          'bound_ms': tf['bound_ms'], 'bound_by': tf['bound_by'],
-         'library_ms': tf['library_ms'], 'shape': tf['shape']},
-        {'name': 'paged_decode', 'route': 'cuda',
-         'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
-         'replaces': 'skypilot_tpu/ops/paged_attention.py:50 _kernel',
-         'launches': eng_res['launches']['paged_decode'],
-         'max_abs_err': paged_res['slice']['max_abs_err'],
-         'ms': tp['ms'], 'kernel_ms': tp['ms'], 'plain_ms': tp['plain_ms'],
-         'bound_ms': tp['bound_ms'], 'bound_by': tp['bound_by'],
-         'library_ms': None, 'shape': tp['shape']},
-    ]
+         'library_ms': tf['library_ms'], 'shape': tf['shape']}]
+    for k, t in tp.items():
+        launches = eng_res['launches'][k] if k == 'paged_decode' else \
+            paths_res[path_of[k]]['launches'][k]
+        err = paged_res['slice']['max_abs_err'] if k == 'paged_decode' \
+            else family_res[k]['slice']['max_abs_err']
+        kernels.append({
+            'name': k, 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
+            'replaces': FAMILY[k][3] if k in FAMILY else
+            'skypilot_tpu/ops/paged_attention.py:50 _kernel',
+            'launches': launches, 'max_abs_err': err, 'ms': t['ms'],
+            'kernel_ms': t['ms'], 'eager_ms': t['eager_ms'],
+            'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+            'bound_by': t['bound_by'], 'library_ms': None,
+            'shape': t['shape']})
     details = {'card': card, 'build_s': build_s, 'engine': eng_res,
+               'paths': paths_res,
                'flash_packed': tf, 'flash_causal_512': tf_causal,
                'paged': tp, 'checks': {'flash': flash_res,
-                                       'paged': paged_res}}
+                                       'paged': paged_res,
+                                       'family': family_res}}
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            'smoke_out')
     os.makedirs(out_dir, exist_ok=True)

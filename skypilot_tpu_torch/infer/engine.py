@@ -16,12 +16,23 @@ skypilot_tpu/infer/engine.py in paged mode).
     filtered logits).
   * Cut-offs: EOS (delivered, then the stream ends), max_new_tokens and
     max_seq_len.
+  * int8 KV (kv_dtype='int8', or SKYT_KV_DTYPE=int8 under 'auto'): the
+    pools hold int8 codes with per-token, per-head f32 scales, quantized
+    at the prompt scatter and at every append; ~2x the pages per byte.
+  * n-gram speculative decoding (spec_decode=k): each slot proposes k
+    draft tokens by matching its trailing bigram against its own token
+    history (kept on the device), one s = k+1 forward verifies them, and
+    the longest prefix the model agrees with is accepted (greedy slots:
+    token-identical to plain greedy); sampled slots take the rejection
+    rule of speculative_sample_step. Near max_seq_len, where a verify
+    run no longer fits, chunks take the plain path, which keeps the
+    history current.
 
 Not ported (raise): presence/frequency penalties, logit_bias, logprobs,
-LoRA ids, deadlines, QoS classes and tenants, prefix caching,
-speculative decode, chunked prefill, int8 KV, meshes and multi-host
-lockstep. Not ported (absent): the dense (non-paged) cache mode, the
-padded batched admission, cancel, metrics and tracing.
+LoRA ids, deadlines, QoS classes and tenants, prefix caching, the draft
+model proposer, chunked prefill, meshes and multi-host lockstep. Not
+ported (absent): the dense (non-paged) cache mode, the padded batched
+admission, cancel, metrics and tracing.
 """
 import collections
 import dataclasses
@@ -36,6 +47,7 @@ import torch
 
 from skypilot_tpu_torch.infer import paged_cache
 from skypilot_tpu_torch.utils import device as device_lib
+from skypilot_tpu_torch.utils import env
 from skypilot_tpu_torch.utils import log_utils
 
 logger = log_utils.init_logger(__name__)
@@ -120,7 +132,8 @@ def _round_up_pow2(n: int, lo: int = 32) -> int:
 
 def _fresh_perf() -> Dict[str, float]:
     return {'decode_tokens': 0, 'steady_tokens': 0, 'steady_time_s': 0.0,
-            'prefill_dispatches': 0, 'ragged_dispatches': 0}
+            'prefill_dispatches': 0, 'ragged_dispatches': 0,
+            'spec_verify_steps': 0, 'spec_accepted': 0}
 
 
 def _put_many(q, items) -> None:
@@ -168,6 +181,85 @@ def sampling_filter(scaled: torch.Tensor, topks: torch.Tensor,
     return torch.where(pmask & (out < thresh), neg, out)
 
 
+def gumbel(u: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise from uniforms in [0, 1): the argmax of log-weights
+    plus this noise is a categorical draw."""
+    return -torch.log(-torch.log(u))
+
+
+def speculative_sample_step(logits: torch.Tensor, draft: torch.Tensor,
+                            temps: torch.Tensor, topks: torch.Tensor,
+                            topps: torch.Tensor, u_accept: torch.Tensor,
+                            u_resid: torch.Tensor):
+    """One slot-batched speculative-sampling verify step (counterpart of
+    engine.speculative_sample_step; the random numbers come in as
+    uniforms, drawn by the caller from each request's generator).
+
+    logits [S, k+1, V] f32 — target logits at the k draft positions plus
+    the bonus position; draft [S, k] int — point-mass draft tokens;
+    temps/topks/topps [S]; u_accept [S, k] and u_resid [S, V] uniforms in
+    [0, 1).
+
+    Greedy slots (temp == 0): accept while draft == argmax, emit the
+    argmax rows. Sampled slots: accept d_i with probability p_i(d_i)
+    (p = softmax of the top-k/top-p filtered logits / temp); at the first
+    rejection draw from the residual (p_i with d_i zeroed,
+    renormalized), after k accepts draw the bonus token from p_k. The
+    emitted stream is distributed exactly as sequential sampling from p.
+
+    Returns (out [S, k+1] emitted tokens — the first acc+1 valid —, acc
+    [S] accepted-draft counts)."""
+    slots, k1, vocab = logits.shape
+    k = k1 - 1
+    draft = draft.long()
+    greedy = logits.argmax(dim=-1)                          # [S, k+1]
+    g_match = draft == greedy[:, :k]
+    scaled = logits / temps.clamp_min(1e-6)[:, None, None]
+    probs = torch.softmax(sampling_filter(scaled, topks, topps), dim=-1)
+    p_draft = torch.gather(probs[:, :k], 2, draft[:, :, None])[:, :, 0]
+    sampled = temps[:, None] > 0
+    accept = torch.where(sampled, u_accept < p_draft, g_match)
+    acc = torch.cumprod(accept.long(), dim=1).sum(dim=1)     # 0..k
+    # Distribution at the emission position acc: the residual with the
+    # rejected draft zeroed when acc < k, the bonus p_k otherwise.
+    p_at = torch.gather(probs, 1,
+                        acc[:, None, None].expand(-1, 1, vocab))[:, 0]
+    d_pad = torch.cat([draft, draft.new_zeros((slots, 1))], dim=1)
+    d_at = torch.gather(d_pad, 1, acc[:, None])[:, 0]
+    onehot = torch.nn.functional.one_hot(d_at, vocab).to(probs.dtype)
+    resid = torch.where((acc < k)[:, None], p_at * (1.0 - onehot), p_at)
+    # Float dust: a rejected draft that held all the mass.
+    resid = torch.where(resid.sum(-1, keepdim=True) > 0, resid, p_at)
+    repl = (torch.log(resid) + gumbel(u_resid)).argmax(dim=-1)
+    idx = torch.arange(k + 1, device=logits.device)[None, :]
+    s_out = torch.where(idx < acc[:, None], d_pad,
+                        torch.where(idx == acc[:, None], repl[:, None],
+                                    torch.zeros_like(d_pad)))
+    out = torch.where(sampled, s_out, greedy)
+    return out.to(torch.int32), acc.to(torch.int32)
+
+
+def propose_ngram(hist: torch.Tensor, lens: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """Prompt-lookup drafts [S, k]: the k tokens after the most recent
+    earlier occurrence of each slot's trailing bigram (hist[L-1],
+    hist[L]) in its own history [S, W]; with no match, the tokens after
+    L (a junk draft that verification rejects)."""
+    _, w = hist.shape
+    length = lens.long()
+    b0 = torch.gather(hist, 1, (length - 1).clamp(0, w - 1)[:, None])
+    b1 = torch.gather(hist, 1, length.clamp(0, w - 1)[:, None])
+    idx = torch.arange(w - 1, device=hist.device)[None, :]
+    ok = (hist[:, :-1] == b0) & (hist[:, 1:] == b1) & \
+        (idx + 1 < length[:, None])
+    i = torch.where(ok.any(dim=1),
+                    torch.where(ok, idx, torch.full_like(idx, -1)).amax(1),
+                    length - 1)
+    start = (i + 2).clamp(0, w - k)
+    return torch.gather(hist, 1, start[:, None] +
+                        torch.arange(k, device=hist.device)[None, :])
+
+
 class InferenceEngine:
     """Slot-based continuous batching over the paged KV cache."""
 
@@ -180,21 +272,39 @@ class InferenceEngine:
                  prefill_chunk: int = 0,
                  kv_dtype: str = 'auto',
                  mesh=None, lockstep=None,
-                 device=None) -> None:
+                 draft_model=None, device=None) -> None:
         """model: a models.llama.LlamaModel holding its weights on
         `device` (None -> 'cuda'; raises without CUDA unless 'cpu').
-        The options after page_size exist in the JAX engine and are not
+        spec_decode: draft length k of n-gram speculative decoding (0:
+        off). kv_dtype: 'int8' quantizes the paged pools; 'auto' defers
+        to SKYT_KV_DTYPE, then to the model dtype; anything else
+        explicit raises ValueError. prefix_caching, prefill_chunk, mesh,
+        lockstep and a draft model exist in the JAX engine and are not
         ported yet: anything but their defaults raises."""
         unported = {'prefix_caching': bool(prefix_caching),
-                    'spec_decode': spec_decode > 0,
                     'prefill_chunk': prefill_chunk > 0,
-                    'kv_dtype': kv_dtype not in (None, '', 'auto'),
                     'mesh': mesh is not None,
-                    'lockstep': lockstep is not None}
+                    'lockstep': lockstep is not None,
+                    'draft_model': draft_model is not None}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
                 f'engine options not ported yet: {", ".join(bad)}')
+        explicit_kv = kv_dtype not in (None, '', 'auto')
+        kv_req = kv_dtype if explicit_kv else env.get('SKYT_KV_DTYPE', 'auto')
+        if kv_req in (None, ''):
+            kv_req = 'auto'
+        if kv_req not in paged_cache.KV_DTYPES:
+            if explicit_kv:
+                raise ValueError(
+                    f"kv_dtype must be 'auto' or 'int8', got {kv_req!r}")
+            # A bad environment value degrades instead of failing the
+            # replica, as the JAX engine does.
+            logger.warning("SKYT_KV_DTYPE=%r is not 'auto' or 'int8'; "
+                           'serving at the model dtype', kv_req)
+            kv_req = 'auto'
+        self.kv_dtype = kv_req
+        self.spec_decode = max(0, int(spec_decode))
         self.device = device_lib.resolve_device(device)
         model_dev = next(model.parameters()).device
         if model_dev != self.device:
@@ -213,12 +323,22 @@ class InferenceEngine:
             self.max_seq_len, num_slots, page_size)
         self.pool = paged_cache.PagePool(
             pcfg, self.cfg.n_layers, self.cfg.n_kv_heads,
-            self.cfg.head_dim, num_slots, self.dtype, self.device)
-        self.cache = {'k': self.pool.pools['k'], 'v': self.pool.pools['v'],
-                      'tables': torch.zeros(
-                          (num_slots, pcfg.max_pages_per_slot),
-                          dtype=torch.int32, device=self.device)}
+            self.cfg.head_dim, num_slots, self.dtype, self.device,
+            kv_dtype=self.kv_dtype)
+        # k, v (and k_scale, v_scale for int8 pools), plus the block table.
+        self.cache = dict(self.pool.pools)
+        self.cache['tables'] = torch.zeros(
+            (num_slots, pcfg.max_pages_per_slot), dtype=torch.int32,
+            device=self.device)
         self.pool.pools = None   # tensors live in self.cache now
+        # Device token history per slot (prompt + generated), the n-gram
+        # proposer's haystack; invariant: hist[slot, lens[slot]] is the
+        # last token fed. The k+2 tail keeps a verify run's k+1-token
+        # write in bounds.
+        self._dev_hist = torch.zeros(
+            (num_slots, self.max_seq_len + self.spec_decode + 2),
+            dtype=torch.int32, device=self.device) \
+            if self.spec_decode > 0 else None
         self._deferred: Optional[_Request] = None
         # Host slot table. _lengths is an upper-bound estimate for chunk
         # sizing; _conf_lengths the confirmed length, advanced at pulls.
@@ -305,8 +425,13 @@ class InferenceEngine:
             if pk.shape[2] < need:   # bucket shorter than the page span
                 pk = torch.nn.functional.pad(
                     pk, (0, 0, 0, 0, 0, need - pk.shape[2]))
-            paged_cache.PagePool.insert_prompt(self.cache[name], pk, ids,
-                                               src_off)
+            if 'k_scale' in self.cache:   # int8 pool: quantize here
+                paged_cache.PagePool.insert_prompt_q(
+                    self.cache[name], self.cache[f'{name}_scale'], pk, ids,
+                    src_off)
+            else:
+                paged_cache.PagePool.insert_prompt(self.cache[name], pk,
+                                                   ids, src_off)
         self.cache['tables'][slot] = torch.as_tensor(
             table_row, dtype=torch.int32, device=self.device)
         self._d_last[slot] = first
@@ -322,14 +447,33 @@ class InferenceEngine:
         re-reserves."""
         self.cache['tables'][slot] = 0
 
+    def _sampled_slots(self, sampling: bool) -> List[int]:
+        return [i for i in range(self.num_slots)
+                if sampling and self._temps[i] > 0
+                and self._slot_gens[i] is not None]
+
+    def _hist_insert_impl(self, slot: int, tokens: List[int],
+                          first: int) -> None:
+        """Install an admitted prompt and its first token (at index n)
+        in the slot's history, zero-padded to the prefill bucket and
+        clamped to the buffer (n < max_seq_len < its width)."""
+        n = len(tokens)
+        width = min(max(self._bucket_for(n), n + 1),
+                    self._dev_hist.shape[1])
+        row = np.zeros((width,), np.int32)
+        row[:n] = tokens
+        row[n] = first
+        self._dev_hist[slot, :width] = torch.as_tensor(row,
+                                                       device=self.device)
+
     def _decode_n_impl(self, n: int, sampling: bool):
         """Generate n tokens per slot: n model steps with on-device
         sampling (greedy where temps == 0). Returns tokens [n, slots]
-        and advances the device args."""
+        and advances the device args (and the spec history, if kept)."""
         last, lens = self._d_last, self._d_lens
-        sampled_slots = [i for i in range(self.num_slots)
-                         if sampling and self._temps[i] > 0
-                         and self._slot_gens[i] is not None]
+        sampled_slots = self._sampled_slots(sampling)
+        hist = self._dev_hist
+        rows = torch.arange(self.num_slots, device=self.device)
         toks = []
         for _ in range(n):
             logits, _ = self.model(last[:, None], positions=lens[:, None],
@@ -342,17 +486,63 @@ class InferenceEngine:
                                            self._d_topps)
                 # Gumbel-max with each request's own generator: the
                 # argmax of logits + Gumbel noise is a categorical draw.
-                gumbel = torch.zeros_like(filtered)
+                noise = torch.zeros_like(filtered)
                 for i in sampled_slots:
-                    u = torch.rand(filtered.shape[-1], device=self.device,
-                                   generator=self._slot_gens[i])
-                    gumbel[i] = -torch.log(-torch.log(u))
-                drawn = (filtered + gumbel).argmax(dim=-1).to(torch.int32)
+                    noise[i] = gumbel(torch.rand(
+                        filtered.shape[-1], device=self.device,
+                        generator=self._slot_gens[i]))
+                drawn = (filtered + noise).argmax(dim=-1).to(torch.int32)
                 tok = torch.where(self._d_temps > 0, drawn, tok)
+            if hist is not None:
+                # Released slots' stale lengths may run past the buffer:
+                # their writes clamp into its (unread) last column.
+                hist[rows, (lens + 1).clamp(max=hist.shape[1] - 1)] = tok
             toks.append(tok)
             last, lens = tok, lens + 1
         self._d_last, self._d_lens = last, lens
         return torch.stack(toks)
+
+    def _decode_spec_impl(self, n: int, k: int, sampling: bool):
+        """n speculative verify steps: per slot, k n-gram drafts, one
+        s = k+1 forward over [last, drafts] at lens..lens+k, accept a
+        draft prefix, emit accepted+1 tokens. Returns (tokens
+        [n, slots, k+1], valid counts [n, slots]) and advances the device
+        args and the history."""
+        last, lens, hist = self._d_last, self._d_lens, self._dev_hist
+        sampled_slots = self._sampled_slots(sampling)
+        vocab = self.cfg.vocab_size
+        ar = torch.arange(k + 1, device=self.device)
+        toks, counts = [], []
+        for _ in range(n):
+            draft = propose_ngram(hist, lens, k)
+            logits, _ = self.model(torch.cat([last[:, None], draft], 1),
+                                   positions=lens[:, None] + ar,
+                                   cache=self.cache)
+            logits = logits.float()
+            if sampled_slots:
+                u = torch.zeros((self.num_slots, k + vocab),
+                                device=self.device)
+                for i in sampled_slots:
+                    u[i] = torch.rand(k + vocab, device=self.device,
+                                      generator=self._slot_gens[i])
+                out, acc = speculative_sample_step(
+                    logits, draft, self._d_temps, self._d_topks,
+                    self._d_topps, u[:, :k], u[:, k:])
+            else:
+                out = logits.argmax(dim=-1).to(torch.int32)
+                acc = torch.cumprod((draft == out[:, :k]).to(torch.int32),
+                                    dim=1).sum(dim=1, dtype=torch.int32)
+            # All k+1 candidates go to the history at lens+1; entries past
+            # acc+1 are junk the proposer never matches (its window ends
+            # at lens).
+            start = (lens + 1).clamp(max=hist.shape[1] - (k + 1))
+            hist.scatter_(1, start.long()[:, None] + ar, out)
+            toks.append(out)
+            counts.append(acc + 1)
+            last = torch.gather(out, 1, acc.long()[:, None])[:, 0]
+            lens = lens + acc + 1
+        self._d_last, self._d_lens = last, lens
+        return torch.stack(toks), torch.stack(counts)
 
     def _sample(self, logits: np.ndarray, req: _Request) -> int:
         """Host-side sampling of a request's FIRST token; the same
@@ -447,6 +637,11 @@ class InferenceEngine:
         if self.perf['steady_time_s'] > 0:
             out['steady_decode_tok_s'] = (self.perf['steady_tokens'] /
                                           self.perf['steady_time_s'])
+        if self.spec_decode > 0:
+            # Mean accepted drafts per verify step (tokens per step - 1).
+            steps = self.perf['spec_verify_steps']
+            out['spec_accept_per_step'] = (
+                self.perf['spec_accepted'] / steps if steps else 0.0)
         return out
 
     # --------------------------------------------------------- admission
@@ -598,6 +793,8 @@ class InferenceEngine:
 
     def _complete_admission(self, req: _Request, slot: int, n: int,
                             first: int) -> None:
+        if self._dev_hist is not None:
+            self._hist_insert_impl(slot, req.tokens, first)
         req.first_token_at = time.time()
         with self._lock:
             self._ttfts.append(req.first_token_at - req.submitted_at)
@@ -670,16 +867,28 @@ class InferenceEngine:
             new_pending = None
             upper = 0
             if active:
-                # Power-of-two chunk capped by the remaining cache space.
+                # Power-of-two chunk capped by the remaining cache space;
+                # a verify step needs room for k+1 tokens, else the chunk
+                # takes the plain path.
                 rem_space = self.max_seq_len - 1 - int(
                     max(self._lengths[i] for i in active))
                 sampling = any(self._temps[i] > 0 for i in active)
-                bound = max(1, min(self.decode_chunk, rem_space))
-                chunk = 1 << (bound.bit_length() - 1)
                 entries = [(i, self._slots[i]) for i in active]
-                toks = self._decode_n_impl(chunk, sampling)
-                new_pending = (toks, entries)
-                upper = chunk
+                k = self.spec_decode
+                if k > 0 and rem_space // (k + 1) >= 1:
+                    bound = max(1, min(self.decode_chunk,
+                                       rem_space // (k + 1)))
+                    chunk = 1 << (bound.bit_length() - 1)
+                    toks, counts = self._decode_spec_impl(chunk, k,
+                                                          sampling)
+                    new_pending = (toks, counts, entries)
+                    upper = chunk * (k + 1)
+                else:
+                    bound = max(1, min(self.decode_chunk, rem_space))
+                    chunk = 1 << (bound.bit_length() - 1)
+                    toks = self._decode_n_impl(chunk, sampling)
+                    new_pending = (toks, None, entries)
+                    upper = chunk
             if pending is not None:
                 self._finish_chunk(pending)
             elif not active and not admitted:
@@ -692,9 +901,13 @@ class InferenceEngine:
     def _finish_chunk(self, pending) -> None:
         """Pull a dispatched chunk's tokens (the pipeline's sync point),
         deliver each slot's run up to its cut-off, release finished
-        slots and advance the confirmed lengths."""
-        toks_dev, entries = pending
+        slots and advance the confirmed lengths. A spec chunk's tokens
+        are [chunk, slots, k+1] with counts [chunk, slots]: the first
+        counts[t, i] entries of step t are valid."""
+        toks_dev, counts_dev, entries = pending
         toks_np = toks_dev.cpu().numpy()
+        counts_np = counts_dev.cpu().numpy() if counts_dev is not None \
+            else None
         now = time.perf_counter()
         delivered = 0
         base = {i: int(self._conf_lengths[i]) for i, _ in entries}
@@ -702,7 +915,13 @@ class InferenceEngine:
             if self._slots[i] is not req:
                 continue   # finished earlier / slot re-admitted
             p = req.params
-            flat = toks_np[:, i]
+            if counts_np is not None:
+                # The valid tokens of every verify step, in step order.
+                c = counts_np[:, i]
+                flat = toks_np[:, i, :][np.arange(toks_np.shape[2])[None]
+                                        < c[:, None]]
+            else:
+                flat = toks_np[:, i]
             total = int(flat.shape[0])
             # Tokens up to AND including the first EOS; at most
             # max_new_tokens in all; positions below max_seq_len - 1.
@@ -719,6 +938,12 @@ class InferenceEngine:
                 req.generated += n_del
                 delivered += n_del
                 base[i] += n_del
+            if counts_np is not None:
+                # A verify step counts in full if its run began before
+                # the cut-off (which may land inside the run).
+                began = (np.cumsum(c) - c) < max(n_del, 1)
+                self.perf['spec_verify_steps'] += int(began.sum())
+                self.perf['spec_accepted'] += int((c[began] - 1).sum())
             if n_raw <= total:
                 self._release(i)
         for i, req in entries:

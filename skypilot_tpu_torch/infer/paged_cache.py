@@ -15,14 +15,47 @@ slots keep decoding with an all-zero table row and a stale length, so
 their appends land in page 0 (the page index is clipped to the row)
 and the paged kernel reads only page 0 for them.
 
+int8 KV (kv_dtype='int8'): the k/v pools hold int8 codes and two f32
+scale pools [n_layers, n_pages, kv_heads, page_size] hold one scale per
+token and head: scale = amax/127 over head_dim (amax 0 -> scale 1), so an
+append never re-scales settled entries. The never-written dummy page
+keeps scale 0 and dequantizes to zeros, like the float pool's zero init.
+
 The device-side statics update the pools IN PLACE (the JAX package
 returns new arrays; in-place updates save a pool copy per call).
 """
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+# KV pool modes ('auto': the model's compute dtype, no quantization).
+KV_DTYPES = ('auto', 'int8')
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [..., d] float -> (int8 [..., d], f32 scale [...]): symmetric
+    per-row (per token, per head) scale amax/127, rounded half to even
+    and clipped to +-127. Rows with amax 0 get scale 1, so zero KV stays
+    exactly zero."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _run_pages(tables: torch.Tensor, start: torch.Tensor, s: int,
+               page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Page and in-page offset of positions start[b] + j, j < s, for
+    every slot: ([slots * s], [slots * s]). The page index is clipped to
+    the table row, so a released slot (all-zero row, stale length)
+    writes into dummy page 0."""
+    mp = tables.shape[1]
+    pos = start.long()[:, None] + torch.arange(s, device=start.device)
+    page = torch.gather(tables.long(), 1, (pos // page_size).clamp(0, mp - 1))
+    return page.reshape(-1), (pos % page_size).reshape(-1)
 
 
 @dataclasses.dataclass
@@ -52,13 +85,24 @@ class PagePool:
 
     def __init__(self, cfg: PagedConfig, n_layers: int, kv_heads: int,
                  head_dim: int, num_slots: int, dtype: torch.dtype,
-                 device: torch.device) -> None:
+                 device: torch.device, kv_dtype: str = 'auto') -> None:
         self.cfg = cfg
         self.num_slots = num_slots
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f'kv_dtype must be one of {KV_DTYPES}, '
+                             f'got {kv_dtype!r}')
+        quantized = kv_dtype == 'int8'
         # Page-major: one page holds all kv heads ([H, P, d] contiguous).
         shape = (n_layers, cfg.n_pages, kv_heads, cfg.page_size, head_dim)
-        self.pools = {'k': torch.zeros(shape, dtype=dtype, device=device),
-                      'v': torch.zeros(shape, dtype=dtype, device=device)}
+        pool_dtype = torch.int8 if quantized else dtype
+        self.pools: Optional[Dict[str, torch.Tensor]] = {
+            'k': torch.zeros(shape, dtype=pool_dtype, device=device),
+            'v': torch.zeros(shape, dtype=pool_dtype, device=device)}
+        if quantized:
+            for name in ('k_scale', 'v_scale'):
+                self.pools[name] = torch.zeros(shape[:-1],
+                                               dtype=torch.float32,
+                                               device=device)
         # Page 0 is the dummy; never allocated.
         self._free: List[int] = list(range(1, cfg.n_pages))
         self._owned: List[List[int]] = [[] for _ in range(num_slots)]
@@ -138,11 +182,81 @@ class PagePool:
         new_kv:  [slots, H, d] — written at position lengths[slot]
         tables:  [slots, max_pages] int
         lengths: [slots] int"""
-        p = pool.shape[2]
-        mp = tables.shape[1]
-        lengths = lengths.long()
-        page = torch.gather(tables.long(), 1,
-                            (lengths // p).clamp(0, mp - 1)[:, None])[:, 0]
-        off = lengths % p
+        page, off = _run_pages(tables, lengths, 1, pool.shape[2])
         pool[page, :, off] = new_kv.to(pool.dtype)
         return pool
+
+    @staticmethod
+    def append_tokens_layer(pool: torch.Tensor, new_kv: torch.Tensor,
+                            tables: torch.Tensor,
+                            start: torch.Tensor) -> torch.Tensor:
+        """Scatter a short run of tokens per slot (the speculative
+        verify step's s = k+1), one layer, in place.
+
+        pool:   [n_pages, H, P, d]
+        new_kv: [slots, s, H, d] — token j of slot b at start[b] + j
+        tables: [slots, max_pages] int
+        start:  [slots] int"""
+        slots, s, h, d = new_kv.shape
+        page, off = _run_pages(tables, start, s, pool.shape[2])
+        pool[page, :, off] = new_kv.reshape(slots * s, h, d).to(pool.dtype)
+        return pool
+
+    # ------------------------------------------ int8-quantized statics
+    @staticmethod
+    def insert_prompt_q(pool: torch.Tensor, scale_pool: torch.Tensor,
+                        prompt_kv: torch.Tensor, page_ids: torch.Tensor,
+                        src_off: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """insert_prompt into an int8 pool: the codes into pool
+        [L, n_pages, H, P, d], the per-token per-head scales into
+        scale_pool [L, n_pages, H, P], in place."""
+        n = page_ids.shape[0]
+        l, _, _, h, d = prompt_kv.shape
+        p = pool.shape[3]
+        chunk = prompt_kv[:, 0, src_off:src_off + n * p]   # [L, n*P, H, d]
+        q, s = quantize_kv(chunk.reshape(l, n, p, h, d).transpose(2, 3))
+        ids = page_ids.long()
+        pool[:, ids] = q
+        scale_pool[:, ids] = s
+        return pool, scale_pool
+
+    @staticmethod
+    def gather_view_layer_q(pool: torch.Tensor, scale_pool: torch.Tensor,
+                            tables: torch.Tensor,
+                            dtype: torch.dtype) -> torch.Tensor:
+        """Dequantizing gather_view_layer: pool [n_pages, H, P, d] int8
+        and scale_pool [n_pages, H, P] -> [slots, max_pages*P, H, d] at
+        `dtype` (code * scale in f32, then cast)."""
+        _, h, p, d = pool.shape
+        slots, mp = tables.shape
+        t = tables.long()
+        v = pool[t].float() * scale_pool[t][..., None]
+        return v.to(dtype).transpose(2, 3).reshape(slots, mp * p, h, d)
+
+    @staticmethod
+    def append_token_layer_q(pool: torch.Tensor, scale_pool: torch.Tensor,
+                             new_kv: torch.Tensor, tables: torch.Tensor,
+                             lengths: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """append_token_layer into an int8 pool: quantize each slot's row
+        and scatter code and scale, in place."""
+        page, off = _run_pages(tables, lengths, 1, pool.shape[2])
+        q, s = quantize_kv(new_kv)             # [slots, H, d], [slots, H]
+        pool[page, :, off] = q
+        scale_pool[page, :, off] = s
+        return pool, scale_pool
+
+    @staticmethod
+    def append_tokens_layer_q(pool: torch.Tensor, scale_pool: torch.Tensor,
+                              new_kv: torch.Tensor, tables: torch.Tensor,
+                              start: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """append_tokens_layer into an int8 pool (new_kv [slots, s, H,
+        d]), in place."""
+        slots, s, h, d = new_kv.shape
+        page, off = _run_pages(tables, start, s, pool.shape[2])
+        q, sc = quantize_kv(new_kv.reshape(slots * s, h, d))
+        pool[page, :, off] = q
+        scale_pool[page, :, off] = sc
+        return pool, scale_pool

@@ -19,14 +19,22 @@ def build_engine(model_name: str = 'llama3-8b',
                  dtype: str = 'bfloat16',
                  device=None,
                  seed: int = 0,
-                 params: Optional[Dict[str, torch.Tensor]] = None
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 spec_decode: int = 0,
+                 kv_dtype: str = 'auto',
+                 draft_model_name: Optional[str] = None
                  ) -> engine_lib.InferenceEngine:
     """Paged-cache engine serving preset `model_name` on `device`
     (None -> 'cuda'; raises without CUDA unless device='cpu'), weights
     and activations in `dtype`. params: a state_dict to load (for example
     models.weights.params_from_jax of a JAX tree); otherwise random
     weights drawn from a torch.Generator seeded with `seed` on the
-    device."""
+    device. spec_decode / kv_dtype pass through to the engine (n-gram
+    speculative decoding, int8 KV). A draft model (draft_model_name) is
+    not ported and raises."""
+    if draft_model_name:
+        raise NotImplementedError('the draft-model proposer is not ported; '
+                                  'spec_decode uses the n-gram proposer')
     dev = device_lib.resolve_device(device)
     if model_name not in llama.CONFIGS:
         raise ValueError(f'unknown model {model_name!r}; presets: '
@@ -46,4 +54,5 @@ def build_engine(model_name: str = 'llama3-8b',
         model.init_weights(gen)
     return engine_lib.InferenceEngine(
         model, num_slots=num_slots, max_seq_len=model.cfg.max_seq_len,
-        decode_chunk=decode_chunk, page_size=page_size, device=dev)
+        decode_chunk=decode_chunk, page_size=page_size,
+        spec_decode=spec_decode, kv_dtype=kv_dtype, device=dev)

@@ -11,14 +11,16 @@ Attention has four branches, as LlamaAttention there:
     on the card the flash kernel, unpacked;
   * dense cache with segment ids: the packed ragged prefill, flash with
     segment masks;
-  * paged cache (k_pool, v_pool, tables) with one token per slot: the
-    token's K/V are appended into its page and the paged decode kernel
-    attends the slot's pages.
+  * paged cache (k_pool, v_pool, tables), plus (k_scale, v_scale) for
+    int8 pools: each slot's s tokens are appended into its pages at
+    positions[:, 0] + j, then a paged decode kernel attends the slot's
+    pages — the single-query kernel for s == 1, the multi-query one for
+    the speculative verify step (s = k+1), their int8 variants for
+    quantized pools.
 
-Not ported here (raise NotImplementedError): quantized weights, LoRA
-adapters, paged attention with more than one token per slot
-(speculative decode) and int8 KV pools. The Qwen/Gemma/Mistral family
-knobs of the JAX LlamaConfig wait for a later slice.
+Not ported here (raise NotImplementedError): quantized weights and LoRA
+adapters. The Qwen/Gemma/Mistral family knobs of the JAX LlamaConfig
+wait for a later slice.
 """
 import dataclasses
 import math
@@ -133,7 +135,8 @@ class LlamaAttention(nn.Module):
                 positions=None):
         """cache: None, a dense (k, v) pair of [B, S_cache, Hkv, Hd], or
         a paged (k_pool [n_pages, Hkv, P, Hd], v_pool, tables [B, mp])
-        triple for one layer. Caches are written in place."""
+        triple for one layer, with (k_scale, v_scale) [n_pages, Hkv, P]
+        appended for int8 pools. Caches are written in place."""
         cfg = self.cfg
         h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         b, s, _ = x.shape
@@ -144,19 +147,11 @@ class LlamaAttention(nn.Module):
         if cache is None:
             out = attention_ops.attention(q, k, v, causal=True,
                                           segment_ids=segment_ids)
-        elif len(cache) == 3:
-            k_pool, v_pool, tables = cache
+        elif len(cache) in (3, 5):
             if positions is None:
                 raise ValueError('the paged cache path needs positions')
-            if s != 1:
-                raise NotImplementedError(
-                    'paged attention over more than one token per slot '
-                    '(speculative decode) is not ported')
-            pos = positions[:, 0].to(torch.int32).contiguous()
-            PagePool.append_token_layer(k_pool, k[:, 0], tables, pos)
-            PagePool.append_token_layer(v_pool, v[:, 0], tables, pos)
-            out = paged_attention.paged_decode_attention(
-                q[:, 0].contiguous(), k_pool, v_pool, tables, pos)[:, None]
+            out = self._paged(q, k, v, cache,
+                              positions[:, 0].to(torch.int32).contiguous())
         elif len(cache) == 2:
             k_cache, v_cache = cache
             if positions is None:
@@ -185,9 +180,40 @@ class LlamaAttention(nn.Module):
                 out = attention_ops.mha_reference(
                     q, k_cache, v_cache, q_positions=positions)
         else:
-            raise NotImplementedError(
-                'int8 (quantized) KV pools are not ported')
+            raise ValueError(f'a layer cache has 2, 3 or 5 entries, got '
+                             f'{len(cache)}')
         return self.wo(out.reshape(b, s, h * hd))
+
+    @staticmethod
+    def _paged(q, k, v, cache, pos):
+        """Append the s new tokens of every slot (token j at pos + j)
+        into the pools, then attend the slot's pages."""
+        s = q.shape[1]
+        if len(cache) == 5:
+            k_pool, v_pool, tables, k_scale, v_scale = cache
+            if s == 1:
+                PagePool.append_token_layer_q(k_pool, k_scale, k[:, 0],
+                                              tables, pos)
+                PagePool.append_token_layer_q(v_pool, v_scale, v[:, 0],
+                                              tables, pos)
+                return paged_attention.paged_decode_attention_q(
+                    q[:, 0].contiguous(), k_pool, v_pool, k_scale, v_scale,
+                    tables, pos)[:, None]
+            PagePool.append_tokens_layer_q(k_pool, k_scale, k, tables, pos)
+            PagePool.append_tokens_layer_q(v_pool, v_scale, v, tables, pos)
+            return paged_attention.paged_decode_attention_mq_q(
+                q.contiguous(), k_pool, v_pool, k_scale, v_scale, tables,
+                pos)
+        k_pool, v_pool, tables = cache
+        if s == 1:
+            PagePool.append_token_layer(k_pool, k[:, 0], tables, pos)
+            PagePool.append_token_layer(v_pool, v[:, 0], tables, pos)
+            return paged_attention.paged_decode_attention(
+                q[:, 0].contiguous(), k_pool, v_pool, tables, pos)[:, None]
+        PagePool.append_tokens_layer(k_pool, k, tables, pos)
+        PagePool.append_tokens_layer(v_pool, v, tables, pos)
+        return paged_attention.paged_decode_attention_mq(
+            q.contiguous(), k_pool, v_pool, tables, pos)
 
 
 class LlamaBlock(nn.Module):
@@ -245,7 +271,8 @@ class LlamaModel(nn.Module):
 
         cache: optional {'k': [L, ...], 'v': [L, ...]} — dense
         [L, B, S_cache, Hkv, Hd] for prefill, or the paged pools
-        [L, n_pages, Hkv, P, Hd] plus 'tables' [B, mp] for decode —
+        [L, n_pages, Hkv, P, Hd] plus 'tables' [B, mp] for decode (and
+        'k_scale'/'v_scale' [L, n_pages, Hkv, P] for int8 pools) —
         updated in place; the return is then (logits, cache). With a
         dense cache, positions None means a fresh prefill at 0..S-1.
 
@@ -266,6 +293,8 @@ class LlamaModel(nn.Module):
                 lc = (cache['k'][i], cache['v'][i])
                 if tables is not None:
                     lc = lc + (tables,)
+                    if 'k_scale' in cache:
+                        lc = lc + (cache['k_scale'][i], cache['v_scale'][i])
             x = layer(x, cos, sin, segment_ids, lc, positions)
         x = self.final_norm(x)
         if logit_positions is not None:

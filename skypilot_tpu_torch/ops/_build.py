@@ -50,7 +50,7 @@ _SIGNATURES = {
                   [_P, _P, _P, _P, _P, _P] + [_LL] * 9 +
                   [_I, _I, _I, _I, _I, _I, _I, _F, _P]),
     'paged_decode': ('skyt_paged_decode',
-                     [_P] * 8 + [_I] * 7 + [_F, _P]),
+                     [_P] * 10 + [_I] * 9 + [_F, _P]),
 }
 
 

@@ -29,6 +29,9 @@ def _var(name: str, typ: str, default: Any, doc: str) -> None:
 _var('SKYT_DEBUG', 'bool', False, 'Debug-level logging.')
 _var('SKYT_MINIMIZE_LOGGING', 'bool', False,
      'Warnings and errors only.')
+_var('SKYT_KV_DTYPE', 'str', 'auto',
+     "Paged KV cache dtype when the engine's kv_dtype is 'auto': 'auto' "
+     "(the model dtype) or 'int8' (per-token, per-head scales).")
 _var('SKYT_TORCH_BUILD_DIR', 'str', '',
      'Where the CUDA kernels are built (default: the package\'s '
      '_build/ directory).')

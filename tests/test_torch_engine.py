@@ -218,11 +218,22 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         torch_engine.InferenceEngine(model)
 
 
-@pytest.mark.parametrize('kw', [{'prefix_caching': True},
-                                {'spec_decode': 2},
-                                {'prefill_chunk': 64},
-                                {'kv_dtype': 'int8'}])
-def test_unported_engine_options_raise(kw):
+@pytest.mark.parametrize('kw,exc', [
+    ({'prefix_caching': True}, NotImplementedError),
+    ({'kv_dtype': 'fp8'}, ValueError),
+    ({'prefill_chunk': 64}, NotImplementedError),
+    ({'spec_decode': 2, 'draft_model': object()}, NotImplementedError),
+    ({'mesh': object()}, NotImplementedError),
+    ({'lockstep': object()}, NotImplementedError)])
+def test_unported_engine_options_raise(kw, exc):
+    """Options the port does not take: the unported ones raise
+    NotImplementedError, an unknown explicit kv_dtype ValueError."""
     model = llama.LlamaModel(llama.CONFIGS['debug'])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         torch_engine.InferenceEngine(model, device='cpu', **kw)
+
+
+def test_build_engine_refuses_a_draft_model():
+    with pytest.raises(NotImplementedError, match='draft'):
+        torch_server.build_engine('debug', device='cpu', spec_decode=2,
+                                  draft_model_name='debug')
