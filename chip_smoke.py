@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the full smoke, one card
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
     python3 chip_smoke.py --profile  # also profile one decode chunk
+                                     # (bf16 and LoRA engines)
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi), and the build of
@@ -14,7 +15,15 @@ Phases (any failure exits non-zero and prints no result line):
      paged decode kernels — one query per slot (q [8, 32, 128]) or the
      verify step's four (q [8, 4, 32, 128]), over bf16 pools
      [257, 8, 64, 128] or int8 ones from quantize_kv with f32 scales
-     [257, 8, 64];
+     [257, 8, 64]; and the two grouped-LoRA kernels (LORA_CASES), as
+     the delta and added in place into y, ids mixing 0 and three
+     adapters at rank 16 (one rank 8, zero-padded): the gather kernel
+     at decode ([8, 1, 4096] -> 14336 and [8, 1, 14336] -> 4096), the
+     verify step ([8, 4, 4096]) and a lone admission ([1, 512, 4096]),
+     the grouped kernel on the burst's packed row ([1, 2048, 4096],
+     segment ids and 0 padding) and on random per-token ids, and small
+     widths that are not multiples of 8 or of the tiles; id-0 rows must
+     be exact zeros (or exactly y);
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -28,7 +37,15 @@ Phases (any failure exits non-zero and prints no result line):
      repeated prompt in the burst and at least one verify step; each
      must launch its kernel, and one paged step (s = 1 for (a), the
      s = 4 verify step for (b) and (c)) on a fixed prefilled cache must
-     match its plain version within LOGIT_REL_L2 (check_step);
+     match its plain version within LOGIT_REL_L2 (check_step). Last, a
+     fifth engine, build_engine(..., lora_stack=) on the same weights
+     (same seed) with three random adapters (ranks 16, 8, 16, alpha 32,
+     16, 32, on all seven projections): the burst on adapters 1, 2, 0, 3
+     in one ragged row, the lone prompt on adapter 2. Both LoRA kernels
+     must launch, the id-0 request's tokens must equal the bf16 run's,
+     a decode step (s = 1 and 4) and a per-token prefill must match
+     their plain versions within LOGIT_REL_L2, and the adapters must
+     move an adapter slot's step logits (an id-0 slot's not at all);
   4. kernel timings: device time per call from CUDA events around a
      replayed CUDA graph of many calls (eager_ms: the same with Python's
      launch overhead), for the kernel, its plain version and one PyTorch
@@ -327,37 +344,189 @@ def check_family(gen):
     return res
 
 
+def lora_operands(gen, din, dout, ranks, alphas=None):
+    """A stack of len(ranks) random adapters on the card: A [N, in, rmax],
+    B [N, rmax, out] bf16 (id 0 all zeros, lower ranks zero-padded),
+    scaling [N] f32 = alpha/rank (alpha 2*rank unless given). A ~
+    N(0, 1/in) and B ~ N(0, 1/r): deltas of about the scale's size for
+    x ~ N(0, 1)."""
+    import torch
+    rmax = max(ranks)
+    n = len(ranks) + 1
+    alphas = alphas or [2.0 * r for r in ranks]
+    a = torch.zeros((n, din, rmax), dtype=torch.bfloat16, device='cuda')
+    b = torch.zeros((n, rmax, dout), dtype=torch.bfloat16, device='cuda')
+    for i, r in enumerate(ranks, 1):
+        a[i, :, :r] = torch.randn((din, r), generator=gen,
+                                  device='cuda') / math.sqrt(din)
+        b[i, :r] = torch.randn((r, dout), generator=gen,
+                               device='cuda') / math.sqrt(r)
+    scaling = torch.tensor([0.0] + [al / r for al, r in zip(alphas, ranks)],
+                           dtype=torch.float32, device='cuda')
+    return a, b, scaling
+
+
+# The burst's adapters: request j of BURST runs on adapter BURST_LORA[j].
+BURST_LORA = (1, 2, 0, 3)
+SLOT_LORA = (1, 2, 0, 3, 1, 0, 2, 3)
+
+
+def burst_lora_row(total):
+    """Per-token ids of the engine's packed burst row: segment j+1 takes
+    BURST_LORA[j]; page tails and the row's padding take 0."""
+    import numpy as np
+    seg = packed_segments(BURST, 64, total)
+    return np.where(seg > 0, np.asarray((0,) + BURST_LORA)[seg], 0).astype(
+        np.int32)
+
+
+# Kernels 6-7 cases: (name, B, S, in, out, ranks, ids: per-sequence list,
+# 'burst' or 'random' per-token). Ranks 16 / 8 / 16 are the slice's
+# (rank 8 padded to 16); the small cases cover rank 4 and ranks that are
+# not multiples of 8, widths that are not multiples of 8 or of the
+# kernel's tiles, and ragged token tails.
+LORA_CASES = (
+    ('gather_decode', 8, 1, 4096, 14336, (16, 8, 16), SLOT_LORA),
+    ('gather_decode_down', 8, 1, 14336, 4096, (16, 8, 16), SLOT_LORA),
+    ('gather_verify', 8, 4, 4096, 14336, (16, 8, 16), SLOT_LORA),
+    ('gather_lone', 1, 512, 4096, 14336, (16, 8, 16), (2,)),
+    ('grouped_burst', 1, 2048, 4096, 14336, (16, 8, 16), 'burst'),
+    ('grouped_random', 2, 199, 4096, 1024, (16, 8, 16), 'random'),
+    ('gather_odd', 3, 5, 64, 32, (4, 2, 4), (1, 0, 2)),
+    ('grouped_odd', 2, 9, 64, 32, (4, 2, 4), 'random'),
+    ('gather_ragged', 3, 21, 100, 37, (12, 5, 12), (3, 1, 0)),
+    ('grouped_ragged', 2, 23, 100, 37, (12, 5, 12), 'random'),
+)
+
+
+def lora_case_inputs(gen, case):
+    """(x, a, b, ids, scale) on the card for one LORA_CASES entry."""
+    import numpy as np
+    import torch
+    _, bsz, s, din, dout, ranks, ids = case
+    x = torch.randn((bsz, s, din), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    a, b, scaling = lora_operands(gen, din, dout, ranks)
+    if ids == 'burst':
+        ids_np = burst_lora_row(s)
+    elif ids == 'random':
+        ids_np = np.random.default_rng(SEED + 3).integers(
+            0, len(ranks) + 1, (bsz, s)).astype(np.int32)
+    else:
+        ids_np = np.asarray(ids, np.int32)
+    ids_t = torch.as_tensor(ids_np, device='cuda')
+    return x, a, b, ids_t, scaling[ids_t.long()]
+
+
+def check_lora(gen):
+    """Kernels 6-7 against their plain versions (LORA_CASES), as the delta
+    and added in place into a projection output y. Rows with id 0 must be
+    exact zeros (delta) or exactly y (in place)."""
+    import torch
+    from skypilot_tpu_torch.ops import lora as lora_ops
+    res = {}
+    for case in LORA_CASES:
+        name = case[0]
+        x, a, b, ids, scale = lora_case_inputs(gen, case)
+        per_token = ids.dim() == 2
+        plain = lora_ops.lora_grouped_reference if per_token else \
+            lora_ops.lora_gather_reference
+        out = lora_ops.grouped_lora_delta(x, a, b, ids, scale)
+        ref = plain(x, a, b, ids, scale)
+        y = torch.randn(out.shape, generator=gen, device='cuda',
+                        dtype=torch.bfloat16)
+        fused = lora_ops.add_lora_delta_(y.clone(), x, a, b, ids, scale)
+        fused_ref = y + ref
+        torch.cuda.synchronize()
+        zero = (ids == 0) if per_token else (ids == 0)[:, None].expand(
+            x.shape[:2])
+        assert torch.isfinite(out.float()).all(), f'lora {name}: non-finite'
+        assert bool((out[zero] == 0).all()), f'lora {name}: id-0 rows not 0'
+        assert bool((fused[zero] == y[zero]).all()), \
+            f'lora {name}: in-place id-0 rows changed'
+        torch.testing.assert_close(out.float(), ref.float(), **TOL)
+        torch.testing.assert_close(fused.float(), fused_ref.float(), **TOL)
+        d_err, f_err = max_abs(out, ref), max_abs(fused, fused_ref)
+        ref_max = float(ref.float().abs().max())
+        kname = 'lora_grouped' if per_token else 'lora_gather'
+        _log(f'{kname} {name} x {list(x.shape)} -> {b.shape[-1]}, rank '
+             f'{a.shape[-1]}: delta max|out-ref| {d_err:.3e} (max|ref| '
+             f'{ref_max:.3e}), in place max|out-(y+ref)| {f_err:.3e} '
+             f'(atol=rtol=2e-2); {int(zero.sum())} id-0 rows exact')
+        res[name] = {'kernel': kname, 'shape': list(x.shape),
+                     'out': b.shape[-1], 'max_abs_err': max(d_err, f_err),
+                     'delta_err': d_err, 'fused_err': f_err,
+                     'ref_max': ref_max}
+    return res
+
+
 # ----------------------------------------------------------- phase 3
-def plain_last_logits(model, tokens, exact=False):
+def plain_proj(lora, i, name, linear, x):
+    """Layer i's projection `name` with its adapter delta from the plain
+    versions (JAX's y + d); lora: None or (stack, ids [B] or [B, S])."""
+    from skypilot_tpu_torch.ops import lora as lora_ops
+    y = linear(x)
+    if lora is None:
+        return y
+    stack, ids = lora
+    a, b = stack[f'layers.{i}.{name}']
+    plain = lora_ops.lora_grouped_reference if ids.dim() == 2 else \
+        lora_ops.lora_gather_reference
+    return y + plain(x, a, b, ids, stack['scaling'][ids])
+
+
+def plain_block(model, i, x, cos, sin, attend, lora):
+    """Layer i by hand: attend(q, k, v) [B, S, Hq, d] in the kernel's
+    place, every projection through plain_proj."""
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops import rope
+    cfg = model.cfg
+    b, s, _ = x.shape
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    layer = model.layers[i]
+    a, m = layer.attn, layer.mlp
+    hn = layer.attn_norm(x)
+    q = rope.apply_rope(plain_proj(lora, i, 'attn.wq', a.wq, hn).view(
+        b, s, h, hd), cos, sin)
+    k = rope.apply_rope(plain_proj(lora, i, 'attn.wk', a.wk, hn).view(
+        b, s, hk, hd), cos, sin)
+    v = plain_proj(lora, i, 'attn.wv', a.wv, hn).view(b, s, hk, hd)
+    out = attend(q, k, v)
+    x = x + plain_proj(lora, i, 'attn.wo', a.wo,
+                       out.to(model.dtype).reshape(b, s, h * hd))
+    hn = layer.mlp_norm(x)
+    hidden = F.silu(plain_proj(lora, i, 'mlp.w_gate', m.w_gate, hn)) * \
+        plain_proj(lora, i, 'mlp.w_up', m.w_up, hn)
+    return x + plain_proj(lora, i, 'mlp.w_down', m.w_down, hidden)
+
+
+def plain_last_logits(model, tokens, exact=False, lora=None):
     """The model's forward with flash's plain version in place of the
     kernel (exact=True: the same attention computed from f32 copies of
-    q, k, v, output rounded to the model dtype): last-position logits."""
+    q, k, v, output rounded to the model dtype) and the LoRA plain
+    versions in place of theirs: last-position logits."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import rope
     cfg = model.cfg
     b, s = tokens.shape
-    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = model.tok_embed.to(model.dtype)[tokens]
     pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    cos, sin = rope.rope_freqs(pos, hd, cfg.rope_theta,
+    cos, sin = rope.rope_freqs(pos, cfg.head_dim, cfg.rope_theta,
                                use_llama31_scaling=cfg.use_llama31_rope)
-    for layer in model.layers:
-        a = layer.attn
-        hn = layer.attn_norm(x)
-        q = rope.apply_rope(a.wq(hn).view(b, s, h, hd), cos, sin)
-        k = rope.apply_rope(a.wk(hn).view(b, s, hk, hd), cos, sin)
-        v = a.wv(hn).view(b, s, hk, hd)
+
+    def attend(q, k, v):
         if exact:
             q, k, v = q.float(), k.float(), v.float()
-        out, _ = fa.flash_attention_reference(q, k, v, causal=True)
-        x = x + a.wo(out.to(model.dtype).reshape(b, s, h * hd))
-        x = x + layer.mlp(layer.mlp_norm(x))
+        return fa.flash_attention_reference(q, k, v, causal=True)[0]
+    for i in range(len(model.layers)):
+        x = plain_block(model, i, x, cos, sin, attend, lora)
     return model.lm_head(model.final_norm(x)[:, -1:])[:, 0].float()
 
 
-def kernel_last_logits(model, tokens):
-    """The engine's lone-request prefill path (flash kernel, unpacked)."""
+def kernel_last_logits(model, tokens, lora=None):
+    """The engine's lone-request prefill path (flash kernel, unpacked;
+    lora: None or (stack, ids) through the LoRA kernels)."""
     import torch
     cfg = model.cfg
     b, s = tokens.shape
@@ -366,7 +535,8 @@ def kernel_last_logits(model, tokens):
     cache = {'k': torch.zeros(shape, dtype=model.dtype, device=dev),
              'v': torch.zeros(shape, dtype=model.dtype, device=dev)}
     lp = torch.full((b, 1), s - 1, dtype=torch.long, device=dev)
-    logits, _ = model(tokens, cache=cache, logit_positions=lp)
+    kw = {} if lora is None else {'lora': lora[0], 'lora_ids': lora[1]}
+    logits, _ = model(tokens, cache=cache, logit_positions=lp, **kw)
     return logits[:, 0].float()
 
 
@@ -414,28 +584,32 @@ def drain(q):
         toks.append(tok)
 
 
-def serve(eng, burst, params, lone):
+def serve(eng, burst, params, lone, lone_params=None):
     """Drive one engine as a user would: the burst submitted before
     start() (packed ragged prefill), drained, then the lone request. The
     launch counters are set to 0 just before and read just after.
     Returns (token lists, launches, burst TTFT max s, lone wall s)."""
     from skypilot_tpu_torch.infer import engine as engine_lib
     from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import lora as lora_ops
     from skypilot_tpu_torch.ops import paged_attention as pa
     fa.reset_launches()
     pa.reset_launches()
+    lora_ops.reset_launches()
     queues = [eng.submit(p, sp)[1] for p, sp in zip(burst, params)]
     eng.start()
     try:
         outs = [drain(q) for q in queues]
         burst_ttft = eng.perf_stats()['ttft_max_s']
         t_lone = time.perf_counter()
-        outs.append(eng.generate(lone, engine_lib.SamplingParams(
-            max_new_tokens=MAX_NEW)))
+        outs.append(eng.generate(lone, lone_params or
+                                 engine_lib.SamplingParams(
+                                     max_new_tokens=MAX_NEW)))
         lone_s = time.perf_counter() - t_lone
     finally:
         eng.stop()
-    launches = {'flash_fwd': fa.launches, **pa.launches}
+    launches = {'flash_fwd': fa.launches, **pa.launches,
+                **lora_ops.launches}
     vocab = eng.model.cfg.vocab_size
     for i, toks in enumerate(outs):
         assert len(toks) == MAX_NEW, f'request {i}: {len(toks)} tokens'
@@ -510,7 +684,7 @@ def run_engine(card):
          f'{decode_s / (MAX_NEW - 1) * 1e3:.1f} ms per token (1 live '
          f'slot); steady decode {perf.get("steady_decode_tok_s", 0):.1f} '
          f'tok/s over the run (8 slots, <= 4 live)')
-    res = {'launches': launches, 'warmup_request_s': cold_s,
+    res = {'launches': launches, 'outs': outs, 'warmup_request_s': cold_s,
            'burst_ttft_max_s': burst_ttft, 'lone_ttft_s': lone_ttft,
            'lone_ms_per_token': decode_s / (MAX_NEW - 1) * 1e3,
            'steady_decode_tok_s': perf.get('steady_decode_tok_s'),
@@ -584,50 +758,184 @@ def run_paths(model, card, bf16_ms_per_token):
     return out
 
 
+# The phase-3 adapters: ranks, alphas (scaling 2 each) and their seed.
+LORA_RANKS = (16, 8, 16)
+LORA_ALPHAS = (32.0, 16.0, 32.0)
+LORA_SEED = SEED + 11
+
+
+def random_adapter_trees(cfg):
+    """LORA_RANKS adapters on all seven projections in the training layout
+    (scanned: a leading layer axis; numpy f32 from a seeded generator).
+    A ~ N(0, 1/in) and B ~ N(0, 1/r) * 0.1 / (alpha/r): each delta is
+    about a tenth of its projection's RMS (the random base weights give
+    unit-RMS outputs for unit-RMS inputs)."""
+    import numpy as np
+    rng = np.random.default_rng(LORA_SEED)
+    d, q_out = cfg.dim, cfg.n_heads * cfg.head_dim
+    kv_out = cfg.n_kv_heads * cfg.head_dim
+    shapes = {'attn': {'wq': (d, q_out), 'wk': (d, kv_out),
+                       'wv': (d, kv_out), 'wo': (q_out, d)},
+              'mlp': {'w_gate': (d, cfg.mlp_dim), 'w_up': (d, cfg.mlp_dim),
+                      'w_down': (cfg.mlp_dim, d)}}
+    trees = []
+    for r, alpha in zip(LORA_RANKS, LORA_ALPHAS):
+        gain = np.float32(0.1 / (alpha / r) / math.sqrt(r))
+
+        def leaf(shape, scale):
+            x = rng.standard_normal(shape, dtype=np.float32)
+            x *= np.float32(scale)
+            return x
+        trees.append(({'layers': {scope: {name: {'kernel': {
+            'a': leaf((cfg.n_layers, i, r), 1.0 / math.sqrt(i)),
+            'b': leaf((cfg.n_layers, r, o), gain)}}
+            for name, (i, o) in projs.items()}
+            for scope, projs in shapes.items()}}, alpha))
+    return trees
+
+
+def check_lora_logits(model, stack, prompt):
+    """An unpacked prefill whose quarters run on adapters BURST_LORA
+    (per-token ids: the grouped kernel): last-token logits through the
+    kernels against the plain versions, rel L2 <= LOGIT_REL_L2."""
+    import numpy as np
+    import torch
+    dev = next(model.parameters()).device
+    n = len(prompt)
+    ids = np.asarray(BURST_LORA, np.int32)[
+        np.arange(n) * len(BURST_LORA) // n][None]
+    ids_t = torch.as_tensor(ids, device=dev)
+    with torch.inference_mode():
+        toks = torch.as_tensor([prompt], device=dev)
+        got = kernel_last_logits(model, toks, (stack, ids_t))
+        ref = plain_last_logits(model, toks, lora=(stack, ids_t))
+        torch.cuda.synchronize()
+    r = rel_l2(got, ref)
+    _log(f'LoRA prefill [1, {n}] with per-token ids {BURST_LORA} by '
+         f'quarter: last-token logits kernel vs plain rel L2 {r:.3e} (limit '
+         f'{LOGIT_REL_L2}), argmax equal '
+         f'{int(got.argmax()) == int(ref.argmax())}')
+    assert torch.isfinite(got).all(), 'non-finite logits'
+    assert r <= LOGIT_REL_L2, r
+    return {'rel': r}
+
+
+def run_lora(card, bf16_res, profile=False):
+    """The fifth engine: build_engine(..., lora_stack=) with three random
+    adapters (LORA_RANKS, padded to 16) on the same weights (the same
+    seed) as the bf16 run. The burst runs on adapters BURST_LORA in one
+    ragged row (the grouped kernel), the lone prompt on adapter 2 (the
+    gather kernel, then decode). Both LoRA kernels must launch, the id-0
+    request's tokens must equal the bf16 run's, and a decode step (s = 1
+    and s = 4) and a per-token prefill must match their plain versions."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import lora as lora_lib
+    from skypilot_tpu_torch.infer import server
+    from skypilot_tpu_torch.models import llama
+    t0 = time.perf_counter()
+    stack = lora_lib.place_stack(
+        lora_lib.build_stack(random_adapter_trees(llama.CONFIGS[MODEL]),
+                             dtype='bfloat16'), torch.bfloat16, 'cuda')
+    stack_s = time.perf_counter() - t0
+    eng = server.build_engine(MODEL, seed=SEED, lora_stack=stack)
+    nbytes = sum(a.numel() * 2 + b.numel() * 2
+                 for k, (a, b) in ((k, v) for k, v in stack.items()
+                                   if k != 'scaling'))
+    _log(f'LoRA stack: {eng.num_adapters} entries (id 0 + ranks '
+         f'{LORA_RANKS}, padded to 16) on {len(stack) - 1} projections, '
+         f'{nbytes / 2**20:.0f} MiB bf16, built in {stack_s:.1f}s')
+    burst, params, lone = traffic(eng.model.cfg.vocab_size)
+    for p, lid in zip(params, BURST_LORA):
+        p.lora_id = lid
+    lone_params = engine_lib.SamplingParams(max_new_tokens=MAX_NEW,
+                                            lora_id=2)
+    warm_up(eng, np.random.default_rng(SEED + 2))
+    outs, launches, burst_ttft, lone_s = serve(eng, burst, params, lone,
+                                               lone_params)
+    perf = eng.perf_stats()
+    assert perf['ragged_dispatches'] >= 1, 'no ragged admission ran'
+    assert perf['prefill_dispatches'] >= 2, 'no single prefill ran'
+    for k in ('flash_fwd', 'paged_decode', 'lora_gather', 'lora_grouped'):
+        assert launches[k] > 0, f'lora: {k} never launched'
+    j = BURST_LORA.index(0)
+    same = outs[j] == bf16_res['outs'][j]
+    _log(f'LoRA engine: the id-0 request (burst {j}) gives the bf16 run\'s '
+         f'tokens: {same}')
+    assert same, (outs[j], bf16_res['outs'][j])
+    lone_ttft = eng.ttfts()[-1]
+    ms_tok = (lone_s - lone_ttft) / (MAX_NEW - 1) * 1e3
+    _log(f'engine lora [{card}]: {len(outs)} requests x {MAX_NEW} tokens '
+         f'(adapters {BURST_LORA} + lone on 2); launches {launches}; burst '
+         f'TTFT max {burst_ttft * 1e3:.1f} ms; lone TTFT '
+         f'{lone_ttft * 1e3:.1f} ms, then {ms_tok:.1f} ms per token (bf16 '
+         f'run: {bf16_res["lone_ms_per_token"]:.1f}); steady decode '
+         f'{perf.get("steady_decode_tok_s", 0):.1f} tok/s')
+    prof = profile_decode(eng, card, SLOT_LORA) if profile else None
+    model = eng.model
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = check_step(model, False, 1, lora=stack)
+    verify = check_step(model, False, 4, lora=stack)
+    prefill = check_lora_logits(model, stack, lone)
+    return {'launches': launches, 'stack_build_s': stack_s,
+            'stack_mib': nbytes / 2**20, 'burst_ttft_max_s': burst_ttft,
+            'lone_ttft_s': lone_ttft, 'lone_ms_per_token': ms_tok,
+            'steady_decode_tok_s': perf.get('steady_decode_tok_s'),
+            'perf': perf, 'id0_equals_bf16': same,
+            'step_rel_kernel_plain': step['rel'],
+            'step_rel_adapter_vs_base': step['rel_adapter_vs_base'],
+            'verify_rel_kernel_plain': verify['rel'],
+            'prefill_rel_kernel_plain': prefill['rel'], 'profile': prof}
+
+
 def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def plain_step_logits(model, toks, positions, cache):
+def plain_step_logits(model, toks, positions, cache, lora=None):
     """The model's paged step (s tokens per slot) with each paged kernel's
-    plain version in its place; the same appends, in place on `cache`."""
+    plain version in its place (and the LoRA plain versions, lora: None or
+    (stack, ids [B])); the same appends, in place on `cache`."""
     import torch
-    from skypilot_tpu_torch.infer.paged_cache import PagePool
-    from skypilot_tpu_torch.ops import paged_attention as pa
     from skypilot_tpu_torch.ops import rope
     cfg = model.cfg
-    b, s = toks.shape
-    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = model.tok_embed[toks]
-    cos, sin = rope.rope_freqs(positions, hd, cfg.rope_theta,
+    cos, sin = rope.rope_freqs(positions, cfg.head_dim, cfg.rope_theta,
                                use_llama31_scaling=cfg.use_llama31_rope)
     pos = positions[:, 0].to(torch.int32).contiguous()
     tables = cache['tables']
-    for i, layer in enumerate(model.layers):
-        a = layer.attn
-        hn = layer.attn_norm(x)
-        q = rope.apply_rope(a.wq(hn).view(b, s, h, hd), cos, sin)
-        k = rope.apply_rope(a.wk(hn).view(b, s, hk, hd), cos, sin)
-        v = a.wv(hn).view(b, s, hk, hd)
-        kp, vp = cache['k'][i], cache['v'][i]
-        if 'k_scale' in cache:
-            ks, vs = cache['k_scale'][i], cache['v_scale'][i]
-            PagePool.append_tokens_layer_q(kp, ks, k, tables, pos)
-            PagePool.append_tokens_layer_q(vp, vs, v, tables, pos)
-            out = pa.paged_decode_attention_q_reference(
-                q[:, 0], kp, vp, ks, vs, tables, pos)[:, None] if s == 1 \
-                else pa.paged_decode_attention_mq_q_reference(
-                    q, kp, vp, ks, vs, tables, pos)
-        else:
-            PagePool.append_tokens_layer(kp, k, tables, pos)
-            PagePool.append_tokens_layer(vp, v, tables, pos)
-            out = pa.paged_decode_attention_reference(
-                q[:, 0], kp, vp, tables, pos)[:, None] if s == 1 \
-                else pa.paged_decode_attention_mq_reference(
-                    q, kp, vp, tables, pos)
-        x = x + a.wo(out.reshape(b, s, h * hd))
-        x = x + layer.mlp(layer.mlp_norm(x))
+    for i in range(len(model.layers)):
+        def attend(q, k, v, i=i):
+            return paged_plain(cache, i, q, k, v, tables, pos)
+        x = plain_block(model, i, x, cos, sin, attend, lora)
     return model.lm_head(model.final_norm(x)).float()
+
+
+def paged_plain(cache, i, q, k, v, tables, pos):
+    """Layer i's appends (in place on `cache`) and the paged kernels'
+    plain versions: [B, S, Hq, d]."""
+    from skypilot_tpu_torch.infer.paged_cache import PagePool
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    s = q.shape[1]
+    kp, vp = cache['k'][i], cache['v'][i]
+    if 'k_scale' in cache:
+        ks, vs = cache['k_scale'][i], cache['v_scale'][i]
+        PagePool.append_tokens_layer_q(kp, ks, k, tables, pos)
+        PagePool.append_tokens_layer_q(vp, vs, v, tables, pos)
+        if s == 1:
+            return pa.paged_decode_attention_q_reference(
+                q[:, 0], kp, vp, ks, vs, tables, pos)[:, None]
+        return pa.paged_decode_attention_mq_q_reference(
+            q, kp, vp, ks, vs, tables, pos)
+    PagePool.append_tokens_layer(kp, k, tables, pos)
+    PagePool.append_tokens_layer(vp, v, tables, pos)
+    if s == 1:
+        return pa.paged_decode_attention_reference(
+            q[:, 0], kp, vp, tables, pos)[:, None]
+    return pa.paged_decode_attention_mq_reference(q, kp, vp, tables, pos)
 
 
 # A fixed prefilled cache: four live slots of these prompt lengths, four
@@ -636,11 +944,15 @@ STEP_LIVE = (600, 64, 590, 300)
 STEP_FREED = (1000, 5, 2040, 77)
 
 
-def check_step(model, quant, s):
+def check_step(model, quant, s, lora=None):
     """One paged step of s tokens per slot (s = 1: decode; s = 4: verify)
     on a fixed prefilled cache (bf16 or int8 pools), through the kernels
     (the model's forward) and through their plain versions (the same
-    layers by hand): rel L2 of the live slots' logits <= LOGIT_REL_L2."""
+    layers by hand): rel L2 of the live slots' logits <= LOGIT_REL_L2.
+    With a LoRA stack the slots take SLOT_LORA's adapters (the gather
+    kernel) and the step also runs without the stack: an adapter slot's
+    logits must move by more than LOGIT_REL_L2, an id-0 slot's not at all
+    (its rows add nothing)."""
     import numpy as np
     import torch
     from skypilot_tpu_torch.infer.paged_cache import PagePool
@@ -687,25 +999,49 @@ def check_step(model, quant, s):
                                     device=dev)
         cache['tables'] = torch.as_tensor(tables, device=dev)
         copy = {k: v.clone() for k, v in cache.items()}
-        got, _ = model(toks, positions=positions, cache=cache)
-        ref = plain_step_logits(model, toks, positions, copy)
+        kw, plain_lora = {}, None
+        if lora is not None:
+            ids = torch.tensor(SLOT_LORA, dtype=torch.int32, device=dev)
+            kw, plain_lora = {'lora': lora, 'lora_ids': ids}, (lora, ids)
+            base_cache = {k: v.clone() for k, v in cache.items()}
+        got, _ = model(toks, positions=positions, cache=cache, **kw)
+        ref = plain_step_logits(model, toks, positions, copy, plain_lora)
+        if lora is not None:
+            base, _ = model(toks, positions=positions, cache=base_cache)
         torch.cuda.synchronize()
     live = len(STEP_LIVE)
     got, ref = got[:live].float(), ref[:live]
     assert torch.isfinite(got).all(), 'non-finite step logits'
     r = rel_l2(got, ref)
-    _log(f'{"int8" if quant else "bf16"} paged step s={s}: logits kernel vs '
+    label = ('int8' if quant else 'bf16') + (' + LoRA' if lora else '')
+    _log(f'{label} paged step s={s}: logits kernel vs '
          f'plain rel L2 {r:.3e} (limit {LOGIT_REL_L2}), argmax equal '
          f'{float((got.argmax(-1) == ref.argmax(-1)).float().mean()):.3f}')
     assert r <= LOGIT_REL_L2, r
-    return {'rel': r, 'logits': got}
+    res = {'rel': r, 'logits': got}
+    if lora is not None:
+        base = base[:live].float()
+        moved = [rel_l2(got[i], base[i]) for i in range(live)
+                 if SLOT_LORA[i] != 0]
+        still = [i for i in range(live) if SLOT_LORA[i] == 0]
+        _log(f'{label} step: adapter slots move their logits by rel L2 '
+             f'{", ".join(f"{m:.3e}" for m in moved)} against the base '
+             f'model; id-0 slots {still} equal to the base: '
+             f'{all(torch.equal(got[i], base[i]) for i in still)}')
+        assert min(moved) > LOGIT_REL_L2, moved
+        assert all(torch.equal(got[i], base[i]) for i in still)
+        res['rel_adapter_vs_base'] = moved
+    return res
 
 
-def profile_decode(eng, card):
+def profile_decode(eng, card, slot_lora=None):
     """Where a decode step's time goes: one 16-step chunk under
-    torch.profiler (host and device), summed by kernel."""
+    torch.profiler (host and device), summed by kernel. slot_lora: the
+    adapter id of each (stale) slot during the chunk, for a LoRA engine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if slot_lora is not None:
+        eng._d_lora.copy_(torch.tensor(slot_lora, dtype=torch.int32))
     with torch.inference_mode():
         eng._decode_n_impl(16, False).cpu()   # warm
         torch.cuda.synchronize()
@@ -719,7 +1055,9 @@ def profile_decode(eng, card):
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith('CUDA')]
     dev_us = sum(e.self_device_time_total for e in events)
-    _log(f'profile [{card}]: decode chunk of 16 steps x 8 slots: wall '
+    what = 'profile' if slot_lora is None else \
+        f'profile (LoRA, slots on adapters {list(slot_lora)})'
+    _log(f'{what} [{card}]: decode chunk of 16 steps x 8 slots: wall '
          f'{wall * 1e3 / 16:.2f} ms/step, device busy '
          f'{dev_us / 1e3 / 16:.2f} ms/step')
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
@@ -813,12 +1151,76 @@ def time_paged(gen, kname):
             else 'operations', 'flops': flops, 'bytes': nbytes}
 
 
+def time_lora(gen, case):
+    """Kernel 6 or 7 at one LORA_CASES shape: the kernel (the delta, and
+    added in place into y as the model runs it), its plain version, and
+    the nearest library path (no single PyTorch call gathers per-row
+    adapters: index_select of each sequence's, or token's, A and B, two
+    torch.bmm and the scale). The bound counts x, the output, the ids and
+    scales, and each distinct non-zero adapter's A and B once, and
+    2*r*(in + out) flops per token with an adapter."""
+    import torch
+    from skypilot_tpu_torch.ops import lora as lora_ops
+    x, a, b, ids, scale = lora_case_inputs(gen, case)
+    per_token = ids.dim() == 2
+    plain = lora_ops.lora_grouped_reference if per_token else \
+        lora_ops.lora_gather_reference
+    bsz, s, din = x.shape
+    r, dout = a.shape[-1], b.shape[-1]
+    y = torch.randn((bsz, s, dout), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+
+    def kernel():
+        return lora_ops.grouped_lora_delta(x, a, b, ids, scale)
+    ms = time_ms(kernel, 50)
+    launch_ms = eager_ms(kernel, 50)
+    fused_ms = time_ms(
+        lambda: lora_ops.add_lora_delta_(y, x, a, b, ids, scale), 50)
+    plain_ms = time_ms(lambda: plain(x, a, b, ids, scale), 5)
+    if per_token:
+        xs, rows, sc = x.reshape(-1, 1, din), ids.reshape(-1).long(), \
+            scale.reshape(-1)
+    else:
+        xs, rows, sc = x, ids.long(), scale
+
+    def library():
+        ga = a.index_select(0, rows)
+        gb = b.index_select(0, rows)
+        return torch.bmm(torch.bmm(xs, ga), gb) * sc[:, None, None].to(
+            x.dtype)
+    lib_ms = time_ms(library, 5)
+    tok_ids = ids if per_token else ids[:, None].expand(bsz, s)
+    adapted = int((tok_ids != 0).sum())
+    distinct = int(torch.unique(tok_ids[tok_ids != 0]).numel())
+    nbytes = 2 * (x.numel() + bsz * s * dout) + \
+        2 * distinct * r * (din + dout) + 4 * (ids.numel() + scale.numel())
+    flops = 2.0 * adapted * r * (din + dout)
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_flops = flops / BF16_FLOPS_PER_S * 1e3
+    return {'kernel': 'lora_grouped' if per_token else 'lora_gather',
+            'shape': list(x.shape), 'out': dout, 'rank': r, 'ms': ms,
+            'eager_ms': launch_ms, 'fused_ms': fused_ms,
+            'plain_ms': plain_ms, 'library_ms': None,
+            'index_bmm_ms': lib_ms,
+            'bound_ms': max(bound_bytes, bound_flops),
+            'bound_by': 'bytes' if bound_bytes >= bound_flops
+            else 'operations', 'flops': flops, 'bytes': nbytes,
+            'adapted_tokens': adapted, 'distinct_adapters': distinct}
+
+
+# Kernels 6-7 timed at these LORA_CASES shapes; the first of each kernel
+# goes into the {"kernels": [...]} line.
+LORA_TIMED = ('gather_decode', 'gather_decode_down', 'gather_verify',
+              'gather_lone', 'grouped_burst')
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--quick', action='store_true',
                     help='build and check the kernels only')
     ap.add_argument('--profile', action='store_true',
-                    help='also profile one decode chunk')
+                    help='also profile one decode chunk (bf16 and LoRA '
+                    'engines)')
     args = ap.parse_args()
 
     import torch
@@ -850,6 +1252,7 @@ def main() -> int:
         flash_res = check_flash(gen)
         paged_res = check_paged(gen)
         family_res = check_family(gen)
+        lora_res = check_lora(gen)
     if args.quick:
         _log(card)
         print(json.dumps({'ok': True, 'device': {
@@ -868,20 +1271,30 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    lora_run = run_lora(card, eng_res, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    cases = {c[0]: c for c in LORA_CASES}
     with torch.inference_mode():
         tf = time_flash(gen, 2048, packed_segments(BURST, 64, 2048))
         tf_causal = time_flash(gen, 512)
         tp = {k: time_paged(gen, k) for k in ('paged_decode', *FAMILY)}
+        tl = {c: time_lora(gen, cases[c]) for c in LORA_TIMED}
     timed = [('flash packed [1, 2048, 32, 128]', tf),
              ('flash unpacked causal [1, 512, 32, 128]', tf_causal)] + [
-        (f'{k} {t["shape"]}', t) for k, t in tp.items()]
+        (f'{k} {t["shape"]}', t) for k, t in tp.items()] + [
+        (f'{t["kernel"]} {c} {t["shape"]} -> {t["out"]}', t)
+        for c, t in tl.items()]
     for label, t in timed:
         lib = f'{t["library_ms"]:.4f}' if t['library_ms'] else 'none'
+        extra = (f'; in place into y {t["fused_ms"]:.4f} ms; index_select + '
+                 f'2 bmm {t["index_bmm_ms"]:.4f} ms'
+                 if 'fused_ms' in t else '')
         _log(f'{label} [{card}]: {t["ms"]:.4f} ms (eager '
              f'{t["eager_ms"]:.4f}), plain {t["plain_ms"]:.4f} ms, '
              f'library {lib} ms, bound {t["bound_ms"]:.4f} ms '
-             f'({t["bound_by"]})')
+             f'({t["bound_by"]}){extra}')
     # Each kernel's launches come from the run of the path it serves:
     # flash and kernel 2 from the bf16 run, kernels 3-5 from theirs.
     path_of = {kernel: label for label, _, kernel in PATHS}
@@ -909,12 +1322,30 @@ def main() -> int:
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': t['bound_by'], 'library_ms': None,
             'shape': t['shape']})
+    # Kernels 6-7: launches from the LoRA run; times at decode (gather)
+    # and the burst's packed row (grouped).
+    for k, case, line in (
+            ('lora_gather', 'gather_decode',
+             'skypilot_tpu/ops/lora.py:64 _gather_kernel'),
+            ('lora_grouped', 'grouped_burst',
+             'skypilot_tpu/ops/lora.py:74 _grouped_kernel')):
+        t = tl[case]
+        kernels.append({
+            'name': k, 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/lora.cu', 'replaces': line,
+            'launches': lora_run['launches'][k],
+            'max_abs_err': lora_res[case]['max_abs_err'], 'ms': t['ms'],
+            'kernel_ms': t['ms'], 'eager_ms': t['eager_ms'],
+            'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+            'bound_by': t['bound_by'], 'library_ms': None,
+            'index_bmm_ms': t['index_bmm_ms'], 'fused_ms': t['fused_ms'],
+            'shape': t['shape'] + [t['out']]})
     details = {'card': card, 'build_s': build_s, 'engine': eng_res,
-               'paths': paths_res,
+               'paths': paths_res, 'lora': lora_run,
                'flash_packed': tf, 'flash_causal_512': tf_causal,
-               'paged': tp, 'checks': {'flash': flash_res,
-                                       'paged': paged_res,
-                                       'family': family_res}}
+               'paged': tp, 'lora_timed': tl,
+               'checks': {'flash': flash_res, 'paged': paged_res,
+                          'family': family_res, 'lora': lora_res}}
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            'smoke_out')
     os.makedirs(out_dir, exist_ok=True)

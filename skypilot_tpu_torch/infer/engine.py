@@ -27,12 +27,22 @@ skypilot_tpu/infer/engine.py in paged mode).
     rule of speculative_sample_step. Near max_seq_len, where a verify
     run no longer fits, chunks take the plain path, which keeps the
     history current.
+  * Multi-LoRA (lora_stack=, infer/lora.py): every request names its
+    adapter by SamplingParams.lora_id (0: the base model). A ragged pack
+    carries per-token ids (each segment its request's id, padding 0: the
+    grouped kernel); a single admission the id [lora_id], and decode and
+    verify steps the per-slot ids (the gather kernel). The slot's id is
+    set at admission and reset to 0 at release. request_adapter_update
+    installs a new stack at a tick boundary (ids stable: in-flight
+    requests stay on their adapter); adapter_in_use backs the unload
+    refusal. int8 KV and spec_decode compose with it.
 
 Not ported (raise): presence/frequency penalties, logit_bias, logprobs,
-LoRA ids, deadlines, QoS classes and tenants, prefix caching, the draft
-model proposer, chunked prefill, meshes and multi-host lockstep. Not
-ported (absent): the dense (non-paged) cache mode, the padded batched
-admission, cancel, metrics and tracing.
+deadlines, QoS classes and tenants, prefix caching, the draft model
+proposer, chunked prefill, meshes and multi-host lockstep. Not ported
+(absent): the dense (non-paged) cache mode, the padded batched
+admission, cancel, metrics, tracing, and the weight swap and reshard
+(only the adapter stack hot-loads).
 """
 import collections
 import dataclasses
@@ -45,6 +55,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.infer import lora as lora_lib
 from skypilot_tpu_torch.infer import paged_cache
 from skypilot_tpu_torch.utils import device as device_lib
 from skypilot_tpu_torch.utils import env
@@ -93,12 +104,14 @@ class SamplingParams:
         if self.max_new_tokens < 1:
             raise ValueError(f'max_new_tokens must be >= 1, got '
                              f'{self.max_new_tokens}')
+        if not isinstance(self.lora_id, int) or self.lora_id < 0:
+            raise ValueError(f'lora_id must be an int >= 0, got '
+                             f'{self.lora_id!r}')
         unported = {
             'presence_penalty': self.presence_penalty != 0.0,
             'frequency_penalty': self.frequency_penalty != 0.0,
             'logprobs': bool(self.logprobs),
             'logit_bias': bool(self.logit_bias),
-            'lora_id': self.lora_id != 0,
             'deadline': self.deadline is not None,
             'priority': self.priority != 'standard',
             'tenant': self.tenant != '',
@@ -272,15 +285,19 @@ class InferenceEngine:
                  prefill_chunk: int = 0,
                  kv_dtype: str = 'auto',
                  mesh=None, lockstep=None,
-                 draft_model=None, device=None) -> None:
+                 draft_model=None, device=None,
+                 lora_stack=None) -> None:
         """model: a models.llama.LlamaModel holding its weights on
         `device` (None -> 'cuda'; raises without CUDA unless 'cpu').
         spec_decode: draft length k of n-gram speculative decoding (0:
         off). kv_dtype: 'int8' quantizes the paged pools; 'auto' defers
         to SKYT_KV_DTYPE, then to the model dtype; anything else
-        explicit raises ValueError. prefix_caching, prefill_chunk, mesh,
-        lockstep and a draft model exist in the JAX engine and are not
-        ported yet: anything but their defaults raises."""
+        explicit raises ValueError. lora_stack: a multi-LoRA stack
+        (infer/lora.py), validated against the model and placed on the
+        engine's device in the model dtype once. prefix_caching,
+        prefill_chunk, mesh, lockstep and a draft model exist in the JAX
+        engine and are not ported yet: anything but their defaults
+        raises."""
         unported = {'prefix_caching': bool(prefix_caching),
                     'prefill_chunk': prefill_chunk > 0,
                     'mesh': mesh is not None,
@@ -364,6 +381,18 @@ class InferenceEngine:
         self._d_temps = torch.zeros((n,), dtype=torch.float32, device=dev)
         self._d_topks = torch.zeros((n,), dtype=torch.int32, device=dev)
         self._d_topps = torch.ones((n,), dtype=torch.float32, device=dev)
+        # Multi-LoRA: the live stack (None: no adapters), its entry count
+        # (id 0 included), and each slot's adapter id, on the host and as
+        # the device copy the decode steps read.
+        self._lora_stack = None
+        self.num_adapters = 0
+        if lora_stack is not None:
+            self._lora_stack = self._place_stack(lora_stack)
+            self.num_adapters = int(lora_stack['scaling'].shape[0])
+        self._slot_lora = np.zeros((n,), np.int32)
+        self._d_lora = torch.zeros((n,), dtype=torch.int32, device=dev)
+        # The one pending adapter update (applied at a tick boundary).
+        self._swap_req: Optional[Dict[str, Any]] = None
         self._next_id = 0
         self._lock = threading.Lock()
         self._stop = threading.Event()
@@ -375,7 +404,19 @@ class InferenceEngine:
             maxlen=512)
 
     # ------------------------------------------------------- device work
-    def _prefill_impl(self, tokens: torch.Tensor, length: int):
+    def _lora_kw(self, lora_ids) -> Dict[str, Any]:
+        """The model's adapter arguments (none without a stack): the live
+        stack and `lora_ids` ([B] or [B, S] int32, numpy or a device
+        tensor)."""
+        if self._lora_stack is None:
+            return {}
+        if not isinstance(lora_ids, torch.Tensor):
+            lora_ids = torch.as_tensor(np.asarray(lora_ids, np.int32),
+                                       device=self.device)
+        return {'lora': self._lora_stack, 'lora_ids': lora_ids}
+
+    def _prefill_impl(self, tokens: torch.Tensor, length: int,
+                      lora_id: int = 0):
         """tokens [1, bucket]: (greedy [1], logits [1, V] f32, prefill
         cache {'k','v'} [L, 1, bucket, H, d])."""
         b, s = tokens.shape
@@ -388,14 +429,17 @@ class InferenceEngine:
         logit_pos = torch.full((b, 1), length - 1, dtype=torch.long,
                                device=self.device)
         logits, cache = self.model(tokens, cache=cache,
-                                   logit_positions=logit_pos)
+                                   logit_positions=logit_pos,
+                                   **self._lora_kw([lora_id]))
         logits = logits[:, 0, :].float()
         return logits.argmax(dim=-1), logits, cache
 
-    def _prefill_ragged_impl(self, tokens, seg_ids, positions, logit_pos):
+    def _prefill_ragged_impl(self, tokens, seg_ids, positions, logit_pos,
+                             lora_row=None):
         """Packed prefill of several prompts in ONE [1, T] row, separated
-        by segment ids (padding carries id 0). Returns (greedy [Bp],
-        logits [Bp, V] f32, packed dense cache [L, 1, T, H, d])."""
+        by segment ids (padding carries id 0); lora_row [1, T]: each
+        token's adapter id. Returns (greedy [Bp], logits [Bp, V] f32,
+        packed dense cache [L, 1, T, H, d])."""
         b, s = tokens.shape
         shape = (self.cfg.n_layers, b, s, self.cfg.n_kv_heads,
                  self.cfg.head_dim)
@@ -405,7 +449,8 @@ class InferenceEngine:
                                   device=self.device)}
         logits, cache = self.model(tokens, positions=positions,
                                    segment_ids=seg_ids, cache=cache,
-                                   logit_positions=logit_pos)
+                                   logit_positions=logit_pos,
+                                   **self._lora_kw(lora_row))
         logits = logits[0].float()
         return logits.argmax(dim=-1), logits, cache
 
@@ -439,13 +484,15 @@ class InferenceEngine:
         self._d_temps[slot] = temp
         self._d_topks[slot] = min(req.params.top_k, _TOPK_BUCKET)
         self._d_topps[slot] = req.params.top_p
+        self._d_lora[slot] = req.params.lora_id
         self._slot_gens[slot] = req.gen
 
     def _clear_slot_impl(self, slot: int) -> None:
         """Point a released slot's table row at the dummy page so its
         decode writes can never land in pages a later admission
-        re-reserves."""
+        re-reserves; its adapter id goes back to 0."""
         self.cache['tables'][slot] = 0
+        self._d_lora[slot] = 0
 
     def _sampled_slots(self, sampling: bool) -> List[int]:
         return [i for i in range(self.num_slots)
@@ -477,7 +524,8 @@ class InferenceEngine:
         toks = []
         for _ in range(n):
             logits, _ = self.model(last[:, None], positions=lens[:, None],
-                                   cache=self.cache)
+                                   cache=self.cache,
+                                   **self._lora_kw(self._d_lora))
             logits = logits[:, 0, :].float()
             tok = logits.argmax(dim=-1).to(torch.int32)
             if sampled_slots:
@@ -517,7 +565,8 @@ class InferenceEngine:
             draft = propose_ngram(hist, lens, k)
             logits, _ = self.model(torch.cat([last[:, None], draft], 1),
                                    positions=lens[:, None] + ar,
-                                   cache=self.cache)
+                                   cache=self.cache,
+                                   **self._lora_kw(self._d_lora))
             logits = logits.float()
             if sampled_slots:
                 u = torch.zeros((self.num_slots, k + vocab),
@@ -574,6 +623,10 @@ class InferenceEngine:
         yields generated token ids, then None when finished."""
         params = params or SamplingParams()
         params.validate()
+        if params.lora_id >= max(1, self.num_adapters):
+            raise ValueError(
+                f'lora_id {params.lora_id} out of range: engine has '
+                f'{max(0, self.num_adapters - 1)} adapter(s) loaded')
         if len(tokens) >= self.max_seq_len:
             raise ValueError(f'prompt length {len(tokens)} >= max_seq_len '
                              f'{self.max_seq_len}')
@@ -613,6 +666,96 @@ class InferenceEngine:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=60)
+
+    # ------------------------------------------------------------ adapters
+    def _place_stack(self, stack):
+        lora_lib.validate_stack(stack, self.model)
+        return lora_lib.place_stack(stack, self.dtype, self.device)
+
+    def request_adapter_update(self, lora_stack, *, num_adapters: int,
+                               drain: bool = False,
+                               timeout: Optional[float] = None
+                               ) -> Dict[str, Any]:
+        """Install a new multi-LoRA stack as the live one at a tick
+        boundary (the adapter hot-load apply; counterpart of the JAX
+        engine's, adapter branch). The base weights are untouched: only
+        the stack reference moves. Adapter ids are stable across updates
+        (a registry appends or zero-fills slots, never renumbers), so
+        in-flight requests stay on their adapter; drain=True waits until
+        no slot is occupied (admissions are held meanwhile), for an
+        in-place replacement of a referenced id. The stack is validated
+        and placed on the caller's thread. Blocks until applied; returns
+        {'num_adapters', 'apply_s'}. Raises TimeoutError if no applicable
+        boundary comes within `timeout` (SKYT_ADAPTER_TIMEOUT_S); the old
+        stack then stays live."""
+        if int(num_adapters) != int(lora_stack['scaling'].shape[0]):
+            raise ValueError(
+                f'num_adapters={num_adapters} but the stack has '
+                f'{int(lora_stack["scaling"].shape[0])} entries')
+        if timeout is None:
+            timeout = env.get_float('SKYT_ADAPTER_TIMEOUT_S')
+        swap: Dict[str, Any] = {'lora_stack': self._place_stack(lora_stack),
+                                'num_adapters': int(num_adapters),
+                                'drain': bool(drain),
+                                'event': threading.Event(),
+                                'result': None}
+        running = self._thread is not None and self._thread.is_alive()
+        with self._lock:
+            if self._swap_req is not None:
+                raise RuntimeError('an adapter update is already pending')
+            self._swap_req = swap
+        if not running:
+            # No engine loop: every moment is a tick boundary.
+            self._maybe_apply_swap()
+        if not swap['event'].wait(timeout):
+            with self._lock:
+                if self._swap_req is swap:
+                    self._swap_req = None
+                    raise TimeoutError(
+                        f'engine did not reach an adapter update boundary '
+                        f'within {timeout}s (drain={drain}); the old '
+                        'stack stays live')
+            # Lost the race: the loop claimed it while we timed out.
+            swap['event'].wait(5)
+        if swap['result'] is None:
+            raise RuntimeError('engine loop died before the adapter update '
+                               'applied; the old stack stays live')
+        return swap['result']
+
+    def _maybe_apply_swap(self) -> None:
+        """Apply a pending adapter update if this tick boundary is
+        eligible (a draining update waits for every slot to be free).
+        The eligibility check and the claim are one lock hold: once
+        claimed, the waiter's timeout can no longer abort it, so a
+        replica never serves a stack its caller believes was refused."""
+        with self._lock:
+            swap = self._swap_req
+            if swap is None:
+                return
+            if swap['drain'] and any(s is not None for s in self._slots):
+                return
+            self._swap_req = None   # claimed: the apply is now inevitable
+        t0 = time.perf_counter()
+        self._lora_stack = swap['lora_stack']
+        self.num_adapters = swap['num_adapters']
+        swap['result'] = {'num_adapters': self.num_adapters,
+                          'apply_s': time.perf_counter() - t0}
+        logger.info('adapter stack applied: %d slot(s) (drain=%s)',
+                    self.num_adapters, swap['drain'])
+        swap['event'].set()
+
+    def adapter_in_use(self, lora_id: int) -> bool:
+        """True while an active, admitting, deferred or waiting request
+        references the adapter id (a registry's unload refusal: a freed
+        id's slot zeroes, so a surviving reference would serve base-model
+        outputs under the adapter's name)."""
+        lid = int(lora_id)
+        for req in (*self._slots, *self._admitting, self._deferred):
+            if req is not None and req.params.lora_id == lid:
+                return True
+        with self._waiting.mutex:
+            return any(r.params.lora_id == lid
+                       for r in self._waiting.queue)
 
     def reset_perf(self) -> None:
         self.perf = _fresh_perf()
@@ -719,6 +862,9 @@ class InferenceEngine:
         tokens = np.zeros((1, t_bucket), np.int32)
         segs = np.zeros((1, t_bucket), np.int32)
         poss = np.zeros((1, t_bucket), np.int32)
+        # Per-token adapter ids: each segment's tokens carry their
+        # request's lora_id; page tails and bucket padding stay 0.
+        lora_row = np.zeros((1, t_bucket), np.int32)
         bp = 1 << (nb - 1).bit_length()
         logit_pos = np.zeros((1, bp), np.int32)
         for j, req in enumerate(cand):
@@ -726,6 +872,7 @@ class InferenceEngine:
             off = offs[j]
             tokens[0, off:off + n] = req.tokens
             segs[0, off:off + n] = j + 1
+            lora_row[0, off:off + n] = req.params.lora_id
             # The page-rounding tail keeps id 0 (masked from real
             # tokens); its positions continue the request's arange.
             poss[0, off:off + spans[j]] = np.arange(spans[j])
@@ -737,7 +884,7 @@ class InferenceEngine:
             torch.as_tensor(tokens, device=dev).long(),
             torch.as_tensor(segs, device=dev),
             torch.as_tensor(poss, device=dev).long(),
-            torch.as_tensor(logit_pos, device=dev).long())
+            torch.as_tensor(logit_pos, device=dev).long(), lora_row)
         logits_np = logits.cpu().numpy() if any(
             r.params.temperature > 0.0 for r in cand) else None
         greedy_np = greedy.cpu().numpy() if any(
@@ -778,7 +925,8 @@ class InferenceEngine:
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = req.tokens
         greedy, logits, prefill_cache = self._prefill_impl(
-            torch.as_tensor(padded, device=self.device).long(), n)
+            torch.as_tensor(padded, device=self.device).long(), n,
+            req.params.lora_id)
         self.perf['prefill_dispatches'] += 1
         temp = max(0.0, req.params.temperature)
         logits_row = logits.cpu().numpy()[0] if temp > 0.0 else None
@@ -802,6 +950,7 @@ class InferenceEngine:
         req.generated = 1
         req.out_queue.put(first)
         self._slots[slot] = req
+        self._slot_lora[slot] = req.params.lora_id
         self._lengths[slot] = n
         self._conf_lengths[slot] = n
         self._temps[slot] = max(0.0, req.params.temperature)
@@ -818,16 +967,18 @@ class InferenceEngine:
         return self._lengths[req.slot] + 1 >= self.max_seq_len
 
     def _release(self, slot: int) -> None:
+        """Free a slot; the request's stream ends (None) only after the
+        slot no longer holds it."""
         req = self._slots[slot]
-        if req is not None:
-            req.out_queue.put(None)
         self._slots[slot] = None
+        self._slot_lora[slot] = 0
         self._lengths[slot] = 0
         self._conf_lengths[slot] = 0
         self._slot_gens[slot] = None
         if req is not None:
             self.pool.release(slot)
             self._clear_slot_impl(slot)
+            req.out_queue.put(None)
 
     # -------------------------------------------------------------- loop
     def _loop(self) -> None:
@@ -848,14 +999,28 @@ class InferenceEngine:
                     self._waiting.get_nowait().out_queue.put(None)
                 except queue.Empty:
                     break
+        finally:
+            # A pending adapter update must not wedge its waiter on a
+            # stopped or dead loop: it fails (the old stack stays live).
+            with self._lock:
+                swap, self._swap_req = self._swap_req, None
+            if swap is not None:
+                swap['event'].set()
 
     def _loop_body(self) -> None:
         # Pipelined decode: enqueue chunk k+1 BEFORE pulling chunk k's
         # tokens, so the card computes through the host's delivery work.
         pending = None   # (toks_dev, entries)
         while not self._stop.is_set():
+            # A pending adapter update applies at this tick boundary when
+            # eligible; while a draining one waits, admissions hold so the
+            # drain converges. (A stale lock-free read delays by a tick.)
+            if self._swap_req is not None:
+                self._maybe_apply_swap()
+            swap = self._swap_req
+            hold = swap is not None and swap['drain']
             admitted = False
-            while None in self._slots:
+            while None in self._slots and not hold:
                 if self._try_admit_ragged():
                     admitted = True
                     continue

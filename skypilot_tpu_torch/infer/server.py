@@ -2,7 +2,7 @@
 build_engine). The HTTP routes are not ported yet.
 """
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -22,16 +22,18 @@ def build_engine(model_name: str = 'llama3-8b',
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  spec_decode: int = 0,
                  kv_dtype: str = 'auto',
-                 draft_model_name: Optional[str] = None
+                 draft_model_name: Optional[str] = None,
+                 lora_stack: Optional[Dict[str, Any]] = None
                  ) -> engine_lib.InferenceEngine:
     """Paged-cache engine serving preset `model_name` on `device`
     (None -> 'cuda'; raises without CUDA unless device='cpu'), weights
     and activations in `dtype`. params: a state_dict to load (for example
     models.weights.params_from_jax of a JAX tree); otherwise random
     weights drawn from a torch.Generator seeded with `seed` on the
-    device. spec_decode / kv_dtype pass through to the engine (n-gram
-    speculative decoding, int8 KV). A draft model (draft_model_name) is
-    not ported and raises."""
+    device. spec_decode / kv_dtype / lora_stack pass through to the
+    engine (n-gram speculative decoding, int8 KV, a multi-LoRA stack from
+    infer/lora.py, served by SamplingParams.lora_id). A draft model
+    (draft_model_name) is not ported and raises."""
     if draft_model_name:
         raise NotImplementedError('the draft-model proposer is not ported; '
                                   'spec_decode uses the n-gram proposer')
@@ -55,4 +57,5 @@ def build_engine(model_name: str = 'llama3-8b',
     return engine_lib.InferenceEngine(
         model, num_slots=num_slots, max_seq_len=model.cfg.max_seq_len,
         decode_chunk=decode_chunk, page_size=page_size,
-        spec_decode=spec_decode, kv_dtype=kv_dtype, device=dev)
+        spec_decode=spec_decode, kv_dtype=kv_dtype, device=dev,
+        lora_stack=lora_stack)

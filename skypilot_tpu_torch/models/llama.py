@@ -18,13 +18,20 @@ Attention has four branches, as LlamaAttention there:
     the speculative verify step (s = k+1), their int8 variants for
     quantized pools.
 
-Not ported here (raise NotImplementedError): quantized weights and LoRA
-adapters. The Qwen/Gemma/Mistral family knobs of the JAX LlamaConfig
-wait for a later slice.
+Multi-LoRA (forward's lora / lora_ids, as the JAX model's 'lora' and
+'lora_ids' collections): each of the seven projections adds its batched
+adapter delta (_proj, the counterpart of _proj / _lora_delta) through
+ops/lora.py — per-sequence ids [B] take the gather kernel, per-token ids
+[B, S] the grouped one. The stack (infer/lora.py) is an argument, never
+part of the state_dict.
+
+Not ported here (raise NotImplementedError): quantized weights. The
+Qwen/Gemma/Mistral family knobs of the JAX LlamaConfig wait for a later
+slice.
 """
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +39,7 @@ from torch import nn
 
 from skypilot_tpu_torch.infer.paged_cache import PagePool
 from skypilot_tpu_torch.ops import attention as attention_ops
+from skypilot_tpu_torch.ops import lora as lora_ops
 from skypilot_tpu_torch.ops import norms, paged_attention, rope
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
@@ -96,6 +104,20 @@ def Linear(in_features: int, out_features: int, cfg: LlamaConfig,
                      dtype=torch_dtype(cfg.dtype))
 
 
+def _proj(linear: nn.Linear, x: torch.Tensor, lora, name: str):
+    """A projection plus its multi-LoRA delta (counterpart of _proj /
+    _lora_delta): lora is None or (stack, 'layers.<i>.', ids, scale); a
+    projection the stack does not adapt is the plain matmul."""
+    y = linear(x)
+    if lora is None:
+        return y
+    stack, prefix, ids, scale = lora
+    ab = stack.get(prefix + name)
+    if ab is None:
+        return y
+    return lora_ops.add_lora_delta_(y, x, ab[0], ab[1], ids, scale)
+
+
 class RMSNorm(nn.Module):
 
     def __init__(self, dim: int, cfg: LlamaConfig, device=None) -> None:
@@ -116,8 +138,10 @@ class LlamaMLP(nn.Module):
         self.w_up = Linear(cfg.dim, cfg.mlp_dim, cfg, device)
         self.w_down = Linear(cfg.mlp_dim, cfg.dim, cfg, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+    def forward(self, x: torch.Tensor, lora=None) -> torch.Tensor:
+        hidden = F.silu(_proj(self.w_gate, x, lora, 'mlp.w_gate')) * \
+            _proj(self.w_up, x, lora, 'mlp.w_up')
+        return _proj(self.w_down, hidden, lora, 'mlp.w_down')
 
 
 class LlamaAttention(nn.Module):
@@ -132,17 +156,20 @@ class LlamaAttention(nn.Module):
         self.wo = Linear(h * hd, cfg.dim, cfg, device)
 
     def forward(self, x, cos, sin, segment_ids=None, cache=None,
-                positions=None):
+                positions=None, lora=None):
         """cache: None, a dense (k, v) pair of [B, S_cache, Hkv, Hd], or
         a paged (k_pool [n_pages, Hkv, P, Hd], v_pool, tables [B, mp])
         triple for one layer, with (k_scale, v_scale) [n_pages, Hkv, P]
-        appended for int8 pools. Caches are written in place."""
+        appended for int8 pools. Caches are written in place. lora: the
+        layer's adapter routing (see _proj) or None."""
         cfg = self.cfg
         h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         b, s, _ = x.shape
-        q = rope.apply_rope(self.wq(x).view(b, s, h, hd), cos, sin)
-        k = rope.apply_rope(self.wk(x).view(b, s, hk, hd), cos, sin)
-        v = self.wv(x).view(b, s, hk, hd)
+        q = rope.apply_rope(
+            _proj(self.wq, x, lora, 'attn.wq').view(b, s, h, hd), cos, sin)
+        k = rope.apply_rope(
+            _proj(self.wk, x, lora, 'attn.wk').view(b, s, hk, hd), cos, sin)
+        v = _proj(self.wv, x, lora, 'attn.wv').view(b, s, hk, hd)
 
         if cache is None:
             out = attention_ops.attention(q, k, v, causal=True,
@@ -182,7 +209,7 @@ class LlamaAttention(nn.Module):
         else:
             raise ValueError(f'a layer cache has 2, 3 or 5 entries, got '
                              f'{len(cache)}')
-        return self.wo(out.reshape(b, s, h * hd))
+        return _proj(self.wo, out.reshape(b, s, h * hd), lora, 'attn.wo')
 
     @staticmethod
     def _paged(q, k, v, cache, pos):
@@ -226,10 +253,10 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, cos, sin, segment_ids=None, cache=None,
-                positions=None):
+                positions=None, lora=None):
         x = x + self.attn(self.attn_norm(x), cos, sin, segment_ids, cache,
-                          positions)
-        return x + self.mlp(self.mlp_norm(x))
+                          positions, lora)
+        return x + self.mlp(self.mlp_norm(x), lora)
 
 
 class LlamaModel(nn.Module):
@@ -266,7 +293,9 @@ class LlamaModel(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
-                logit_positions: Optional[torch.Tensor] = None):
+                logit_positions: Optional[torch.Tensor] = None,
+                lora: Optional[Dict[str, Any]] = None,
+                lora_ids: Optional[torch.Tensor] = None):
         """tokens: [B, S] int -> logits [B, S, vocab] (compute dtype).
 
         cache: optional {'k': [L, ...], 'v': [L, ...]} — dense
@@ -277,7 +306,12 @@ class LlamaModel(nn.Module):
         dense cache, positions None means a fresh prefill at 0..S-1.
 
         logit_positions: optional [B, P] — logits only at these token
-        indices."""
+        indices.
+
+        lora / lora_ids: a multi-LoRA stack (infer/lora.py) and int32
+        adapter ids, [B] per sequence or [B, S] per token (0: no
+        adapter); the scale is lora['scaling'][lora_ids], as the JAX
+        model takes it. Without both the forward is the plain model's."""
         cfg = self.cfg
         b, s = tokens.shape
         x = self.tok_embed[tokens]
@@ -287,6 +321,9 @@ class LlamaModel(nn.Module):
         cos, sin = rope.rope_freqs(rope_pos, cfg.head_dim, cfg.rope_theta,
                                    use_llama31_scaling=cfg.use_llama31_rope)
         tables = cache.get('tables') if cache is not None else None
+        lora_scale = None
+        if lora is not None and lora_ids is not None:
+            lora_scale = lora['scaling'][lora_ids]
         for i, layer in enumerate(self.layers):
             lc = None
             if cache is not None:
@@ -295,7 +332,9 @@ class LlamaModel(nn.Module):
                     lc = lc + (tables,)
                     if 'k_scale' in cache:
                         lc = lc + (cache['k_scale'][i], cache['v_scale'][i])
-            x = layer(x, cos, sin, segment_ids, lc, positions)
+            ll = None if lora_scale is None else \
+                (lora, f'layers.{i}.', lora_ids, lora_scale)
+            x = layer(x, cos, sin, segment_ids, lc, positions, ll)
         x = self.final_norm(x)
         if logit_positions is not None:
             x = torch.gather(

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each source under skypilot_tpu_torch/csrc/ (flash_fwd.cu,
-paged_decode.cu) is compiled at first use into its own shared library
-with a plain C interface:
+paged_decode.cu, lora.cu) is compiled at first use into its own shared
+library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o lib<name>-<hash>.so csrc/<name>.cu
@@ -30,7 +30,7 @@ from skypilot_tpu_torch.utils import env
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
-SOURCES = ('flash_fwd', 'paged_decode')
+SOURCES = ('flash_fwd', 'paged_decode', 'lora')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo',
               '-Xptxas', '-v']
@@ -51,6 +51,7 @@ _SIGNATURES = {
                   [_I, _I, _I, _I, _I, _I, _I, _F, _P]),
     'paged_decode': ('skyt_paged_decode',
                      [_P] * 10 + [_I] * 9 + [_F, _P]),
+    'lora': ('skyt_lora', [_P] * 7 + [_I] * 10 + [_P]),
 }
 
 

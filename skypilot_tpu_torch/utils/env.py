@@ -3,10 +3,12 @@
 The port's own registry: only the names this package reads are declared
 here, with the same read semantics as skypilot_tpu/utils/env.py (get:
 raw os.environ.get; get_bool: unset -> default, else true unless one of
-'', '0', 'false', 'no', 'off'). Reading an undeclared name raises, so
-every knob stays listed in one place.
+'', '0', 'false', 'no', 'off'; get_float: unset or empty -> default, an
+unparsable value -> default with a warning). Reading an undeclared name
+raises, so every knob stays listed in one place.
 """
 import dataclasses
+import logging
 import os
 from typing import Any, Dict, Optional
 
@@ -32,6 +34,10 @@ _var('SKYT_MINIMIZE_LOGGING', 'bool', False,
 _var('SKYT_KV_DTYPE', 'str', 'auto',
      "Paged KV cache dtype when the engine's kv_dtype is 'auto': 'auto' "
      "(the model dtype) or 'int8' (per-token, per-head scales).")
+_var('SKYT_ADAPTER_TIMEOUT_S', 'float', 120.0,
+     'How long an adapter hot-load waits for the engine to reach an '
+     'applicable decode-tick boundary before aborting (the old adapter '
+     'stack stays live).')
 _var('SKYT_TORCH_BUILD_DIR', 'str', '',
      'Where the CUDA kernels are built (default: the package\'s '
      '_build/ directory).')
@@ -60,3 +66,18 @@ def get_bool(name: str, default: Optional[bool] = None) -> bool:
     if raw is None:
         return default
     return raw.lower() not in _FALSEY
+
+
+def get_float(name: str, default: Optional[float] = None) -> float:
+    ev = lookup(name)
+    if default is None:
+        default = float(ev.default or 0.0)
+    raw = os.environ.get(name)
+    if raw is None or raw == '':
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        logging.getLogger(__name__).warning(
+            '%s=%r is not a number; using default %s', name, raw, default)
+        return default

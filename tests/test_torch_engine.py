@@ -172,6 +172,18 @@ def _port_modules():
     return sorted(mods)
 
 
+def test_port_module_list_covers_every_slice():
+    """The two checks below walk every module of the port; the modules
+    of each slice are among them (multi-LoRA: infer/lora.py, ops/lora.py)."""
+    mods = _port_modules()
+    for mod in ('skypilot_tpu_torch.infer.engine',
+                'skypilot_tpu_torch.infer.lora',
+                'skypilot_tpu_torch.ops.lora',
+                'skypilot_tpu_torch.ops.paged_attention',
+                'skypilot_tpu_torch.models.weights'):
+        assert mod in mods
+
+
 def test_port_imports_no_jax_in_subprocess():
     code = ('import importlib, sys\n'
             f'for m in {_port_modules()!r}:\n'
