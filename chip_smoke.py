@@ -23,7 +23,10 @@ Phases (any failure exits non-zero and prints no result line):
      the grouped kernel on the burst's packed row ([1, 2048, 4096],
      segment ids and 0 padding) and on random per-token ids, and small
      widths that are not multiples of 8 or of the tiles; id-0 rows must
-     be exact zeros (or exactly y);
+     be exact zeros (or exactly y); and the two flash backward kernels
+     (dq, dk/dv) against the plain backward (BWD_CASES: the sft shape
+     [1, 2048, 32, 64] with 8 kv heads causal, a packed row, head_dim
+     128, non-causal rows, ragged tails);
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -51,7 +54,19 @@ Phases (any failure exits non-zero and prints no result line):
      launch overhead), for the kernel, its plain version and one PyTorch
      library call where one computes the same function; and the bound
      (the larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s, counted
-     from this run's inputs); then the {"kernels": [...]} line;
+     from this run's inputs);
+  3'. training, after the serving engines: sft.main on llama3-1b at
+     its defaults (8 x 2048, f32 masters, bf16 compute, remat) for 6
+     steps, the flash counters set to 0 just before and read just after
+     (32 forward launches, 16 dq and 16 dk/dv per step), every loss
+     finite and the first logged one within 1.5 of ln 128256; step time,
+     tokens/s, MFU and peak memory printed. Then a grad check (one
+     1 x 2048 step through the kernels against attn_impl='xla': rel L2
+     of the flattened gradient <= 5e-2, losses within 1e-2) and a
+     checkpoint save/restore round trip on a small bf16 config;
+  4'. the backward kernels (and the forward) timed at the sft shape
+     [8, 2048, 32, 64] causal against the plain backward and SDPA; then
+     the {"kernels": [...]} line (all nine kernels);
   5. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -197,6 +212,83 @@ def check_flash(gen):
         _log(f'flash {name} {list(q.shape)}: max|out-ref| '
              f'{max_abs(out, ref):.3e}, max|lse-ref| '
              f'{max_abs(lse, ref_lse):.3e} (atol=rtol=2e-2)')
+    return res
+
+
+# Kernels 8-9 cases: (name, B, S, Hq, Hkv, D, causal, segments). The sft
+# shape at batch 1 (llama3-1b: 32 q and 8 kv heads, head_dim 64), a
+# packed row, head_dim 128, non-causal rows, ragged tails and batch 2.
+BWD_CASES = (
+    ('sft_causal', 1, 2048, 32, 8, 64, True, None),
+    ('sft_packed', 1, 2048, 32, 8, 64, True, BURST),
+    ('d128_causal', 1, 512, 32, 8, 128, True, None),
+    ('noncausal', 1, 2048, 32, 8, 64, False, None),
+    ('d64_ragged_packed', 2, 200, 8, 2, 64, True, (50, 3, 70, 33)),
+    ('d128_ragged_noncausal', 2, 200, 8, 2, 128, False, (90, 50)),
+)
+
+
+def bwd_inputs(gen, case):
+    """(q, k, v, out, lse, do, seg) on the card for one BWD_CASES entry:
+    out and lse from the forward kernel, do ~ N(0, 1)."""
+    import torch
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    _, b, s, hq, hkv, d, causal, lengths = case
+    q = torch.randn((b, s, hq, d), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, s, hkv, d), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    seg = None
+    if lengths is not None:
+        page = 64 if s >= 2048 else 16
+        seg = torch.as_tensor(packed_segments(lengths, page, s),
+                              device='cuda').expand(b, s).contiguous()
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                          segment_ids=seg)
+    do = torch.randn(out.shape, generator=gen, device='cuda',
+                     dtype=torch.bfloat16)
+    return q, k, v, out, lse, do, seg
+
+
+def check_flash_bwd(gen):
+    """Kernels 8-9 (flash_attention_bwd on CUDA tensors) against the plain
+    backward on the same inputs (BWD_CASES): dq, dk and dv within
+    atol = rtol = 2e-2."""
+    import torch
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    res = {}
+    for case in BWD_CASES:
+        name, causal = case[0], case[6]
+        q, k, v, out, lse, do, seg = bwd_inputs(gen, case)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                     segment_ids=seg)
+        ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                               causal=causal,
+                                               segment_ids=seg)
+        torch.cuda.synchronize()
+        errs = {}
+        for gname, g, r in zip(('dq', 'dk', 'dv'), got, ref):
+            assert g.shape == r.shape, (name, gname, g.shape, r.shape)
+            assert torch.isfinite(g.float()).all(), \
+                f'flash bwd {name} {gname}: non-finite'
+            torch.testing.assert_close(g.float(), r.float(), **TOL)
+            errs[gname] = max_abs(g, r)
+            errs[gname + '_ref_max'] = float(r.float().abs().max())
+        res[name] = {'shape': list(q.shape), 'kv_heads': k.shape[2],
+                     'causal': causal, 'segments': seg is not None,
+                     'max_abs_err': max(errs['dq'], errs['dk'],
+                                        errs['dv']),
+                     'max_abs_err_dq': errs['dq'],
+                     'max_abs_err_dkv': max(errs['dk'], errs['dv']),
+                     **errs}
+        _log(f'flash bwd {name} q {list(q.shape)} kv heads {k.shape[2]} '
+             f'causal {causal} segments {seg is not None}: max|d-ref| '
+             + ', '.join(f'{g} {errs[g]:.3e} (max|ref| '
+                         f'{errs[g + "_ref_max"]:.2e})'
+                         for g in ('dq', 'dk', 'dv'))
+             + ' (atol=rtol=2e-2)')
     return res
 
 
@@ -1214,6 +1306,249 @@ LORA_TIMED = ('gather_decode', 'gather_decode_down', 'gather_verify',
               'gather_lone', 'grouped_burst')
 
 
+# ----------------------------------------------------------- phase 3: train
+# sft at its own defaults on llama3-1b (16 layers, dim 2048, 32 q / 8 kv
+# heads, head_dim 64, vocab 128256, tied; f32 masters, bf16 compute,
+# remat 'full'): 6 steps of batch 8 x 2048.
+SFT_MODEL = 'llama3-1b'
+SFT_ARGV = ['--model', SFT_MODEL, '--batch', '8', '--seq', '2048',
+            '--steps', '6', '--log-every', '2', '--prefetch', '2']
+GRAD_REL_L2 = 5e-2
+LOSS_ABS = 1e-2
+
+
+def run_train(card):
+    """sft.main on the card. The flash launch counters are set to 0 just
+    before and read just after: per step 32 forward launches (16 blocks,
+    then 16 again in the remat recompute), 16 dq and 16 dk/dv. Every
+    step's loss must be finite, and the first logged one within 1.5 of
+    ln(vocab) (random weights predict a near-uniform distribution)."""
+    import torch
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import sft
+    cfg = llama.CONFIGS[SFT_MODEL]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = sft.main(SFT_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {'flash_fwd': fa.launches, 'flash_dq': fa.launches_dq,
+                'flash_dkv': fa.launches_dkv}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = out['steps']
+    want = {'flash_fwd': (2 if cfg.remat else 1) * cfg.n_layers * steps,
+            'flash_dq': cfg.n_layers * steps,
+            'flash_dkv': cfg.n_layers * steps}
+    losses = out['losses']
+    last = out['logs'][-1]
+    ln_v = math.log(cfg.vocab_size)
+    _log(f'sft {" ".join(SFT_ARGV)} [{card}]: {steps} steps in '
+         f'{wall:.1f} s (model build included); losses '
+         + ', '.join(f'{x:.4f}' for x in losses)
+         + f' (ln vocab {ln_v:.4f}); logged '
+         + ', '.join(f'step {g["step"]}: loss {g["loss"]:.4f} grad_norm '
+                     f'{g["grad_norm"]:.3f} step {g["step_time_s"]:.3f} s'
+                     for g in out['logs']))
+    mfu = 'n/a' if last['mfu'] is None else f'{last["mfu"]:.4f}'
+    _log(f'sft {SFT_MODEL} [{card}]: last window {last["step_time_s"]:.4f} '
+         f's/step, {last["window_tokens_per_sec"]:.0f} tokens/s, MFU {mfu} '
+         f'of 989 TFLOP/s ({out["flops_per_step"]:.4e} FLOPs/step, '
+         f'analytic); peak memory {peak_gib:.2f} GiB; launches {launches} '
+         f'(want {want})')
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(out['logs'][0]['loss'] - ln_v) <= 1.5, out['logs'][0]
+    assert launches == want, (launches, want)
+    return {'launches': launches, 'steps': steps, 'losses': losses,
+            'logs': out['logs'], 'wall_s': wall, 'peak_gib': peak_gib,
+            'step_time_s': last['step_time_s'],
+            'tokens_per_sec': last['window_tokens_per_sec'],
+            'mfu': last['mfu'], 'flops_per_step': out['flops_per_step']}
+
+
+def _flat_grads(model):
+    return [p.grad.float() for p in model.parameters()]
+
+
+def check_train_grads(card):
+    """One full-width step's gradients at batch 1 x 2048 through the
+    kernels against the same weights and batch with attn_impl='xla'
+    (the plain attention, differentiated by autograd): rel L2 of the
+    flattened gradient <= GRAD_REL_L2, losses within LOSS_ABS."""
+    import torch
+    from skypilot_tpu_torch.train import sft, trainer
+    dev = torch.device('cuda')
+    batch = next(sft.synthetic_batches(128256, 1, 2048, seed=SEED + 5))
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    res = {}
+    ref_model = sft.build_model(SFT_MODEL, 'xla', dev, seed=SEED)
+    loss_x, _ = trainer.cross_entropy_loss(ref_model(tb['tokens']),
+                                           tb['targets'])
+    loss_x.backward()
+    model = sft.build_model(SFT_MODEL, 'auto', dev, seed=SEED)
+    loss_f, _ = trainer.cross_entropy_loss(model(tb['tokens']),
+                                           tb['targets'])
+    loss_f.backward()
+    num = den = 0.0
+    for a, b in zip(_flat_grads(model), _flat_grads(ref_model)):
+        num += float((a - b).square().sum())
+        den += float(b.square().sum())
+    torch.cuda.synchronize()
+    res = {'rel_l2': math.sqrt(num / den), 'loss_flash': loss_f.item(),
+           'loss_xla': loss_x.item(),
+           'grad_norm_xla': math.sqrt(den)}
+    _log(f'grad check [{card}] {SFT_MODEL} 1 x 2048: flattened gradient '
+         f'kernels vs attn_impl=xla rel L2 {res["rel_l2"]:.3e} (limit '
+         f'{GRAD_REL_L2}); loss {res["loss_flash"]:.5f} vs '
+         f'{res["loss_xla"]:.5f} (limit {LOSS_ABS}); |g| '
+         f'{res["grad_norm_xla"]:.4f}')
+    assert math.isfinite(res['rel_l2']) and res['rel_l2'] <= GRAD_REL_L2, res
+    assert abs(res['loss_flash'] - res['loss_xla']) <= LOSS_ABS, res
+    return res
+
+
+def check_checkpoint(card):
+    """Save and resume on the card with a small bf16 config (head_dim 64,
+    so attention runs the flash kernels): 2 steps, save, restore into a
+    fresh state (the restored parameters and moments equal the saved
+    ones bit for bit), then 2 more steps from both; the resumed run's
+    losses and parameters match the unbroken one's."""
+    import shutil
+    import torch
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+    from skypilot_tpu_torch.train import sft, trainer
+    dev = torch.device('cuda')
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, mlp_dim=512, max_seq_len=256)
+    tcfg = trainer.TrainerConfig(warmup_steps=1, total_steps=8)
+
+    def fresh():
+        model = llama.LlamaModel(cfg, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        model.init_weights(gen)
+        tx = trainer.make_optimizer(tcfg)
+        return trainer.create_state(model, tx), \
+            trainer.make_train_step(model, tx)
+    data = sft.synthetic_batches(cfg.vocab_size, 2, 128, seed=SEED + 9)
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in next(data).items()} for _ in range(4)]
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'smoke_out', 'ckpt')
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    state, step_fn = fresh()
+    for b in batches[:2]:
+        state, _ = step_fn(state, b)
+    ckpt = ckpt_lib.Checkpointer(ck_dir, save_interval_steps=2)
+    assert ckpt.save(2, state)
+    ckpt.wait()
+    resumed, step_fn2 = fresh()
+    assert ckpt.restore(resumed) is resumed and resumed.step == 2
+    same = all(torch.equal(a, b) for a, b in zip(
+        state.model.state_dict().values(),
+        resumed.model.state_dict().values()))
+    sa, sb = state.optimizer.state_dict(), resumed.optimizer.state_dict()
+    same = same and all(torch.equal(sa['state'][i][key].cpu(),
+                                    sb['state'][i][key].cpu())
+                        for i in sa['state']
+                        for key in ('exp_avg', 'exp_avg_sq', 'step'))
+    la, lb = [], []
+    for b in batches[2:]:
+        state, ma = step_fn(state, b)
+        resumed, mb = step_fn2(resumed, b)
+        la.append(float(ma['loss']))
+        lb.append(float(mb['loss']))
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+        state.model.state_dict().values(),
+        resumed.model.state_dict().values()))
+    ckpt.close()
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    _log(f'checkpoint round trip [{card}]: restored state equal to the '
+         f'saved one: {same}; steps 3-4 losses unbroken {la} vs resumed '
+         f'{lb}; max |param diff| after step 4 {diff:.3e}')
+    assert same
+    assert all(abs(a - b) <= 1e-5 * abs(a) for a, b in zip(la, lb)), (la, lb)
+    assert diff <= 1e-5, diff
+    return {'restored_equal': same, 'losses_unbroken': la,
+            'losses_resumed': lb, 'max_param_diff': diff}
+
+
+def time_flash_bwd(gen):
+    """Kernels 8-9 at the sft shape [8, 2048, 32, 64], 8 kv heads, causal:
+    each kernel (CUDA graph of calls), the plain backward (all of dq, dk
+    and dv), and one SDPA backward (k/v expanded to 32 heads; PyTorch's
+    flash backward, timed eagerly with CUDA events; it too computes all
+    three); and kernel 1 at the same shape against SDPA's forward. Bounds:
+    4*d flops per visible (q, k) pair and query head for the forward, 6*d
+    for dq, 8*d for dk/dv, against the bytes each must move once."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    b, s, hq, hkv, d = 8, 2048, 32, 8, 64
+    q = torch.randn((b, s, hq, d), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    k = torch.randn((b, s, hkv, d), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, s, hkv, d), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True)
+    do = torch.randn(out.shape, generator=gen, device='cuda',
+                     dtype=torch.bfloat16)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    res = {}
+    res['dq_ms'] = time_ms(lambda: fa.flash_bwd_dq_cuda(
+        q, k, v, do, lse, delta, None, True), 10)
+    res['dkv_ms'] = time_ms(lambda: fa.flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, None, True), 10)
+    res['dq_eager_ms'] = eager_ms(lambda: fa.flash_bwd_dq_cuda(
+        q, k, v, do, lse, delta, None, True), 10)
+    res['dkv_eager_ms'] = eager_ms(lambda: fa.flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, None, True), 10)
+    res['plain_ms'] = time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=True), 1, reps=2)
+    # The forward kernel at the same shape (the training path's), against
+    # SDPA's forward on the same expanded k/v.
+    res['fwd_ms'] = time_ms(lambda: fa.flash_attention_fwd_lse(
+        q, k, v, causal=True), 10)
+    kx = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+    vx = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+    res['fwd_library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kx, vx, is_causal=True), 10)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).detach() \
+        .requires_grad_()
+    vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).detach() \
+        .requires_grad_()
+    with torch.enable_grad():
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    res['library_ms'] = eager_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qt, kt, vt), dot, retain_graph=True), 10)
+    pairs = b * hq * s * (s + 1) // 2
+    # The backward reads q, k, v, dO, lse and delta; the forward q, k, v.
+    ins = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * 4 * b * hq * s
+    fwd_ins = 2 * (q.numel() + k.numel() + v.numel())
+    for name, flops, outs in (('fwd', 4.0 * d * pairs,
+                               2 * q.numel() + 4 * b * hq * s),
+                              ('dq', 6.0 * d * pairs, 2 * q.numel()),
+                              ('dkv', 8.0 * d * pairs,
+                               2 * (k.numel() + v.numel()))):
+        bf = flops / BF16_FLOPS_PER_S * 1e3
+        nbytes = (fwd_ins if name == 'fwd' else ins) + outs
+        bb = nbytes / HBM_BYTES_PER_S * 1e3
+        res[f'{name}_bound_ms'] = max(bf, bb)
+        res[f'{name}_bound_by'] = 'operations' if bf >= bb else 'bytes'
+        res[f'{name}_flops'] = flops
+        res[f'{name}_bytes'] = nbytes
+    res['shape'] = [b, s, hq, d]
+    res['pairs'] = pairs
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--quick', action='store_true',
@@ -1253,6 +1588,7 @@ def main() -> int:
         paged_res = check_paged(gen)
         family_res = check_family(gen)
         lora_res = check_lora(gen)
+        bwd_res = check_flash_bwd(gen)
     if args.quick:
         _log(card)
         print(json.dumps({'ok': True, 'device': {
@@ -1260,6 +1596,86 @@ def main() -> int:
             'count': torch.cuda.device_count()}}))
         return 0
 
+    kernels, details = run_serving(
+        args, card, gen, {'flash': flash_res, 'paged': paged_res,
+                          'family': family_res, 'lora': lora_res})
+    details.update({'card': card, 'build_s': build_s})
+    train_res = run_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads_res = check_train_grads(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_res = check_checkpoint(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tb = time_flash_bwd(gen)
+    for k in ('dq', 'dkv'):
+        _log(f'flash_{k} causal {tb["shape"]} kv heads 8 [{card}]: '
+             f'{tb[k + "_ms"]:.4f} ms (eager {tb[k + "_eager_ms"]:.4f}), '
+             f'bound {tb[k + "_bound_ms"]:.4f} ms ({tb[k + "_bound_by"]})')
+    _log(f'flash_fwd causal {tb["shape"]} kv heads 8 [{card}]: '
+         f'{tb["fwd_ms"]:.4f} ms, bound {tb["fwd_bound_ms"]:.4f} ms '
+         f'({tb["fwd_bound_by"]}), SDPA forward {tb["fwd_library_ms"]:.4f} '
+         f'ms; {train_res["launches"]["flash_fwd"]} launches in the sft run')
+    _log(f'flash backward [{card}]: dq + dk/dv '
+         f'{tb["dq_ms"] + tb["dkv_ms"]:.4f} ms; plain backward '
+         f'{tb["plain_ms"]:.4f} ms; one SDPA backward (k/v expanded to 32 '
+         f'heads) {tb["library_ms"]:.4f} ms')
+    bwd_kernels = [
+        {'name': 'flash_dq', 'route': 'cuda',
+         'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
+         'replaces': 'skypilot_tpu/ops/flash_attention.py:168 _dq_kernel',
+         'launches': train_res['launches']['flash_dq'],
+         'max_abs_err': bwd_res['sft_causal']['max_abs_err_dq'],
+         'ms': tb['dq_ms'], 'kernel_ms': tb['dq_ms'],
+         'eager_ms': tb['dq_eager_ms'], 'plain_ms': tb['plain_ms'],
+         'bound_ms': tb['dq_bound_ms'], 'bound_by': tb['dq_bound_by'],
+         'library_ms': tb['library_ms'], 'shape': tb['shape']},
+        {'name': 'flash_dkv', 'route': 'cuda',
+         'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
+         'replaces': 'skypilot_tpu/ops/flash_attention.py:216 _dkv_kernel',
+         'launches': train_res['launches']['flash_dkv'],
+         'max_abs_err': bwd_res['sft_causal']['max_abs_err_dkv'],
+         'ms': tb['dkv_ms'], 'kernel_ms': tb['dkv_ms'],
+         'eager_ms': tb['dkv_eager_ms'], 'plain_ms': tb['plain_ms'],
+         'bound_ms': tb['dkv_bound_ms'], 'bound_by': tb['dkv_bound_by'],
+         'library_ms': tb['library_ms'], 'shape': tb['shape']}]
+    for entry in kernels:
+        if entry['name'] == 'flash_fwd':
+            # The training path's shape and launches beside the serving
+            # path's.
+            entry.update({'train_shape': tb['shape'],
+                          'train_launches': train_res['launches'][
+                              'flash_fwd'],
+                          'train_ms': tb['fwd_ms'],
+                          'train_bound_ms': tb['fwd_bound_ms'],
+                          'train_library_ms': tb['fwd_library_ms']})
+    kernels += bwd_kernels
+    details.update({'train': train_res, 'train_grads': grads_res,
+                    'checkpoint': ckpt_res, 'flash_bwd_timed': tb,
+                    'checks': {'flash': flash_res, 'paged': paged_res,
+                               'family': family_res, 'lora': lora_res,
+                               'flash_bwd': bwd_res}})
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'smoke_out')
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as f:
+        json.dump(details, f, indent=1, default=str)
+    assert all(math.isfinite(k['ms']) for k in kernels)
+    _log(card)
+    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name,
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+def run_serving(args, card, gen, checks):
+    """Phase 3's serving engines, then phase 4's timings of kernels 1-7.
+    checks: phase 2's results of kernels 1-7. Returns their entries of
+    the kernels line and the details."""
+    import torch
     eng, eng_res = run_engine(card)
     if args.profile:
         eng_res['profile'] = profile_decode(eng, card)
@@ -1295,6 +1711,9 @@ def main() -> int:
              f'{t["eager_ms"]:.4f}), plain {t["plain_ms"]:.4f} ms, '
              f'library {lib} ms, bound {t["bound_ms"]:.4f} ms '
              f'({t["bound_by"]}){extra}')
+
+    flash_res, paged_res = checks['flash'], checks['paged']
+    family_res, lora_res = checks['family'], checks['lora']
     # Each kernel's launches come from the run of the path it serves:
     # flash and kernel 2 from the bf16 run, kernels 3-5 from theirs.
     path_of = {kernel: label for label, _, kernel in PATHS}
@@ -1340,24 +1759,10 @@ def main() -> int:
             'bound_by': t['bound_by'], 'library_ms': None,
             'index_bmm_ms': t['index_bmm_ms'], 'fused_ms': t['fused_ms'],
             'shape': t['shape'] + [t['out']]})
-    details = {'card': card, 'build_s': build_s, 'engine': eng_res,
-               'paths': paths_res, 'lora': lora_run,
+    details = {'engine': eng_res, 'paths': paths_res, 'lora': lora_run,
                'flash_packed': tf, 'flash_causal_512': tf_causal,
-               'paged': tp, 'lora_timed': tl,
-               'checks': {'flash': flash_res, 'paged': paged_res,
-                          'family': family_res, 'lora': lora_res}}
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           'smoke_out')
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as f:
-        json.dump(details, f, indent=1, default=str)
-    assert all(math.isfinite(k['ms']) for k in kernels)
-    _log(card)
-    print(json.dumps({'kernels': kernels}))
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': name,
-        'count': torch.cuda.device_count()}}))
-    return 0
+               'paged': tp, 'lora_timed': tl}
+    return kernels, details
 
 
 if __name__ == '__main__':

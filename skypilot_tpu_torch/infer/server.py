@@ -43,8 +43,12 @@ def build_engine(model_name: str = 'llama3-8b',
                          f'{sorted(llama.CONFIGS)}')
     preset = llama.CONFIGS[model_name]
     cfg = dataclasses.replace(
-        preset, dtype=dtype, max_seq_len=min(preset.max_seq_len,
-                                             max_seq_len))
+        preset, dtype=dtype, remat=False,
+        max_seq_len=min(preset.max_seq_len, max_seq_len))
+    if cfg.param_dtype == 'float32' and cfg.dtype == 'bfloat16':
+        # Serving keeps the weights in the compute dtype: an f32 master
+        # copy would double the weight bytes every decode step reads.
+        cfg = dataclasses.replace(cfg, param_dtype='bfloat16')
     # Built on the meta device, then materialized once on the target:
     # no host copy of the weights and no default init to overwrite.
     model = llama.LlamaModel(cfg, device='meta').to_empty(device=dev)

@@ -18,6 +18,15 @@ Attention has four branches, as LlamaAttention there:
     the speculative verify step (s = k+1), their int8 variants for
     quantized pools.
 
+Training (as the JAX model trains): parameters live in param_dtype
+(f32 masters by default) and are cast to the compute dtype where they are
+used, as flax's Dense and the embedding's astype do, so gradients land
+in the masters; with remat each block runs under
+torch.utils.checkpoint (nn.remat's 'full' policy: only the block input
+is kept, the block is recomputed in the backward); attention without a
+cache takes the differentiable flash path (attn_impl 'auto' or 'flash')
+or the plain reference, differentiated by autograd ('xla').
+
 Multi-LoRA (forward's lora / lora_ids, as the JAX model's 'lora' and
 'lora_ids' collections): each of the seven projections adds its batched
 adapter delta (_proj, the counterpart of _proj / _lora_delta) through
@@ -25,9 +34,9 @@ ops/lora.py — per-sequence ids [B] take the gather kernel, per-token ids
 [B, S] the grouped one. The stack (infer/lora.py) is an argument, never
 part of the state_dict.
 
-Not ported here (raise NotImplementedError): quantized weights. The
-Qwen/Gemma/Mistral family knobs of the JAX LlamaConfig wait for a later
-slice.
+Not ported here (raise NotImplementedError): quantized weights,
+remat_policy 'dots' and attn_impl 'ring'. The Qwen/Gemma/Mistral family
+knobs of the JAX LlamaConfig wait for a later slice.
 """
 import dataclasses
 import math
@@ -36,6 +45,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch.infer.paged_cache import PagePool
 from skypilot_tpu_torch.ops import attention as attention_ops
@@ -64,7 +74,11 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     use_llama31_rope: bool = True
     norm_eps: float = 1e-5
-    dtype: str = 'bfloat16'          # parameters and activations
+    dtype: str = 'bfloat16'          # activations / compute dtype
+    param_dtype: str = 'float32'     # master parameter dtype
+    remat: bool = True               # checkpoint each block (training)
+    remat_policy: str = 'full'       # 'dots' is not ported
+    attn_impl: str = 'auto'          # 'auto' | 'flash' | 'xla' ('ring': no)
     tie_embeddings: bool = False
     quant: str = 'none'              # weight-only quantization: not ported
 
@@ -86,7 +100,8 @@ class LlamaConfig:
 CONFIGS = {
     'debug': LlamaConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
                          n_kv_heads=2, mlp_dim=128, max_seq_len=128,
-                         dtype='float32', use_llama31_rope=False),
+                         dtype='float32', param_dtype='float32',
+                         use_llama31_rope=False, remat=False),
     'llama3-1b': LlamaConfig(vocab_size=128256, dim=2048, n_layers=16,
                              n_heads=32, n_kv_heads=8, mlp_dim=8192,
                              tie_embeddings=True),
@@ -96,12 +111,19 @@ CONFIGS = {
 }
 
 
-def Linear(in_features: int, out_features: int, cfg: LlamaConfig,
-           device=None) -> nn.Linear:
+class Linear(nn.Linear):
     """Bias-free projection y = x @ W^T (W [out, in]; flax Dense keeps
-    the transpose)."""
-    return nn.Linear(in_features, out_features, bias=False, device=device,
-                     dtype=torch_dtype(cfg.dtype))
+    the transpose), W stored in param_dtype and cast to the compute dtype
+    at use (a no-op when the two agree, as when serving)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 cfg: LlamaConfig, device=None) -> None:
+        super().__init__(in_features, out_features, bias=False,
+                         device=device, dtype=torch_dtype(cfg.param_dtype))
+        self.compute_dtype = torch_dtype(cfg.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(self.compute_dtype))
 
 
 def _proj(linear: nn.Linear, x: torch.Tensor, lora, name: str):
@@ -124,9 +146,11 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.eps = cfg.norm_eps
         self.weight = nn.Parameter(torch.empty(
-            (dim,), device=device, dtype=torch_dtype(cfg.dtype)))
+            (dim,), device=device, dtype=torch_dtype(cfg.param_dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # rms_norm computes in f32 with the weight cast to f32 and returns
+        # x's dtype, as the JAX RMSNorm does with its param_dtype weight.
         return norms.rms_norm(x, self.weight, eps=self.eps)
 
 
@@ -173,7 +197,8 @@ class LlamaAttention(nn.Module):
 
         if cache is None:
             out = attention_ops.attention(q, k, v, causal=True,
-                                          segment_ids=segment_ids)
+                                          segment_ids=segment_ids,
+                                          impl=cfg.attn_impl)
         elif len(cache) in (3, 5):
             if positions is None:
                 raise ValueError('the paged cache path needs positions')
@@ -266,10 +291,21 @@ class LlamaModel(nn.Module):
         if cfg.quant != 'none':
             raise NotImplementedError(
                 f'quantized weights ({cfg.quant}) are not ported')
+        if cfg.remat_policy != 'full':
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported; 'full' "
+                'recomputes each block')
+        if cfg.attn_impl not in ('auto', 'flash', 'xla'):
+            raise NotImplementedError(
+                f'attn_impl {cfg.attn_impl!r} is not ported (ring attention '
+                "waits for the parallelism slice); use 'auto', 'flash' or "
+                "'xla'")
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
+        self.param_dtype = torch_dtype(cfg.param_dtype)
         self.tok_embed = nn.Parameter(torch.empty(
-            (cfg.vocab_size, cfg.dim), device=device, dtype=self.dtype))
+            (cfg.vocab_size, cfg.dim), device=device,
+            dtype=self.param_dtype))
         self.layers = nn.ModuleList(
             [LlamaBlock(cfg, device) for _ in range(cfg.n_layers)])
         self.final_norm = RMSNorm(cfg.dim, cfg, device)
@@ -314,7 +350,9 @@ class LlamaModel(nn.Module):
         model takes it. Without both the forward is the plain model's."""
         cfg = self.cfg
         b, s = tokens.shape
-        x = self.tok_embed[tokens]
+        # embed.astype(dtype)[tokens], gathered before the cast (the same
+        # values without a cast copy of the whole table).
+        x = self.tok_embed[tokens].to(self.dtype)
         rope_pos = positions if positions is not None else \
             rope.positions_from_segment_ids(segment_ids, b, s,
                                             device=tokens.device)
@@ -324,6 +362,7 @@ class LlamaModel(nn.Module):
         lora_scale = None
         if lora is not None and lora_ids is not None:
             lora_scale = lora['scaling'][lora_ids]
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             lc = None
             if cache is not None:
@@ -334,14 +373,21 @@ class LlamaModel(nn.Module):
                         lc = lc + (cache['k_scale'][i], cache['v_scale'][i])
             ll = None if lora_scale is None else \
                 (lora, f'layers.{i}.', lora_ids, lora_scale)
-            x = layer(x, cos, sin, segment_ids, lc, positions, ll)
+            if remat:
+                # nn.remat: keep only the block's input; the backward runs
+                # the block again (no RNG inside, so no RNG state to keep).
+                x = checkpoint_lib.checkpoint(
+                    layer, x, cos, sin, segment_ids, lc, positions, ll,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = layer(x, cos, sin, segment_ids, lc, positions, ll)
         x = self.final_norm(x)
         if logit_positions is not None:
             x = torch.gather(
                 x, 1, logit_positions.long()[:, :, None].expand(
                     -1, -1, x.shape[-1]))
         if self.lm_head is None:
-            logits = x @ self.tok_embed.t()
+            logits = x @ self.tok_embed.to(self.dtype).t()
         else:
             logits = self.lm_head(x)
         return (logits, cache) if cache is not None else logits

@@ -6,6 +6,9 @@ its leaves already converted to numpy arrays by the caller) to this
 package's LlamaModel state_dict. Dense kernels are [in, out] there and
 [out, in] here; the scanned layer stack carries a leading L axis
 (params['layers'][...]), the unscanned one names each block layer_{i}.
+Each leaf keeps its dtype (the training trees' f32 masters stay f32);
+load_state_dict then copies it into the model's param_dtype. A gradient
+tree of the same layout (jax.grad of the params) maps the same way.
 """
 from typing import Any, Dict, Mapping
 
@@ -47,9 +50,9 @@ def _block_tree(tree: Mapping[str, Any], i: int, cfg: LlamaConfig,
 def params_from_jax(tree: Mapping[str, Any],
                     cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
     """JAX LlamaModel param tree (numpy leaves; with or without the
-    top-level 'params' collection) -> LlamaModel state_dict (CPU
-    tensors; load_state_dict copies them to the model's device and
-    dtype)."""
+    top-level 'params' collection; scanned or unscanned) -> LlamaModel
+    state_dict (CPU tensors in the leaves' own dtypes; load_state_dict
+    copies them to the model's device and param_dtype)."""
     if 'params' in tree:
         tree = tree['params']
     scanned = 'layers' in tree

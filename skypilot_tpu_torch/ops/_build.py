@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Each source under skypilot_tpu_torch/csrc/ (flash_fwd.cu,
+Each source under skypilot_tpu_torch/csrc/ (flash_fwd.cu, flash_bwd.cu,
 paged_decode.cu, lora.cu) is compiled at first use into its own shared
 library with a plain C interface:
 
@@ -30,7 +30,7 @@ from skypilot_tpu_torch.utils import env
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
-SOURCES = ('flash_fwd', 'paged_decode', 'lora')
+SOURCES = ('flash_fwd', 'flash_bwd', 'paged_decode', 'lora')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo',
               '-Xptxas', '-v']
@@ -44,14 +44,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
-# C signatures of the entry points (csrc/*.cu extern "C").
+_FLASH_BWD = [_P] * 9 + [_LL] * 12 + [_I] * 6 + [_F, _P]
+# C signatures of the entry points (csrc/*.cu extern "C"), per library.
 _SIGNATURES = {
-    'flash_fwd': ('skyt_flash_fwd',
-                  [_P, _P, _P, _P, _P, _P] + [_LL] * 9 +
-                  [_I, _I, _I, _I, _I, _I, _I, _F, _P]),
-    'paged_decode': ('skyt_paged_decode',
-                     [_P] * 10 + [_I] * 9 + [_F, _P]),
-    'lora': ('skyt_lora', [_P] * 7 + [_I] * 10 + [_P]),
+    'flash_fwd': [('skyt_flash_fwd',
+                   [_P, _P, _P, _P, _P, _P] + [_LL] * 9 +
+                   [_I, _I, _I, _I, _I, _I, _I, _F, _P])],
+    'flash_bwd': [('skyt_flash_bwd_dq', _FLASH_BWD),
+                  ('skyt_flash_bwd_dkv', _FLASH_BWD)],
+    'paged_decode': [('skyt_paged_decode',
+                      [_P] * 10 + [_I] * 9 + [_F, _P])],
+    'lora': [('skyt_lora', [_P] * 7 + [_I] * 10 + [_P])],
 }
 
 
@@ -140,8 +143,8 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, object]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built if needed, with the
-    entry point's argtypes/restype and skyt_error_string set."""
+    """The loaded library for csrc/<name>.cu, built if needed, with its
+    entry points' argtypes/restype and skyt_error_string set."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -150,10 +153,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(_lib_path(name))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name]:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.skyt_error_string.argtypes = [ctypes.c_int]
             lib.skyt_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -87,14 +87,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               segment_ids: Optional[torch.Tensor] = None,
               window: int = 0,
               logit_softcap: float = 0.0,
-              softmax_scale: Optional[float] = None) -> torch.Tensor:
-    """Public entry: the flash kernel (ops/flash_attention.py) — on a
-    CUDA tensor it launches the kernel or raises, on a CPU tensor it runs
-    the kernel's plain version — unless the attention has a soft-cap, a
-    scale override or a sliding window, which the kernel does not
-    compute: those take the reference, as the JAX package's
+              softmax_scale: Optional[float] = None,
+              impl: str = 'auto') -> torch.Tensor:
+    """Public entry: the flash kernels (ops/flash_attention.py,
+    differentiable: the forward kernel, and the dq and dk/dv kernels in
+    the backward) — on a CUDA tensor they launch or raise, on a CPU
+    tensor their plain versions run — unless impl is 'xla' or the
+    attention has a soft-cap, a scale override or a sliding window,
+    which the kernels do not compute: those take the reference
+    (differentiated by autograd), as the JAX package's
     needs_xla_attention models take XLA."""
-    if window <= 0 and logit_softcap <= 0.0 and softmax_scale is None:
+    if impl not in ('auto', 'flash', 'xla'):
+        raise ValueError(f"impl must be 'auto', 'flash' or 'xla', got "
+                         f'{impl!r}')
+    if impl != 'xla' and window <= 0 and logit_softcap <= 0.0 and \
+            softmax_scale is None:
         from skypilot_tpu_torch.ops import flash_attention
         return flash_attention.flash_attention(
             q, k, v, causal=causal, segment_ids=segment_ids)

@@ -1,9 +1,14 @@
-"""Flash attention forward: the CUDA kernel csrc/flash_fwd.cu and its plain
-version (counterpart of skypilot_tpu/ops/flash_attention.py).
+"""Flash attention, forward and backward: the CUDA kernels
+csrc/flash_fwd.cu and csrc/flash_bwd.cu and their plain versions
+(counterpart of skypilot_tpu/ops/flash_attention.py).
 
 Replaces ops/flash_attention.py:108 _fwd_kernel (launched by
 _flash_fwd_impl :345, public entries flash_attention :286 and
-flash_attention_fwd_lse :271).
+flash_attention_fwd_lse :271), and the backward's :168 _dq_kernel and
+:216 _dkv_kernel (launched by _bwd_rule :420). flash_attention is
+differentiable through the FlashAttention autograd Function, as the
+JAX entry is through its custom_vjp; flash_attention_fwd_lse stays
+forward-only, as there.
 
 What bounds it on an H100: tensor-core FLOPs at long packed rows — the
 useful work is 4*Hq*d*sum_j n_j(n_j+1)/2 over the row's segments
@@ -13,11 +18,17 @@ diagonal and skips k tiles that share no segment with the tile, so a
 packed row costs about its segments' own triangles; the products run on
 the tensor cores (WMMA bf16, f32 accumulation).
 
+The backward (csrc/flash_bwd.cu) recomputes p = exp(s - lse) tile by
+tile: a dq kernel per (q tile, query head) and a dk/dv kernel per (k
+tile, kv head) that sums its query group in the block. Both are bound
+by tensor-core FLOPs (6*d and 8*d per query head and visible pair).
+
 Layout is the JAX package's: q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], read
 through their strides (no transpose copies); lse [B, Hq, Sq] f32.
 
-On a CUDA tensor the wrapper launches the kernel or raises; the plain
-version (flash_attention_reference) runs only for CPU tensors.
+On a CUDA tensor the wrappers launch the kernels or raise; the plain
+versions (flash_attention_reference, flash_attention_bwd_reference) run
+only for CPU tensors.
 """
 from typing import Optional, Tuple
 
@@ -26,14 +37,17 @@ import torch
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import attention as attention_ops
 
-# Kernel launches since the last reset (chip_smoke.py reads it to show
-# the serving path went through the kernel).
+# Kernel launches since the last reset (chip_smoke.py reads them to show
+# the serving and training paths went through the kernels): the forward,
+# the backward's dq kernel and its dk/dv kernel.
 launches = 0
+launches_dq = 0
+launches_dkv = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_dq, launches_dkv
+    launches = launches_dq = launches_dkv = 0
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -55,6 +69,39 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
             seen.reshape(b, hq, sq).transpose(1, 2)[..., None], out,
             torch.zeros_like(out))
     return out, lse.reshape(b, hq, sq)
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor,
+                                  causal: bool = True,
+                                  segment_ids: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain version of the two backward kernels: (dq, dk, dv) in the
+    inputs' dtypes, computed in f32 from the forward's out and lse [B,
+    Hq, Sq] and the output gradient do. p = exp(s - lse) on the entries
+    _block_mask leaves visible and exactly 0 elsewhere (a row with no
+    visible key has lse 0 and p 0); dk and dv are summed over each kv
+    head's query group."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5
+    s, mask = attention_ops.masked_logits(q, k, causal, segment_ids)
+    p = torch.exp(s - lse.float().reshape(b, hkv, g, sq, 1))
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), device=p.device))
+    dog = do.float().reshape(b, sq, hkv, g, d)
+    delta = (dog * out.float().reshape(b, sq, hkv, g, d)).sum(-1)
+    dp = torch.einsum('bqhgd,bkhd->bhgqk', dog, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale
+    dq = torch.einsum('bhgqk,bkhd->bqhgd', ds, k.float()).reshape(
+        b, sq, hq, d)
+    dk = torch.einsum('bhgqk,bqhgd->bkhd', ds,
+                      q.float().reshape(b, sq, hkv, g, d))
+    dv = torch.einsum('bhgqk,bqhgd->bkhd', p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_operand(name: str, x: torch.Tensor) -> None:
@@ -107,6 +154,127 @@ def _flash_cuda(q, k, v, segment_ids, causal):
     return out, lse
 
 
+def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal):
+    """Check the backward kernels' operands (raise on anything they do
+    not take); returns the C entry points' arguments that come before
+    and after the output pointers."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    for name, x in (('q', q), ('k', k), ('v', v), ('do', do)):
+        _check_operand(name, x)
+        if x.device != q.device:
+            raise ValueError(f'{name} is on {x.device}, q on {q.device}')
+    if k.shape[1] != s or v.shape != k.shape or do.shape != q.shape or \
+            k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f'the backward kernels take Sq == Sk: q '
+                         f'{tuple(q.shape)}, k {tuple(k.shape)}, v '
+                         f'{tuple(v.shape)}, do {tuple(do.shape)}')
+    if d not in (64, 128):
+        raise ValueError(f'flash backward supports head_dim 64 and 128, '
+                         f'got {d}')
+    if hq % hkv:
+        raise ValueError(f'q heads ({hq}) must be a multiple of kv heads '
+                         f'({hkv})')
+    for name, x in (('lse', lse), ('delta', delta)):
+        if tuple(x.shape) != (b, hq, s) or x.dtype != torch.float32 or \
+                not x.is_contiguous() or x.device != q.device:
+            raise ValueError(f'{name} must be a contiguous f32 [B, Hq, S] '
+                             f'on the same device, got {tuple(x.shape)} '
+                             f'{x.dtype}')
+    seg_ptr = None
+    if segment_ids is not None:
+        if tuple(segment_ids.shape) != (b, s) or \
+                segment_ids.dtype != torch.int32 or \
+                not segment_ids.is_contiguous() or \
+                segment_ids.device != q.device:
+            raise ValueError('segment_ids must be a contiguous int32 [B, S] '
+                             'on the same device')
+        seg_ptr = segment_ids.data_ptr()
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), seg_ptr)
+    rest = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], b, s, hq, hkv, d, int(causal), d ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return ins, rest
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, segment_ids=None,
+                      causal=True) -> torch.Tensor:
+    """Kernel 8 (csrc/flash_bwd.cu flash_dq_kernel): dq [B, S, Hq, D] from
+    the forward's lse and delta = rowsum(do * out), both [B, Hq, S] f32."""
+    global launches_dq
+    ins, rest = _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _build.load('flash_bwd')
+    _build.check(lib, lib.skyt_flash_bwd_dq(*ins, dq.data_ptr(), None,
+                                            *rest), 'flash_bwd_dq')
+    launches_dq += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segment_ids=None,
+                       causal=True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 9 (csrc/flash_bwd.cu flash_dkv_kernel): dk, dv [B, S, Hkv,
+    D], each summed over its kv head's query group."""
+    global launches_dkv
+    ins, rest = _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    lib = _build.load('flash_bwd')
+    _build.check(lib, lib.skyt_flash_bwd_dkv(*ins, dk.data_ptr(),
+                                             dv.data_ptr(), *rest),
+                 'flash_bwd_dkv')
+    launches_dkv += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True,
+                        segment_ids: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash attention from the forward's out and lse and
+    the output gradient do. delta = rowsum(do * out) is one elementwise
+    pass in f32 (outside the kernels, as in the JAX backward); CUDA
+    tensors then launch the dq and dk/dv kernels (bf16, head_dim 64 or
+    128, Sq == Sk; anything else raises), CPU tensors run the plain
+    version."""
+    if q.is_cuda:
+        do = do.contiguous()
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        delta = delta.contiguous()
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, segment_ids, causal)
+        return (dq, *flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                        segment_ids, causal))
+    if q.device.type != 'cpu':
+        raise ValueError(f'unsupported device {q.device}')
+    return flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                         causal=causal,
+                                         segment_ids=segment_ids)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the counterpart of the JAX
+    custom_vjp): the forward saves (q, k, v, out, lse, segment_ids), the
+    backward runs flash_attention_bwd on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, segment_ids):
+        out, lse = flash_attention_fwd_lse(q, k, v, causal=causal,
+                                           segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, segment_ids = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal,
+                                         segment_ids=segment_ids)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True,
                             segment_ids: Optional[torch.Tensor] = None
@@ -128,6 +296,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     segment_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D].
-    segment_ids: optional [B, S] int32 packed-sequence ids (Sq == Sk)."""
+    segment_ids: optional [B, S] int32 packed-sequence ids (Sq == Sk).
+    Differentiable in q, k and v (FlashAttention) when autograd records;
+    otherwise the forward alone."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, segment_ids)
     return flash_attention_fwd_lse(q, k, v, causal=causal,
                                    segment_ids=segment_ids)[0]

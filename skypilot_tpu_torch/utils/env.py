@@ -3,8 +3,9 @@
 The port's own registry: only the names this package reads are declared
 here, with the same read semantics as skypilot_tpu/utils/env.py (get:
 raw os.environ.get; get_bool: unset -> default, else true unless one of
-'', '0', 'false', 'no', 'off'; get_float: unset or empty -> default, an
-unparsable value -> default with a warning). Reading an undeclared name
+'', '0', 'false', 'no', 'off'; get_int / get_float: unset or empty ->
+default, an unparsable value (or an int below `minimum`) -> default with
+a warning). Reading an undeclared name
 raises, so every knob stays listed in one place.
 """
 import dataclasses
@@ -38,6 +39,17 @@ _var('SKYT_ADAPTER_TIMEOUT_S', 'float', 120.0,
      'How long an adapter hot-load waits for the engine to reach an '
      'applicable decode-tick boundary before aborting (the old adapter '
      'stack stays live).')
+_var('SKYT_PROFILE_DIR', 'str', None,
+     'Where the sft StepProfiler writes its torch.profiler trace (unset: '
+     'no profile).')
+_var('SKYT_PROFILE_START_STEP', 'int', 2,
+     'First train step the StepProfiler captures.')
+_var('SKYT_PROFILE_NUM_STEPS', 'int', 3,
+     'How many consecutive steps the StepProfiler captures.')
+_var('SKYT_METRICS_MAX_SERIES', 'int', 1000,
+     'Per-family label-set cap in the metrics registry.')
+_var('SKYT_TRAIN_MFU', 'bool', True,
+     'Compute + log model FLOPs utilization in the sft step log.')
 _var('SKYT_TORCH_BUILD_DIR', 'str', '',
      'Where the CUDA kernels are built (default: the package\'s '
      '_build/ directory).')
@@ -66,6 +78,28 @@ def get_bool(name: str, default: Optional[bool] = None) -> bool:
     if raw is None:
         return default
     return raw.lower() not in _FALSEY
+
+
+def get_int(name: str, default: Optional[int] = None,
+            minimum: Optional[int] = None) -> int:
+    ev = lookup(name)
+    if default is None:
+        default = int(ev.default or 0)
+    raw = os.environ.get(name)
+    if raw is None or raw == '':
+        return default
+    try:
+        val = int(raw)
+    except ValueError:
+        logging.getLogger(__name__).warning(
+            '%s=%r is not an integer; using default %d', name, raw, default)
+        return default
+    if minimum is not None and val < minimum:
+        logging.getLogger(__name__).warning(
+            '%s=%d is below the minimum %d; using default %d', name, val,
+            minimum, default)
+        return default
+    return val
 
 
 def get_float(name: str, default: Optional[float] = None) -> float:

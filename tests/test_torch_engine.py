@@ -174,13 +174,20 @@ def _port_modules():
 
 def test_port_module_list_covers_every_slice():
     """The two checks below walk every module of the port; the modules
-    of each slice are among them (multi-LoRA: infer/lora.py, ops/lora.py)."""
+    of each slice are among them (multi-LoRA: infer/lora.py, ops/lora.py;
+    training: train/ and utils/metrics.py, utils/profiling.py)."""
     mods = _port_modules()
     for mod in ('skypilot_tpu_torch.infer.engine',
                 'skypilot_tpu_torch.infer.lora',
                 'skypilot_tpu_torch.ops.lora',
                 'skypilot_tpu_torch.ops.paged_attention',
-                'skypilot_tpu_torch.models.weights'):
+                'skypilot_tpu_torch.models.weights',
+                'skypilot_tpu_torch.train.trainer',
+                'skypilot_tpu_torch.train.sft',
+                'skypilot_tpu_torch.train.prefetch',
+                'skypilot_tpu_torch.train.checkpoint',
+                'skypilot_tpu_torch.utils.metrics',
+                'skypilot_tpu_torch.utils.profiling'):
         assert mod in mods
 
 
@@ -189,7 +196,8 @@ def test_port_imports_no_jax_in_subprocess():
             f'for m in {_port_modules()!r}:\n'
             '    importlib.import_module(m)\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "jaxlib", "flax") or m == "skypilot_tpu" or '
+            '("jax", "jaxlib", "flax", "optax", "orbax") or '
+            'm == "skypilot_tpu" or '
             'm.startswith("skypilot_tpu.")]\n'
             'print(bad)\n'
             'sys.exit(1 if bad else 0)\n')
@@ -216,7 +224,8 @@ def test_port_sources_import_nothing_of_jax():
                     names = [node.module]
                 for n in names:
                     top = n.split('.')[0]
-                    if top in ('jax', 'jaxlib', 'flax', 'skypilot_tpu'):
+                    if top in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
+                               'skypilot_tpu'):
                         bad.append(f'{path}: {n}')
     assert not bad, bad
 
