@@ -23,10 +23,15 @@ Phases (any failure exits non-zero and prints no result line):
      the grouped kernel on the burst's packed row ([1, 2048, 4096],
      segment ids and 0 padding) and on random per-token ids, and small
      widths that are not multiples of 8 or of the tiles; id-0 rows must
-     be exact zeros (or exactly y); and the two flash backward kernels
-     (dq, dk/dv) against the plain backward (BWD_CASES: the sft shape
-     [1, 2048, 32, 64] with 8 kv heads causal, a packed row, head_dim
-     128, non-causal rows, ragged tails);
+     be exact zeros (or exactly y); and the flash backward kernel (dq,
+     dk and dv in one pass) against the plain backward (BWD_CASES: the
+     sft shape [1, 2048, 32, 64] with 8 kv heads causal, a packed row,
+     head_dim 128, non-causal rows, ragged tails, MHA, segment
+     boundaries inside a key tile); a second call on the same inputs
+     must give bit-equal dk and dv (whether dq is, is logged: its f32
+     adds across key tiles land in no fixed order), and with
+     torch.use_deterministic_algorithms on (ordered adds) the same
+     checks hold and dq is bit-equal too;
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -58,20 +63,26 @@ Phases (any failure exits non-zero and prints no result line):
   3'. training, after the serving engines: sft.main on llama3-1b at
      its defaults (8 x 2048, f32 masters, bf16 compute, remat) for 6
      steps, the flash counters set to 0 just before and read just after
-     (32 forward launches, 16 dq and 16 dk/dv per step), every loss
+     (32 forward launches and 16 backward launches per step), every loss
      finite and the first logged one within 1.5 of ln 128256; step time,
      tokens/s, MFU and peak memory printed. Then a grad check (one
      1 x 2048 step through the kernels against attn_impl='xla': rel L2
      of the flattened gradient <= 5e-2, losses within 1e-2) and a
-     checkpoint save/restore round trip on a small bf16 config;
-  4'. the backward kernels (and the forward) timed at the sft shape
-     [8, 2048, 32, 64] causal against the plain backward and SDPA; then
-     the {"kernels": [...]} line (all nine kernels);
+     checkpoint save/restore round trip on a small bf16 config at
+     sequence 128, and at 512 (where each dq element takes up to eight
+     adds, one per key tile) with deterministic algorithms on (resumed
+     equal to unbroken, asserted) and off (logged);
+  4'. the backward kernel (and the forward) timed at the sft shape
+     [8, 2048, 32, 64] causal against the plain backward and SDPA, with
+     its adds ordered too, and the backward kernel at head_dim 128 and on
+     packed rows; then the
+     {"kernels": [...]} line (all nine kernels);
   5. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -217,7 +228,10 @@ def check_flash(gen):
 
 # Kernels 8-9 cases: (name, B, S, Hq, Hkv, D, causal, segments). The sft
 # shape at batch 1 (llama3-1b: 32 q and 8 kv heads, head_dim 64), a
-# packed row, head_dim 128, non-causal rows, ragged tails and batch 2.
+# packed row, head_dim 128, non-causal rows, ragged tails and batch 2,
+# MHA (Hkv == Hq), and a packed row on 16-token pages whose segment
+# boundaries (100, 112, 149, 160, ...) fall inside the kernel's 64-key
+# tiles and off their edges.
 BWD_CASES = (
     ('sft_causal', 1, 2048, 32, 8, 64, True, None),
     ('sft_packed', 1, 2048, 32, 8, 64, True, BURST),
@@ -225,6 +239,8 @@ BWD_CASES = (
     ('noncausal', 1, 2048, 32, 8, 64, False, None),
     ('d64_ragged_packed', 2, 200, 8, 2, 64, True, (50, 3, 70, 33)),
     ('d128_ragged_noncausal', 2, 200, 8, 2, 128, False, (90, 50)),
+    ('mha_causal', 2, 1024, 16, 16, 64, True, None),
+    ('packed_mid_tile', 1, 1024, 32, 8, 64, True, (100, 37, 250, 300)),
 )
 
 
@@ -252,43 +268,73 @@ def bwd_inputs(gen, case):
     return q, k, v, out, lse, do, seg
 
 
+@contextlib.contextmanager
+def deterministic_algorithms(on=True):
+    """torch.use_deterministic_algorithms(on) inside the block (warn only,
+    for the other ops of a training step), restored after it."""
+    import torch
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
 def check_flash_bwd(gen):
-    """Kernels 8-9 (flash_attention_bwd on CUDA tensors) against the plain
-    backward on the same inputs (BWD_CASES): dq, dk and dv within
-    atol = rtol = 2e-2."""
+    """Kernels 8-9 (flash_attention_bwd on CUDA tensors: one backward
+    kernel) against the plain backward on the same inputs (BWD_CASES):
+    dq, dk and dv within atol = rtol = 2e-2, and dk and dv of a second
+    call on the same inputs bit-equal to the first (dq's bit-equality is
+    logged). Then the same with deterministic algorithms on (the
+    kernel's ordered adds): dq bit-equal too."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
     res = {}
     for case in BWD_CASES:
         name, causal = case[0], case[6]
         q, k, v, out, lse, do, seg = bwd_inputs(gen, case)
-        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
-                                     segment_ids=seg)
         ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                                causal=causal,
                                                segment_ids=seg)
-        torch.cuda.synchronize()
-        errs = {}
-        for gname, g, r in zip(('dq', 'dk', 'dv'), got, ref):
-            assert g.shape == r.shape, (name, gname, g.shape, r.shape)
-            assert torch.isfinite(g.float()).all(), \
-                f'flash bwd {name} {gname}: non-finite'
-            torch.testing.assert_close(g.float(), r.float(), **TOL)
-            errs[gname] = max_abs(g, r)
-            errs[gname + '_ref_max'] = float(r.float().abs().max())
-        res[name] = {'shape': list(q.shape), 'kv_heads': k.shape[2],
-                     'causal': causal, 'segments': seg is not None,
-                     'max_abs_err': max(errs['dq'], errs['dk'],
-                                        errs['dv']),
-                     'max_abs_err_dq': errs['dq'],
-                     'max_abs_err_dkv': max(errs['dk'], errs['dv']),
-                     **errs}
-        _log(f'flash bwd {name} q {list(q.shape)} kv heads {k.shape[2]} '
-             f'causal {causal} segments {seg is not None}: max|d-ref| '
-             + ', '.join(f'{g} {errs[g]:.3e} (max|ref| '
-                         f'{errs[g + "_ref_max"]:.2e})'
-                         for g in ('dq', 'dk', 'dv'))
-             + ' (atol=rtol=2e-2)')
+        for ordered in (False, True):
+            with deterministic_algorithms(ordered):
+                got = fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                             causal=causal, segment_ids=seg)
+                again = fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                               causal=causal,
+                                               segment_ids=seg)
+            torch.cuda.synchronize()
+            same = {g: bool(torch.equal(a, b2))
+                    for g, a, b2 in zip(('dq', 'dk', 'dv'), got, again)}
+            errs = {}
+            for gname, g, r in zip(('dq', 'dk', 'dv'), got, ref):
+                assert g.shape == r.shape, (name, gname, g.shape, r.shape)
+                assert torch.isfinite(g.float()).all(), \
+                    f'flash bwd {name} {gname}: non-finite'
+                torch.testing.assert_close(g.float(), r.float(), **TOL)
+                errs[gname] = max_abs(g, r)
+                errs[gname + '_ref_max'] = float(r.float().abs().max())
+            key = name + ('_ordered' if ordered else '')
+            res[key] = {'shape': list(q.shape), 'kv_heads': k.shape[2],
+                        'causal': causal, 'segments': seg is not None,
+                        'ordered': ordered,
+                        'max_abs_err': max(errs['dq'], errs['dk'],
+                                           errs['dv']),
+                        'max_abs_err_dq': errs['dq'],
+                        'max_abs_err_dkv': max(errs['dk'], errs['dv']),
+                        'bit_equal_second_call': same, **errs}
+            _log(f'flash bwd {name} q {list(q.shape)} kv heads '
+                 f'{k.shape[2]} causal {causal} segments {seg is not None} '
+                 f'ordered adds {ordered}: max|d-ref| '
+                 + ', '.join(f'{g} {errs[g]:.3e} (max|ref| '
+                             f'{errs[g + "_ref_max"]:.2e})'
+                             for g in ('dq', 'dk', 'dv'))
+                 + ' (atol=rtol=2e-2); second call bit-equal: '
+                 + ', '.join(f'{g} {same[g]}' for g in ('dq', 'dk', 'dv')))
+            assert same['dk'] and same['dv'], (key, same)
+            assert same['dq'] or not ordered, (key, same)
     return res
 
 
@@ -1320,7 +1366,7 @@ LOSS_ABS = 1e-2
 def run_train(card):
     """sft.main on the card. The flash launch counters are set to 0 just
     before and read just after: per step 32 forward launches (16 blocks,
-    then 16 again in the remat recompute), 16 dq and 16 dk/dv. Every
+    then 16 again in the remat recompute) and 16 backward launches. Every
     step's loss must be finite, and the first logged one within 1.5 of
     ln(vocab) (random weights predict a near-uniform distribution)."""
     import torch
@@ -1336,13 +1382,11 @@ def run_train(card):
     out = sft.main(SFT_ARGV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {'flash_fwd': fa.launches, 'flash_dq': fa.launches_dq,
-                'flash_dkv': fa.launches_dkv}
+    launches = {'flash_fwd': fa.launches, 'flash_bwd': fa.launches_bwd}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steps = out['steps']
     want = {'flash_fwd': (2 if cfg.remat else 1) * cfg.n_layers * steps,
-            'flash_dq': cfg.n_layers * steps,
-            'flash_dkv': cfg.n_layers * steps}
+            'flash_bwd': cfg.n_layers * steps}
     losses = out['losses']
     last = out['logs'][-1]
     ln_v = math.log(cfg.vocab_size)
@@ -1410,12 +1454,13 @@ def check_train_grads(card):
     return res
 
 
-def check_checkpoint(card):
+def check_checkpoint(card, seq=128, exact=True):
     """Save and resume on the card with a small bf16 config (head_dim 64,
-    so attention runs the flash kernels): 2 steps, save, restore into a
-    fresh state (the restored parameters and moments equal the saved
-    ones bit for bit), then 2 more steps from both; the resumed run's
-    losses and parameters match the unbroken one's."""
+    so attention runs the flash kernels) on batches of 2 x seq tokens: 2
+    steps, save, restore into a fresh state (the restored parameters and
+    moments equal the saved ones bit for bit), then 2 more steps from
+    both; the resumed run's losses and parameters match the unbroken
+    one's (only logged when not exact)."""
     import shutil
     import torch
     from skypilot_tpu_torch.models import llama
@@ -1423,7 +1468,8 @@ def check_checkpoint(card):
     from skypilot_tpu_torch.train import sft, trainer
     dev = torch.device('cuda')
     cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
-                            n_kv_heads=2, mlp_dim=512, max_seq_len=256)
+                            n_kv_heads=2, mlp_dim=512,
+                            max_seq_len=max(256, seq))
     tcfg = trainer.TrainerConfig(warmup_steps=1, total_steps=8)
 
     def fresh():
@@ -1434,7 +1480,7 @@ def check_checkpoint(card):
         tx = trainer.make_optimizer(tcfg)
         return trainer.create_state(model, tx), \
             trainer.make_train_step(model, tx)
-    data = sft.synthetic_batches(cfg.vocab_size, 2, 128, seed=SEED + 9)
+    data = sft.synthetic_batches(cfg.vocab_size, 2, seq, seed=SEED + 9)
     batches = [{k: torch.as_tensor(v, device=dev)
                 for k, v in next(data).items()} for _ in range(4)]
     ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1467,24 +1513,36 @@ def check_checkpoint(card):
         resumed.model.state_dict().values()))
     ckpt.close()
     shutil.rmtree(ck_dir, ignore_errors=True)
-    _log(f'checkpoint round trip [{card}]: restored state equal to the '
-         f'saved one: {same}; steps 3-4 losses unbroken {la} vs resumed '
-         f'{lb}; max |param diff| after step 4 {diff:.3e}')
+    _log(f'checkpoint round trip [{card}] 2 x {seq}, deterministic '
+         f'algorithms {torch.are_deterministic_algorithms_enabled()}: '
+         f'restored state equal to the saved one: {same}; steps 3-4 losses '
+         f'unbroken {la} vs resumed {lb}; max |param diff| after step 4 '
+         f'{diff:.3e}')
     assert same
-    assert all(abs(a - b) <= 1e-5 * abs(a) for a, b in zip(la, lb)), (la, lb)
-    assert diff <= 1e-5, diff
-    return {'restored_equal': same, 'losses_unbroken': la,
+    if exact:
+        assert all(abs(a - b) <= 1e-5 * abs(a)
+                   for a, b in zip(la, lb)), (la, lb)
+        assert diff <= 1e-5, diff
+    return {'seq': seq, 'restored_equal': same, 'losses_unbroken': la,
             'losses_resumed': lb, 'max_param_diff': diff}
 
 
 def time_flash_bwd(gen):
-    """Kernels 8-9 at the sft shape [8, 2048, 32, 64], 8 kv heads, causal:
-    each kernel (CUDA graph of calls), the plain backward (all of dq, dk
-    and dv), and one SDPA backward (k/v expanded to 32 heads; PyTorch's
-    flash backward, timed eagerly with CUDA events; it too computes all
-    three); and kernel 1 at the same shape against SDPA's forward. Bounds:
-    4*d flops per visible (q, k) pair and query head for the forward, 6*d
-    for dq, 8*d for dk/dv, against the bytes each must move once."""
+    """Kernels 8-9 (one backward kernel) at the sft shape [8, 2048, 32,
+    64], 8 kv heads, causal: flash_bwd_cuda (the kernel with the zeroing
+    of its f32 dq accumulator and the cast to bf16; CUDA graph of
+    calls), also with deterministic algorithms on (ordered adds), the
+    zeroing and the cast alone, the whole backward
+    (flash_attention_bwd: delta, then flash_bwd_cuda) eagerly beside one
+    eager SDPA backward (k/v expanded to 32 heads; PyTorch's flash
+    backward, dq, dk and dv), and the plain backward; and kernel 1 at the
+    same shape against SDPA's forward. Then flash_bwd_cuda alone on the
+    burst's packed rows at the same shape and at head_dim 128 ([4, 2048,
+    32, 128] causal, 8 kv heads: llama3-8b's attention). Bounds: 4*d
+    flops per visible (q, k) pair and query head for the forward, 10*d
+    for the backward (s, dp, dv, dk, dq once each), against the bytes
+    each must move once."""
+    import numpy as np
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import flash_attention as fa
@@ -1500,14 +1558,20 @@ def time_flash_bwd(gen):
                      dtype=torch.bfloat16)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     res = {}
-    res['dq_ms'] = time_ms(lambda: fa.flash_bwd_dq_cuda(
+    res['bwd_ms'] = time_ms(lambda: fa.flash_bwd_cuda(
         q, k, v, do, lse, delta, None, True), 10)
-    res['dkv_ms'] = time_ms(lambda: fa.flash_bwd_dkv_cuda(
-        q, k, v, do, lse, delta, None, True), 10)
-    res['dq_eager_ms'] = eager_ms(lambda: fa.flash_bwd_dq_cuda(
-        q, k, v, do, lse, delta, None, True), 10)
-    res['dkv_eager_ms'] = eager_ms(lambda: fa.flash_bwd_dkv_cuda(
-        q, k, v, do, lse, delta, None, True), 10)
+    with deterministic_algorithms():
+        res['bwd_ordered_ms'] = time_ms(lambda: fa.flash_bwd_cuda(
+            q, k, v, do, lse, delta, None, True), 10)
+        res['bwd_ordered_eager_ms'] = eager_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=True), 10)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device='cuda')
+    res['zero_ms'] = time_ms(lambda: torch.zeros(
+        q.shape, dtype=torch.float32, device='cuda'), 10)
+    res['cast_ms'] = time_ms(lambda: acc.to(torch.bfloat16), 10)
+    del acc
+    res['bwd_eager_ms'] = eager_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=True), 10)
     res['plain_ms'] = time_ms(lambda: fa.flash_attention_bwd_reference(
         q, k, v, out, lse, do, causal=True), 1, reps=2)
     # The forward kernel at the same shape (the training path's), against
@@ -1519,26 +1583,24 @@ def time_flash_bwd(gen):
     res['fwd_library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), kx, vx, is_causal=True), 10)
     qt = q.transpose(1, 2).detach().requires_grad_()
-    kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).detach() \
-        .requires_grad_()
-    vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).detach() \
-        .requires_grad_()
+    kt = kx.detach().requires_grad_()
+    vt = vx.detach().requires_grad_()
     with torch.enable_grad():
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
     res['library_ms'] = eager_ms(lambda: torch.autograd.grad(
         sdpa_out, (qt, kt, vt), dot, retain_graph=True), 10)
+    res['ratio_to_library'] = res['bwd_eager_ms'] / res['library_ms']
     pairs = b * hq * s * (s + 1) // 2
-    # The backward reads q, k, v, dO, lse and delta; the forward q, k, v.
+    # The backward reads q, k, v, dO, lse and delta and writes dq, dk and
+    # dv (bf16); the forward reads q, k, v and writes out and lse.
     ins = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * 4 * b * hq * s
     fwd_ins = 2 * (q.numel() + k.numel() + v.numel())
-    for name, flops, outs in (('fwd', 4.0 * d * pairs,
-                               2 * q.numel() + 4 * b * hq * s),
-                              ('dq', 6.0 * d * pairs, 2 * q.numel()),
-                              ('dkv', 8.0 * d * pairs,
-                               2 * (k.numel() + v.numel()))):
+    for name, flops, nbytes in (
+            ('fwd', 4.0 * d * pairs, fwd_ins + 2 * q.numel() + 4 * b * hq * s),
+            ('bwd', 10.0 * d * pairs,
+             ins + 2 * (q.numel() + k.numel() + v.numel()))):
         bf = flops / BF16_FLOPS_PER_S * 1e3
-        nbytes = (fwd_ins if name == 'fwd' else ins) + outs
         bb = nbytes / HBM_BYTES_PER_S * 1e3
         res[f'{name}_bound_ms'] = max(bf, bb)
         res[f'{name}_bound_by'] = 'operations' if bf >= bb else 'bytes'
@@ -1546,7 +1608,58 @@ def time_flash_bwd(gen):
         res[f'{name}_bytes'] = nbytes
     res['shape'] = [b, s, hq, d]
     res['pairs'] = pairs
+    # The backward kernel's other variants on the training path's kind of
+    # input: packed rows (8 copies of the burst's segments) and head_dim
+    # 128.
+    seg_np = packed_segments(BURST, 64, s)
+    seg = torch.as_tensor(seg_np, device='cuda').expand(b, s).contiguous()
+    for name, bb, dd, sg in (('packed', b, d, seg), ('d128', 4, 128, None)):
+        q2, k2, v2 = (torch.randn((bb, s, h, dd), generator=gen,
+                                  device='cuda', dtype=torch.bfloat16)
+                      for h in (hq, hkv, hkv))
+        out2, lse2 = fa.flash_attention_fwd_lse(q2, k2, v2, causal=True,
+                                                segment_ids=sg)
+        do2 = torch.randn(out2.shape, generator=gen, device='cuda',
+                          dtype=torch.bfloat16)
+        delta2 = (do2.float() * out2.float()).sum(-1).transpose(
+            1, 2).contiguous()
+        ms = time_ms(lambda: fa.flash_bwd_cuda(
+            q2, k2, v2, do2, lse2, delta2, sg, True), 10)
+        # Visible pairs: causal within each segment id.
+        n_vis = s * (s + 1) // 2 if sg is None else sum(
+            int(c) * (int(c) + 1) // 2
+            for c in np.unique(seg_np, return_counts=True)[1])
+        flops = 10.0 * dd * bb * hq * n_vis
+        nbytes = (2 * (3 * q2.numel() + 2 * k2.numel() + 2 * v2.numel())
+                  + 2 * 4 * bb * hq * s)
+        bf = flops / BF16_FLOPS_PER_S * 1e3
+        bb_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = {'shape': list(q2.shape), 'kv_heads': hkv,
+                     'segments': sg is not None, 'ms': ms,
+                     'bound_ms': max(bf, bb_ms),
+                     'bound_by': 'operations' if bf >= bb_ms else 'bytes'}
+        del q2, k2, v2, out2, lse2, do2, delta2
     return res
+
+
+def log_flash_bwd_timed(card, tb):
+    _log(f'flash_bwd causal {tb["shape"]} kv heads 8 [{card}]: '
+         f'{tb["bwd_ms"]:.4f} ms in a CUDA graph (kernel + zeroing '
+         f'{tb["zero_ms"]:.4f} + cast {tb["cast_ms"]:.4f}; with ordered '
+         f'adds {tb["bwd_ordered_ms"]:.4f}), bound '
+         f'{tb["bwd_bound_ms"]:.4f} ms ({tb["bwd_bound_by"]}); whole '
+         f'backward eager (delta, zeroing, kernel, cast) '
+         f'{tb["bwd_eager_ms"]:.4f} ms vs one SDPA backward eager (k/v '
+         f'expanded to 32 heads) {tb["library_ms"]:.4f} ms: '
+         f'{tb["ratio_to_library"]:.3f}x (with ordered adds '
+         f'{tb["bwd_ordered_eager_ms"]:.4f} ms, '
+         f'{tb["bwd_ordered_eager_ms"] / tb["library_ms"]:.3f}x); plain '
+         f'backward {tb["plain_ms"]:.4f} ms')
+    for name in ('packed', 'd128'):
+        t = tb[name]
+        _log(f'flash_bwd causal {name} {t["shape"]} kv heads {t["kv_heads"]} '
+             f'[{card}]: {t["ms"]:.4f} ms in a CUDA graph, bound '
+             f'{t["bound_ms"]:.4f} ms ({t["bound_by"]})')
 
 
 def main() -> int:
@@ -1578,7 +1691,8 @@ def main() -> int:
         f'{k} {v["seconds"]:.1f}s' for k, v in info.items()))
     for k, v in info.items():
         for line in str(v['log']).splitlines():
-            if 'registers' in line or 'spill' in line:
+            if 'registers' in line or 'spill' in line or \
+                    'entry function' in line:
                 _log(f'  ptxas {k}: {line.strip()}')
 
     gen = torch.Generator(device='cuda')
@@ -1607,40 +1721,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ckpt_res = check_checkpoint(card)
+    # At 512 tokens each dq element takes up to eight adds (one per key
+    # tile): the resumed run is exact with the kernel's ordered adds.
+    with deterministic_algorithms():
+        ckpt_long_res = check_checkpoint(card, seq=512)
+    ckpt_long_res['unordered'] = check_checkpoint(card, seq=512, exact=False)
     gc.collect()
     torch.cuda.empty_cache()
     tb = time_flash_bwd(gen)
-    for k in ('dq', 'dkv'):
-        _log(f'flash_{k} causal {tb["shape"]} kv heads 8 [{card}]: '
-             f'{tb[k + "_ms"]:.4f} ms (eager {tb[k + "_eager_ms"]:.4f}), '
-             f'bound {tb[k + "_bound_ms"]:.4f} ms ({tb[k + "_bound_by"]})')
+    log_flash_bwd_timed(card, tb)
     _log(f'flash_fwd causal {tb["shape"]} kv heads 8 [{card}]: '
          f'{tb["fwd_ms"]:.4f} ms, bound {tb["fwd_bound_ms"]:.4f} ms '
          f'({tb["fwd_bound_by"]}), SDPA forward {tb["fwd_library_ms"]:.4f} '
          f'ms; {train_res["launches"]["flash_fwd"]} launches in the sft run')
-    _log(f'flash backward [{card}]: dq + dk/dv '
-         f'{tb["dq_ms"] + tb["dkv_ms"]:.4f} ms; plain backward '
-         f'{tb["plain_ms"]:.4f} ms; one SDPA backward (k/v expanded to 32 '
-         f'heads) {tb["library_ms"]:.4f} ms')
+    # Rows 8 and 9 (_dq_kernel, _dkv_kernel) are one fused kernel here:
+    # both entries carry its numbers and "fused": true; add them once.
     bwd_kernels = [
-        {'name': 'flash_dq', 'route': 'cuda',
+        {'name': 'flash_bwd', 'route': 'cuda', 'fused': True,
          'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
-         'replaces': 'skypilot_tpu/ops/flash_attention.py:168 _dq_kernel',
-         'launches': train_res['launches']['flash_dq'],
-         'max_abs_err': bwd_res['sft_causal']['max_abs_err_dq'],
-         'ms': tb['dq_ms'], 'kernel_ms': tb['dq_ms'],
-         'eager_ms': tb['dq_eager_ms'], 'plain_ms': tb['plain_ms'],
-         'bound_ms': tb['dq_bound_ms'], 'bound_by': tb['dq_bound_by'],
-         'library_ms': tb['library_ms'], 'shape': tb['shape']},
-        {'name': 'flash_dkv', 'route': 'cuda',
-         'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
-         'replaces': 'skypilot_tpu/ops/flash_attention.py:216 _dkv_kernel',
-         'launches': train_res['launches']['flash_dkv'],
-         'max_abs_err': bwd_res['sft_causal']['max_abs_err_dkv'],
-         'ms': tb['dkv_ms'], 'kernel_ms': tb['dkv_ms'],
-         'eager_ms': tb['dkv_eager_ms'], 'plain_ms': tb['plain_ms'],
-         'bound_ms': tb['dkv_bound_ms'], 'bound_by': tb['dkv_bound_by'],
-         'library_ms': tb['library_ms'], 'shape': tb['shape']}]
+         'replaces': f'skypilot_tpu/ops/flash_attention.py:{line}',
+         'launches': train_res['launches']['flash_bwd'],
+         'max_abs_err': bwd_res['sft_causal']['max_abs_err'],
+         'ms': tb['bwd_ms'], 'kernel_ms': tb['bwd_ms'],
+         'eager_ms': tb['bwd_eager_ms'], 'plain_ms': tb['plain_ms'],
+         'bound_ms': tb['bwd_bound_ms'], 'bound_by': tb['bwd_bound_by'],
+         'library_ms': tb['library_ms'], 'shape': tb['shape'],
+         'ordered_ms': tb['bwd_ordered_ms'],
+         'ordered_eager_ms': tb['bwd_ordered_eager_ms'],
+         'packed_ms': tb['packed']['ms'], 'd128_ms': tb['d128']['ms'],
+         'd128_shape': tb['d128']['shape']}
+        for line in ('168 _dq_kernel', '216 _dkv_kernel')]
     for entry in kernels:
         if entry['name'] == 'flash_fwd':
             # The training path's shape and launches beside the serving
@@ -1653,7 +1763,8 @@ def main() -> int:
                           'train_library_ms': tb['fwd_library_ms']})
     kernels += bwd_kernels
     details.update({'train': train_res, 'train_grads': grads_res,
-                    'checkpoint': ckpt_res, 'flash_bwd_timed': tb,
+                    'checkpoint': ckpt_res,
+                    'checkpoint_512': ckpt_long_res, 'flash_bwd_timed': tb,
                     'checks': {'flash': flash_res, 'paged': paged_res,
                                'family': family_res, 'lora': lora_res,
                                'flash_bwd': bwd_res}})

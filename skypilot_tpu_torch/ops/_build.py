@@ -44,14 +44,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
-_FLASH_BWD = [_P] * 9 + [_LL] * 12 + [_I] * 6 + [_F, _P]
 # C signatures of the entry points (csrc/*.cu extern "C"), per library.
 _SIGNATURES = {
     'flash_fwd': [('skyt_flash_fwd',
                    [_P, _P, _P, _P, _P, _P] + [_LL] * 9 +
                    [_I, _I, _I, _I, _I, _I, _I, _F, _P])],
-    'flash_bwd': [('skyt_flash_bwd_dq', _FLASH_BWD),
-                  ('skyt_flash_bwd_dkv', _FLASH_BWD)],
+    'flash_bwd': [('skyt_flash_bwd',
+                   [_P] * 11 + [_LL] * 12 + [_I] * 6 + [_F, _P])],
     'paged_decode': [('skyt_paged_decode',
                       [_P] * 10 + [_I] * 9 + [_F, _P])],
     'lora': [('skyt_lora', [_P] * 7 + [_I] * 10 + [_P])],

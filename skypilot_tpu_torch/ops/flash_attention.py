@@ -18,10 +18,15 @@ diagonal and skips k tiles that share no segment with the tile, so a
 packed row costs about its segments' own triangles; the products run on
 the tensor cores (WMMA bf16, f32 accumulation).
 
-The backward (csrc/flash_bwd.cu) recomputes p = exp(s - lse) tile by
-tile: a dq kernel per (q tile, query head) and a dk/dv kernel per (k
-tile, kv head) that sums its query group in the block. Both are bound
-by tensor-core FLOPs (6*d and 8*d per query head and visible pair).
+The backward (csrc/flash_bwd.cu) is one kernel that makes one pass
+over key tiles: a block (one warpgroup) per (64-key tile, kv head) walks
+its query group and q tiles, recomputes p = exp(s - lse) once per tile
+pair on wgmma, sums dk and dv in registers and adds its share of dq by
+TMA reduce-adds into an f32 accumulator that the wrapper zeroes and
+casts to bf16. Those adds land in no fixed order unless
+torch.use_deterministic_algorithms(True) is on; then they go in
+key-tile order and every call gives the same bits. It is bound by
+tensor-core FLOPs (10*d per query head and visible pair).
 
 Layout is the JAX package's: q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], read
 through their strides (no transpose copies); lse [B, Hq, Sq] f32.
@@ -38,16 +43,15 @@ from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import attention as attention_ops
 
 # Kernel launches since the last reset (chip_smoke.py reads them to show
-# the serving and training paths went through the kernels): the forward,
-# the backward's dq kernel and its dk/dv kernel.
+# the serving and training paths went through the kernels): the forward
+# and the backward.
 launches = 0
-launches_dq = 0
-launches_dkv = 0
+launches_bwd = 0
 
 
 def reset_launches() -> None:
-    global launches, launches_dq, launches_dkv
-    launches = launches_dq = launches_dkv = 0
+    global launches, launches_bwd
+    launches = launches_bwd = 0
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -78,7 +82,7 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   segment_ids: Optional[torch.Tensor] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
-    """Plain version of the two backward kernels: (dq, dk, dv) in the
+    """Plain version of the backward kernel: (dq, dk, dv) in the
     inputs' dtypes, computed in f32 from the forward's out and lse [B,
     Hq, Sq] and the output gradient do. p = exp(s - lse) on the entries
     _block_mask leaves visible and exactly 0 elsewhere (a row with no
@@ -155,8 +159,8 @@ def _flash_cuda(q, k, v, segment_ids, causal):
 
 
 def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal):
-    """Check the backward kernels' operands (raise on anything they do
-    not take); returns the C entry points' arguments that come before
+    """Check the backward kernel's operands (raise on anything it does
+    not take); returns the C entry point's arguments that come before
     and after the output pointers."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
@@ -166,7 +170,7 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal):
             raise ValueError(f'{name} is on {x.device}, q on {q.device}')
     if k.shape[1] != s or v.shape != k.shape or do.shape != q.shape or \
             k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f'the backward kernels take Sq == Sk: q '
+        raise ValueError(f'the backward kernel takes Sq == Sk: q '
                          f'{tuple(q.shape)}, k {tuple(k.shape)}, v '
                          f'{tuple(v.shape)}, do {tuple(do.shape)}')
     if d not in (64, 128):
@@ -198,34 +202,39 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal):
     return ins, rest
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, segment_ids=None,
-                      causal=True) -> torch.Tensor:
-    """Kernel 8 (csrc/flash_bwd.cu flash_dq_kernel): dq [B, S, Hq, D] from
-    the forward's lse and delta = rowsum(do * out), both [B, Hq, S] f32."""
-    global launches_dq
+def flash_bwd_cuda(q, k, v, do, lse, delta, segment_ids=None,
+                   causal=True) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Kernels 8-9 as one (csrc/flash_bwd.cu flash_bwd_kernel): dq [B, S,
+    Hq, D] and dk, dv [B, S, Hkv, D] (each summed over its kv head's
+    query group) from the forward's lse and delta = rowsum(do * out),
+    both [B, Hq, S] f32. The kernel adds dq into an f32 accumulator
+    zeroed here, one add per key tile, and the sum is cast to q's dtype
+    once. The adds land in no fixed order, so dq's last bits may differ
+    from call to call, unless torch.use_deterministic_algorithms(True)
+    is on: then they go in key-tile order, kept by a row of bits per
+    (batch, kv head, 64-row q tile) zeroed with the accumulator, and
+    every call gives the same bits (at ~1.35x the kernel's time)."""
+    global launches_bwd
     ins, rest = _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lib = _build.load('flash_bwd')
-    _build.check(lib, lib.skyt_flash_bwd_dq(*ins, dq.data_ptr(), None,
-                                            *rest), 'flash_bwd_dq')
-    launches_dq += 1
-    return dq
-
-
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segment_ids=None,
-                       causal=True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 9 (csrc/flash_bwd.cu flash_dkv_kernel): dk, dv [B, S, Hkv,
-    D], each summed over its kv head's query group."""
-    global launches_dkv
-    ins, rest = _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal)
+    b, s, _, _ = q.shape
+    n = q.numel()
+    tiles = -(-s // 64)
+    ordered = torch.are_deterministic_algorithms_enabled()
+    # One zeroed buffer: the accumulator, then (ordered) the bit rows, one
+    # bit per 64-key tile in 32-bit words.
+    bits = b * k.shape[2] * tiles * -(-tiles // 32) if ordered else 0
+    buf = torch.zeros(n + bits, dtype=torch.float32, device=q.device)
+    dq_acc = buf[:n].view(q.shape)
+    done = buf[n:].data_ptr() if ordered else None
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     lib = _build.load('flash_bwd')
-    _build.check(lib, lib.skyt_flash_bwd_dkv(*ins, dk.data_ptr(),
-                                             dv.data_ptr(), *rest),
-                 'flash_bwd_dkv')
-    launches_dkv += 1
-    return dk, dv
+    _build.check(lib, lib.skyt_flash_bwd(*ins, dq_acc.data_ptr(),
+                                         done, dk.data_ptr(),
+                                         dv.data_ptr(), *rest), 'flash_bwd')
+    launches_bwd += 1
+    return dq_acc.to(q.dtype), dk, dv
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -235,17 +244,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of flash attention from the forward's out and lse and
     the output gradient do. delta = rowsum(do * out) is one elementwise
-    pass in f32 (outside the kernels, as in the JAX backward); CUDA
-    tensors then launch the dq and dk/dv kernels (bf16, head_dim 64 or
-    128, Sq == Sk; anything else raises), CPU tensors run the plain
+    pass in f32 (outside the kernel, as in the JAX backward); CUDA
+    tensors then launch the backward kernel (bf16, head_dim 64 or 128,
+    Sq == Sk; anything else raises), CPU tensors run the plain
     version."""
     if q.is_cuda:
         do = do.contiguous()
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
-        delta = delta.contiguous()
-        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, segment_ids, causal)
-        return (dq, *flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                        segment_ids, causal))
+        delta = do.float().mul_(out).sum(-1).transpose(1, 2).contiguous()
+        return flash_bwd_cuda(q, k, v, do, lse, delta, segment_ids, causal)
     if q.device.type != 'cpu':
         raise ValueError(f'unsupported device {q.device}')
     return flash_attention_bwd_reference(q, k, v, out, lse, do,

@@ -129,20 +129,47 @@ def test_lone_segment_row_has_zero_dq():
 
 
 def test_kernel_wrapper_refuses_what_it_does_not_compute():
-    """The kernel wrappers' checks run before any launch: f32 operands,
+    """The kernel wrapper's checks run before any launch: f32 operands,
     head_dim 32 and Sq != Sk raise (here on CPU tensors, which the
     public entry would send to the plain version)."""
     q = torch.zeros((1, 64, 4, 32))
     k = torch.zeros((1, 64, 2, 32))
     lse = torch.zeros((1, 4, 64))
     with pytest.raises(TypeError, match='bfloat16'):
-        flash_attention.flash_bwd_dq_cuda(q, k, k, q, lse, lse, None, True)
+        flash_attention.flash_bwd_cuda(q, k, k, q, lse, lse, None, True)
     qb, kb = q.bfloat16(), k.bfloat16()
     with pytest.raises(ValueError, match='head_dim'):
-        flash_attention.flash_bwd_dq_cuda(qb, kb, kb, qb, lse, lse, None,
-                                         True)
+        flash_attention.flash_bwd_cuda(qb, kb, kb, qb, lse, lse, None, True)
     q64 = torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16)
     k32 = torch.zeros((1, 32, 2, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match='Sq == Sk'):
-        flash_attention.flash_bwd_dq_cuda(q64, k32, k32, q64, lse, lse, None,
-                                        True)
+        flash_attention.flash_bwd_cuda(q64, k32, k32, q64, lse, lse, None,
+                                       True)
+
+
+@pytest.mark.parametrize('what,make', [
+    ('lse', lambda lse: lse[:, :, :32]),                 # [B, Hq, S/2]
+    ('lse', lambda lse: lse.transpose(1, 2)),            # [B, S, Hq]
+    ('lse', lambda lse: lse.double()),
+    ('lse', lambda lse: lse.bfloat16()),
+    ('lse', lambda lse: lse.transpose(1, 2).contiguous()
+     .transpose(1, 2)),                                 # not contiguous
+    ('delta', lambda lse: lse[:, :2]),                   # [B, Hq/2, S]
+    ('delta', lambda lse: lse.half()),
+    ('seg', lambda lse: torch.ones((1, 64), dtype=torch.int64)),
+    ('seg', lambda lse: torch.ones((1, 64), dtype=torch.float32)),
+    ('seg', lambda lse: torch.ones((1, 32), dtype=torch.int32)),
+])
+def test_kernel_wrapper_refuses_bad_side_inputs(what, make):
+    """lse and delta must be contiguous f32 [B, Hq, S] and segment ids a
+    contiguous int32 [B, S]: anything else raises before any launch (CPU
+    tensors; the operands themselves are valid bf16)."""
+    q = torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 4, 64))
+    args = {'lse': lse, 'delta': lse, 'seg': None}
+    args[what] = make(lse)
+    match = 'segment_ids' if what == 'seg' else what
+    with pytest.raises(ValueError, match=match):
+        flash_attention.flash_bwd_cuda(q, k, k, q, args['lse'],
+                                       args['delta'], args['seg'], True)
