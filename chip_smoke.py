@@ -27,11 +27,18 @@ Phases (any failure exits non-zero and prints no result line):
      dk and dv in one pass) against the plain backward (BWD_CASES: the
      sft shape [1, 2048, 32, 64] with 8 kv heads causal, a packed row,
      head_dim 128, non-causal rows, ragged tails, MHA, segment
-     boundaries inside a key tile); a second call on the same inputs
-     must give bit-equal dk and dv (whether dq is, is logged: its f32
-     adds across key tiles land in no fixed order), and with
-     torch.use_deterministic_algorithms on (ordered adds) the same
-     checks hold and dq is bit-equal too;
+     boundaries inside a key tile; and with the sliding window:
+     mistral-7b's [1, 6144, 32, 128] row with window 4096, the packed
+     sft row with window 300, windows 7, 65 and 100, causal or not); a
+     second call on the same inputs must give bit-equal dk and dv
+     (whether dq is, is logged: its f32 adds across key tiles land in no
+     fixed order), and with torch.use_deterministic_algorithms on
+     (ordered adds) the same checks hold and dq is bit-equal too. The
+     forward kernel with the window (FWD_WINDOW_CASES): mistral-7b's
+     [1, 6144] causal row and packed [1, 8192] row (6000 + 2000 tokens)
+     at window 4096, windows 1, 7, 63, 65, 100 and one of S (bit-equal to
+     no window), non-causal bands, head_dim 64 and 128, MHA, ragged
+     tails, and rows that see no key (out 0 and lse 0 exactly);
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -53,7 +60,16 @@ Phases (any failure exits non-zero and prints no result line):
      must launch, the id-0 request's tokens must equal the bf16 run's,
      a decode step (s = 1 and 4) and a per-token prefill must match
      their plain versions within LOGIT_REL_L2, and the adapters must
-     move an adapter slot's step logits (an id-0 slot's not at all);
+     move an adapter slot's step logits (an id-0 slot's not at all).
+     Then mistral-7b (sliding window 4096 on every layer) at full width,
+     build_engine('mistral-7b', max_seq_len=8192, num_slots=4): a burst
+     of a 6000- and a 2000-token prompt (one sampled) packed into one
+     [1, 8192] ragged row, then a lone 4600-token prompt, 32 tokens
+     each; the flash forward must launch 32 times per prefill, the paged
+     kernels never (windowed layers decode through the gather view, as
+     in the JAX package); the 6000-token prompt's last-token logits must
+     match the plain attention, and the window must move them at least
+     4x as far as the kernel's rounding does; TTFT and ms per token;
   4. kernel timings: device time per call from CUDA events around a
      replayed CUDA graph of many calls (eager_ms: the same with Python's
      launch overhead), for the kernel, its plain version and one PyTorch
@@ -71,18 +87,31 @@ Phases (any failure exits non-zero and prints no result line):
      checkpoint save/restore round trip on a small bf16 config at
      sequence 128, and at 512 (where each dq element takes up to eight
      adds, one per key tile) with deterministic algorithms on (resumed
-     equal to unbroken, asserted) and off (logged);
-  4'. the backward kernel (and the forward) timed at the sft shape
+     equal to unbroken, asserted) and off (logged). sft.main runs with
+     deterministic algorithms on: on llama3-1b at 2 x 2048 a 4-step run
+     preempted (SIGTERM) after step 2, exit 75, and resumed to step 4
+     must equal an unbroken 4-step run bit for bit (asserted), and the
+     caller's setting must be back after each sft.main; the sft step's
+     cost of the ordered adds (on, off, on, off in one process); a grad
+     check through two full-width mistral-7b layers (window 4096) at
+     1 x 6144 against attn_impl='xla' (rel L2 <= 5e-2, losses within
+     1e-2, the backward kernel launched once per layer);
+  4'. the windowed forward and backward kernels at [1, 8192, 32, 128]
+     with window 4096 against themselves without the window, their plain
+     versions and SDPA with a boolean band mask (its backend logged);
+     the backward kernel (and the forward) timed at the sft shape
      [8, 2048, 32, 64] causal against the plain backward and SDPA, with
      its adds ordered too, and the backward kernel at head_dim 128 and on
      packed rows; then the
-     {"kernels": [...]} line (all nine kernels);
+     {"kernels": [...]} line (all nine kernels, and the windowed forward
+     and backward);
   5. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -226,21 +255,128 @@ def check_flash(gen):
     return res
 
 
-# Kernels 8-9 cases: (name, B, S, Hq, Hkv, D, causal, segments). The sft
-# shape at batch 1 (llama3-1b: 32 q and 8 kv heads, head_dim 64), a
-# packed row, head_dim 128, non-causal rows, ragged tails and batch 2,
-# MHA (Hkv == Hq), and a packed row on 16-token pages whose segment
-# boundaries (100, 112, 149, 160, ...) fall inside the kernel's 64-key
-# tiles and off their edges.
+# Kernel 1 with the sliding window: (name, Sq, Sk, Hq, Hkv, D, causal,
+# segment lengths or None, window). Mistral's shapes (a 6144-token causal
+# row and the engine's packed [1, 8192] row of a 6000- and a 2000-token
+# prompt with id-0 padding, window 4096), then windows of 1, 7, 63, 65
+# and 100 (below a tile, not a multiple of 64), one at least S (equal to
+# no window), non-causal rows (a one-sided band), head_dim 64 and 128,
+# MHA, ragged tails, segments longer than the window, and Sq > Sk +
+# window, where the last rows see no key (out 0 and lse 0 exactly).
+MISTRAL_BURST = (6000, 2000)
+FWD_WINDOW_CASES = (
+    ('mistral_causal', 6144, 6144, 32, 8, 128, True, None, 4096),
+    ('mistral_packed', 8192, 8192, 32, 8, 128, True, MISTRAL_BURST, 4096),
+    ('w1', 200, 200, 8, 2, 64, True, None, 1),
+    ('w7_packed', 200, 200, 8, 2, 64, True, (50, 3, 70, 33), 7),
+    ('w63', 300, 300, 8, 2, 128, True, None, 63),
+    ('w65_mha', 300, 300, 8, 8, 64, True, None, 65),
+    ('w100_noncausal_d64', 300, 300, 8, 2, 64, False, None, 100),
+    ('w100_noncausal_packed_d128', 200, 200, 8, 2, 128, False, (90, 50),
+     100),
+    ('w_at_s', 200, 200, 8, 2, 128, True, None, 200),
+    ('unseen_rows', 300, 200, 8, 2, 64, False, None, 50),
+)
+
+
+def seen_rows(sq, sk, causal, seg, window):
+    """[B or 1, Sq] bool: query rows that see at least one key."""
+    import torch
+    qp = torch.arange(sq, device='cuda')[:, None]
+    kp = torch.arange(sk, device='cuda')[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device='cuda')
+    if causal:
+        m &= kp <= qp
+    if window > 0:
+        m &= qp - kp < window
+    m = m[None]
+    if seg is not None:
+        m = m & (seg[:, :, None] == seg[:, None, :])
+    return m.any(-1)
+
+
+def check_flash_window(gen):
+    """Kernel 1 with the window (FWD_WINDOW_CASES) against its plain
+    version on the same inputs: out and lse within atol = rtol = 2e-2;
+    rows that see no key give out 0 and lse 0 exactly; a window of S
+    gives the unwindowed kernel's bits."""
+    import torch
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    res = {}
+    for name, sq, sk, hq, hkv, d, causal, lengths, window in \
+            FWD_WINDOW_CASES:
+        q = torch.randn((1, sq, hq, d), generator=gen, device='cuda',
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((1, sk, hkv, d), generator=gen, device='cuda',
+                            dtype=torch.bfloat16) for _ in range(2))
+        seg = None
+        if lengths is not None:
+            page = 64 if sq >= 2048 else 16
+            seg = torch.as_tensor(packed_segments(lengths, page, sq),
+                                  device='cuda')
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                              segment_ids=seg, window=window)
+        ref, ref_lse = fa.flash_attention_reference(
+            q, k, v, causal=causal, segment_ids=seg, window=window)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), f'flash {name}: non-finite'
+        torch.testing.assert_close(out.float(), ref.float(), **TOL)
+        torch.testing.assert_close(lse, ref_lse, **TOL)
+        unseen = ~seen_rows(sq, sk, causal, seg, window)
+        n_unseen = int(unseen.sum())
+        if n_unseen:
+            assert not out[unseen].any(), f'{name}: unseen rows not 0'
+            assert not lse.transpose(1, 2)[unseen].any(), \
+                f'{name}: unseen rows lse not 0'
+        same_as_unwindowed = None
+        if window >= sq:
+            plain = fa.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                               segment_ids=seg)
+            same_as_unwindowed = bool(torch.equal(out, plain[0]) and
+                                      torch.equal(lse, plain[1]))
+            assert same_as_unwindowed, f'{name}: window >= S differs'
+        err = max(max_abs(out, ref), max_abs(lse, ref_lse))
+        res[name] = {'shape': list(q.shape), 'kv_shape': list(k.shape),
+                     'causal': causal, 'segments': lengths,
+                     'window': window, 'max_abs_err': err,
+                     'rows_seeing_nothing': n_unseen,
+                     'same_as_unwindowed': same_as_unwindowed}
+        _log(f'flash window {window} {name} q {list(q.shape)} k '
+             f'{list(k.shape)} causal {causal} segments {lengths}: '
+             f'max|out-ref| {max_abs(out, ref):.3e}, max|lse-ref| '
+             f'{max_abs(lse, ref_lse):.3e} (atol=rtol=2e-2); rows seeing '
+             f'no key {n_unseen} (exact 0s)'
+             + ('' if same_as_unwindowed is None else
+                f'; bit-equal to no window {same_as_unwindowed}'))
+        del q, k, v, out, lse, ref, ref_lse
+        torch.cuda.empty_cache()
+    return res
+
+
+# Kernels 8-9 cases: (name, B, S, Hq, Hkv, D, causal, segments, window).
+# The sft shape at batch 1 (llama3-1b: 32 q and 8 kv heads, head_dim
+# 64), a packed row, head_dim 128, non-causal rows, ragged tails and
+# batch 2, MHA (Hkv == Hq), and a packed row on 16-token pages whose
+# segment boundaries (100, 112, 149, 160, ...) fall inside the kernel's
+# 64-key tiles and off their edges; then the sliding window: Mistral's
+# 6144-token row (window 4096), the packed sft row with segments longer
+# than its window, windows below a tile and not multiples of 64, causal
+# and not.
 BWD_CASES = (
-    ('sft_causal', 1, 2048, 32, 8, 64, True, None),
-    ('sft_packed', 1, 2048, 32, 8, 64, True, BURST),
-    ('d128_causal', 1, 512, 32, 8, 128, True, None),
-    ('noncausal', 1, 2048, 32, 8, 64, False, None),
-    ('d64_ragged_packed', 2, 200, 8, 2, 64, True, (50, 3, 70, 33)),
-    ('d128_ragged_noncausal', 2, 200, 8, 2, 128, False, (90, 50)),
-    ('mha_causal', 2, 1024, 16, 16, 64, True, None),
-    ('packed_mid_tile', 1, 1024, 32, 8, 64, True, (100, 37, 250, 300)),
+    ('sft_causal', 1, 2048, 32, 8, 64, True, None, 0),
+    ('sft_packed', 1, 2048, 32, 8, 64, True, BURST, 0),
+    ('d128_causal', 1, 512, 32, 8, 128, True, None, 0),
+    ('noncausal', 1, 2048, 32, 8, 64, False, None, 0),
+    ('d64_ragged_packed', 2, 200, 8, 2, 64, True, (50, 3, 70, 33), 0),
+    ('d128_ragged_noncausal', 2, 200, 8, 2, 128, False, (90, 50), 0),
+    ('mha_causal', 2, 1024, 16, 16, 64, True, None, 0),
+    ('packed_mid_tile', 1, 1024, 32, 8, 64, True, (100, 37, 250, 300), 0),
+    ('mistral_window', 1, 6144, 32, 8, 128, True, None, 4096),
+    ('sft_packed_window', 1, 2048, 32, 8, 64, True, BURST, 300),
+    ('d64_window7', 2, 200, 8, 2, 64, True, None, 7),
+    ('d128_noncausal_window100', 2, 300, 8, 2, 128, False, None, 100),
+    ('packed_mid_tile_window65', 1, 1024, 32, 8, 64, True,
+     (100, 37, 250, 300), 65),
 )
 
 
@@ -249,7 +385,7 @@ def bwd_inputs(gen, case):
     out and lse from the forward kernel, do ~ N(0, 1)."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
-    _, b, s, hq, hkv, d, causal, lengths = case
+    _, b, s, hq, hkv, d, causal, lengths, window = case
     q = torch.randn((b, s, hq, d), generator=gen, device='cuda',
                     dtype=torch.bfloat16)
     k = torch.randn((b, s, hkv, d), generator=gen, device='cuda',
@@ -262,7 +398,7 @@ def bwd_inputs(gen, case):
         seg = torch.as_tensor(packed_segments(lengths, page, s),
                               device='cuda').expand(b, s).contiguous()
     out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal,
-                                          segment_ids=seg)
+                                          segment_ids=seg, window=window)
     do = torch.randn(out.shape, generator=gen, device='cuda',
                      dtype=torch.bfloat16)
     return q, k, v, out, lse, do, seg
@@ -271,15 +407,19 @@ def bwd_inputs(gen, case):
 @contextlib.contextmanager
 def deterministic_algorithms(on=True):
     """torch.use_deterministic_algorithms(on) inside the block (warn only,
-    for the other ops of a training step), restored after it."""
+    for the other ops of a training step) with the fill of uninitialized
+    memory off, as sft.main runs; restored after it."""
     import torch
     was = (torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.utils.deterministic.fill_uninitialized_memory)
     torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
     try:
         yield
     finally:
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.utils.deterministic.fill_uninitialized_memory = was[2]
 
 
 def check_flash_bwd(gen):
@@ -288,23 +428,27 @@ def check_flash_bwd(gen):
     dq, dk and dv within atol = rtol = 2e-2, and dk and dv of a second
     call on the same inputs bit-equal to the first (dq's bit-equality is
     logged). Then the same with deterministic algorithms on (the
-    kernel's ordered adds): dq bit-equal too."""
+    kernel's ordered adds; a wrong wait range there would hang, not
+    err): dq bit-equal too."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
     res = {}
     for case in BWD_CASES:
-        name, causal = case[0], case[6]
+        name, causal, window = case[0], case[6], case[8]
         q, k, v, out, lse, do, seg = bwd_inputs(gen, case)
         ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                                causal=causal,
-                                               segment_ids=seg)
+                                               segment_ids=seg,
+                                               window=window)
         for ordered in (False, True):
             with deterministic_algorithms(ordered):
                 got = fa.flash_attention_bwd(q, k, v, out, lse, do,
-                                             causal=causal, segment_ids=seg)
+                                             causal=causal, segment_ids=seg,
+                                             window=window)
                 again = fa.flash_attention_bwd(q, k, v, out, lse, do,
                                                causal=causal,
-                                               segment_ids=seg)
+                                               segment_ids=seg,
+                                               window=window)
             torch.cuda.synchronize()
             same = {g: bool(torch.equal(a, b2))
                     for g, a, b2 in zip(('dq', 'dk', 'dv'), got, again)}
@@ -319,7 +463,7 @@ def check_flash_bwd(gen):
             key = name + ('_ordered' if ordered else '')
             res[key] = {'shape': list(q.shape), 'kv_heads': k.shape[2],
                         'causal': causal, 'segments': seg is not None,
-                        'ordered': ordered,
+                        'window': window, 'ordered': ordered,
                         'max_abs_err': max(errs['dq'], errs['dk'],
                                            errs['dv']),
                         'max_abs_err_dq': errs['dq'],
@@ -327,7 +471,7 @@ def check_flash_bwd(gen):
                         'bit_equal_second_call': same, **errs}
             _log(f'flash bwd {name} q {list(q.shape)} kv heads '
                  f'{k.shape[2]} causal {causal} segments {seg is not None} '
-                 f'ordered adds {ordered}: max|d-ref| '
+                 f'window {window} ordered adds {ordered}: max|d-ref| '
                  + ', '.join(f'{g} {errs[g]:.3e} (max|ref| '
                              f'{errs[g + "_ref_max"]:.2e})'
                              for g in ('dq', 'dk', 'dv'))
@@ -335,6 +479,8 @@ def check_flash_bwd(gen):
                  + ', '.join(f'{g} {same[g]}' for g in ('dq', 'dk', 'dv')))
             assert same['dk'] and same['dv'], (key, same)
             assert same['dq'] or not ordered, (key, same)
+        del q, k, v, out, lse, do, seg, ref, got, again
+        torch.cuda.empty_cache()
     return res
 
 
@@ -641,8 +787,9 @@ def plain_block(model, i, x, cos, sin, attend, lora):
 def plain_last_logits(model, tokens, exact=False, lora=None):
     """The model's forward with flash's plain version in place of the
     kernel (exact=True: the same attention computed from f32 copies of
-    q, k, v, output rounded to the model dtype) and the LoRA plain
-    versions in place of theirs: last-position logits."""
+    q, k, v, output rounded to the model dtype), each layer with its
+    window, and the LoRA plain versions in place of theirs:
+    last-position logits."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import rope
@@ -653,12 +800,14 @@ def plain_last_logits(model, tokens, exact=False, lora=None):
     cos, sin = rope.rope_freqs(pos, cfg.head_dim, cfg.rope_theta,
                                use_llama31_scaling=cfg.use_llama31_rope)
 
-    def attend(q, k, v):
+    def attend(q, k, v, window):
         if exact:
             q, k, v = q.float(), k.float(), v.float()
-        return fa.flash_attention_reference(q, k, v, causal=True)[0]
+        return fa.flash_attention_reference(q, k, v, causal=True,
+                                            window=window)[0]
     for i in range(len(model.layers)):
-        x = plain_block(model, i, x, cos, sin, attend, lora)
+        x = plain_block(model, i, x, cos, sin, functools.partial(
+            attend, window=model.layers[i].attn.window), lora)
     return model.lm_head(model.final_norm(x)[:, -1:])[:, 0].float()
 
 
@@ -678,7 +827,7 @@ def kernel_last_logits(model, tokens, lora=None):
     return logits[:, 0].float()
 
 
-def check_logits(model, prompt):
+def check_logits(model, prompt, label='lone'):
     """One prefill's last-token logits through the kernel path against
     the same model with the plain attention. 32 random-weight bf16
     layers amplify rounding, so the check has two parts: kernel vs plain
@@ -700,7 +849,7 @@ def check_logits(model, prompt):
            'rel_plain_exact': rel(ref, exact),
            'max_abs_kernel_plain': max_abs(got, ref),
            'argmax_equal': int(got.argmax()) == int(ref.argmax())}
-    _log('lone prefill last-token logits (rel L2): kernel vs plain '
+    _log(f'{label} prefill last-token logits (rel L2): kernel vs plain '
          f'{res["rel_kernel_plain"]:.3e} (limit {LOGIT_REL_L2}), kernel '
          f'vs f32-attention {res["rel_kernel_exact"]:.3e}, plain vs '
          f'f32-attention {res["rel_plain_exact"]:.3e}; max abs kernel vs '
@@ -829,6 +978,111 @@ def run_engine(card):
            'perf': perf}
     res['logits'] = check_logits(eng.model, lone)
     return eng, res
+
+
+# ----------------------------------------------------------- phase 3: Mistral
+# mistral-7b at full width (32 layers, dim 4096, 32 q / 8 kv heads,
+# head_dim 128, mlp 14336, vocab 32000, sliding window 4096 on every
+# layer; the JAX preset llama.py:165), random bf16 weights from SEED, 4
+# slots of up to 8192 tokens on 64-token pages. A burst of a 6000- and a
+# 2000-token prompt packs into one [1, 8192] ragged row, then a lone
+# 4600-token prompt: the window cuts prefill rows and decode contexts.
+MISTRAL = 'mistral-7b'
+MISTRAL_WINDOW = 4096
+MISTRAL_LONE = 4600
+MISTRAL_SEQ = 8192
+# The window must move the 6000-token prompt's logits at least this many
+# times as far as the kernel's rounding does (kernel vs plain).
+WINDOW_EFFECT_FACTOR = 4.0
+
+
+def run_mistral(card):
+    """Serve mistral-7b through build_engine on the card. The flash
+    forward must launch 32 times per prefill (with the window: the
+    engine has no other attention kernel to take) and no paged kernel at
+    all (a windowed layer decodes through the gather view, as the JAX
+    package's _xla_gather); one prefill's last-token logits must match
+    the plain attention (check_logits), and the same prefill without the
+    window must give logits that differ by WINDOW_EFFECT_FACTOR times
+    more."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import server
+    t0 = time.perf_counter()
+    eng = server.build_engine(MISTRAL, max_seq_len=MISTRAL_SEQ, num_slots=4,
+                              page_size=64, seed=SEED)
+    torch.cuda.synchronize()
+    cfg = eng.model.cfg
+    _log(f'build_engine({MISTRAL!r}, max_seq_len={MISTRAL_SEQ}): '
+         f'{cfg.num_params() / 1e9:.2f}B params, window '
+         f'{cfg.sliding_window} on every layer, '
+         f'{time.perf_counter() - t0:.1f}s; paged pool '
+         f'{list(eng.cache["k"].shape)} {eng.cache["k"].dtype}; prefill '
+         f'buckets {eng.prefill_buckets}, ragged cap {eng._ragged_max}')
+    rng = np.random.default_rng(SEED + 20)
+    burst = [rng.integers(1, cfg.vocab_size, n).tolist()
+             for n in MISTRAL_BURST]
+    lone = rng.integers(1, cfg.vocab_size, MISTRAL_LONE).tolist()
+    params = [engine_lib.SamplingParams(max_new_tokens=MAX_NEW),
+              engine_lib.SamplingParams(max_new_tokens=MAX_NEW,
+                                        temperature=0.8, top_k=40,
+                                        seed=SEED)]
+    cold_s = warm_up(eng, np.random.default_rng(SEED + 2))
+    outs, launches, burst_ttft, lone_s = serve(eng, burst, params, lone)
+    perf = eng.perf_stats()
+    prefills = perf['prefill_dispatches']
+    paged = {k: v for k, v in launches.items() if k != 'flash_fwd'}
+    _log(f'mistral engine: {len(outs)} requests x {MAX_NEW} tokens; '
+         f'launches {launches} (paged and LoRA kernels: {paged}, all 0: '
+         f'windowed layers decode through the gather view); ragged '
+         f'dispatches {perf["ragged_dispatches"]}, prefill dispatches '
+         f'{prefills}')
+    assert perf['ragged_dispatches'] == 1 and prefills == 2, perf
+    assert launches['flash_fwd'] == cfg.n_layers * prefills, launches
+    assert not any(paged.values()), paged
+    lone_ttft = eng.ttfts()[-1]
+    ms_tok = (lone_s - lone_ttft) / (MAX_NEW - 1) * 1e3
+    _log(f'engine mistral [{card}]: warm-up request {cold_s:.2f} s; burst '
+         f'TTFT max {burst_ttft * 1e3:.1f} ms ({MISTRAL_BURST} tokens, one '
+         f'packed [1, 8192] prefill); lone {MISTRAL_LONE}-token TTFT '
+         f'{lone_ttft * 1e3:.1f} ms, then {ms_tok:.1f} ms per token (1 live '
+         f'slot, context {MISTRAL_LONE}+); steady decode '
+         f'{perf.get("steady_decode_tok_s", 0):.1f} tok/s over the run')
+    model = eng.model
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {'launches': launches, 'outs_lengths': [len(o) for o in outs],
+           'warmup_request_s': cold_s, 'burst_ttft_max_s': burst_ttft,
+           'lone_ttft_s': lone_ttft, 'lone_ms_per_token': ms_tok,
+           'steady_decode_tok_s': perf.get('steady_decode_tok_s'),
+           'perf': perf}
+    res['logits'] = check_logits(model, burst[0],
+                                 f'mistral {MISTRAL_BURST[0]}-token')
+    # The same prefill with every layer's window taken off.
+    with torch.inference_mode():
+        toks = torch.as_tensor([burst[0]], device='cuda')
+        windowed = kernel_last_logits(model, toks)
+        for layer in model.layers:
+            layer.attn.window = 0
+        try:
+            unwindowed = kernel_last_logits(model, toks)
+        finally:
+            for i, layer in enumerate(model.layers):
+                layer.attn.window = cfg.layer_window(i)
+    effect = rel_l2(unwindowed, windowed)
+    res['rel_window_effect'] = effect
+    _log(f'mistral: the {MISTRAL_BURST[0]}-token prompt\'s last-token '
+         f'logits with the window vs without (rel L2) {effect:.3e}; kernel '
+         f'vs plain {res["logits"]["rel_kernel_plain"]:.3e} (the window '
+         f'must move them >= {WINDOW_EFFECT_FACTOR}x as far)')
+    assert effect >= WINDOW_EFFECT_FACTOR * \
+        res['logits']['rel_kernel_plain'], res
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 # The int8 and speculative paths: (label, engine options, the kernel the
@@ -1417,40 +1671,214 @@ def _flat_grads(model):
     return [p.grad.float() for p in model.parameters()]
 
 
-def check_train_grads(card):
-    """One full-width step's gradients at batch 1 x 2048 through the
-    kernels against the same weights and batch with attn_impl='xla'
-    (the plain attention, differentiated by autograd): rel L2 of the
-    flattened gradient <= GRAD_REL_L2, losses within LOSS_ABS."""
+def check_train_grads(card, cfg=None, seq=2048, label=SFT_MODEL,
+                      batch_seed=SEED + 5):
+    """One full-width step's gradients at batch 1 x seq through the
+    kernels against the same weights (seed SEED) and batch with
+    attn_impl='xla' (the plain attention, differentiated by autograd):
+    rel L2 of the flattened gradient <= GRAD_REL_L2, losses within
+    LOSS_ABS. cfg: the model (default the sft preset). The flash
+    counters are set to 0 before the kernels' step and returned."""
+    import dataclasses
     import torch
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.train import sft, trainer
     dev = torch.device('cuda')
-    batch = next(sft.synthetic_batches(128256, 1, 2048, seed=SEED + 5))
+    cfg = cfg or llama.CONFIGS[SFT_MODEL]
+    batch = next(sft.synthetic_batches(cfg.vocab_size, 1, seq,
+                                       seed=batch_seed))
     tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    res = {}
-    ref_model = sft.build_model(SFT_MODEL, 'xla', dev, seed=SEED)
-    loss_x, _ = trainer.cross_entropy_loss(ref_model(tb['tokens']),
-                                           tb['targets'])
-    loss_x.backward()
-    model = sft.build_model(SFT_MODEL, 'auto', dev, seed=SEED)
-    loss_f, _ = trainer.cross_entropy_loss(model(tb['tokens']),
-                                           tb['targets'])
-    loss_f.backward()
+    losses, grads = {}, {}
+    for impl in ('xla', 'auto'):
+        model = llama.LlamaModel(dataclasses.replace(cfg, attn_impl=impl),
+                                 device='meta').to_empty(device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        model.init_weights(gen)
+        fa.reset_launches()
+        loss, _ = trainer.cross_entropy_loss(model(tb['tokens']),
+                                             tb['targets'])
+        loss.backward()
+        losses[impl] = loss.item()
+        grads[impl] = _flat_grads(model)
+        del model, loss
+    launches = {'flash_fwd': fa.launches, 'flash_bwd': fa.launches_bwd}
     num = den = 0.0
-    for a, b in zip(_flat_grads(model), _flat_grads(ref_model)):
+    for a, b in zip(grads['auto'], grads['xla']):
         num += float((a - b).square().sum())
         den += float(b.square().sum())
     torch.cuda.synchronize()
-    res = {'rel_l2': math.sqrt(num / den), 'loss_flash': loss_f.item(),
-           'loss_xla': loss_x.item(),
-           'grad_norm_xla': math.sqrt(den)}
-    _log(f'grad check [{card}] {SFT_MODEL} 1 x 2048: flattened gradient '
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {'rel_l2': math.sqrt(num / den), 'loss_flash': losses['auto'],
+           'loss_xla': losses['xla'], 'grad_norm_xla': math.sqrt(den),
+           'launches': launches, 'seq': seq}
+    _log(f'grad check [{card}] {label} 1 x {seq}: flattened gradient '
          f'kernels vs attn_impl=xla rel L2 {res["rel_l2"]:.3e} (limit '
          f'{GRAD_REL_L2}); loss {res["loss_flash"]:.5f} vs '
          f'{res["loss_xla"]:.5f} (limit {LOSS_ABS}); |g| '
-         f'{res["grad_norm_xla"]:.4f}')
+         f'{res["grad_norm_xla"]:.4f}; launches {launches}')
     assert math.isfinite(res['rel_l2']) and res['rel_l2'] <= GRAD_REL_L2, res
     assert abs(res['loss_flash'] - res['loss_xla']) <= LOSS_ABS, res
+    return res
+
+
+def check_mistral_grads(card, seq=6144):
+    """check_train_grads through two layers of mistral-7b at full width
+    (window 4096; f32 masters, bf16 compute, remat) at 1 x seq: the
+    windowed forward and backward kernels against the plain attention.
+    The backward kernel must launch once per layer."""
+    import dataclasses
+    from skypilot_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.CONFIGS[MISTRAL], n_layers=2)
+    res = check_train_grads(
+        card, cfg, seq, f'{MISTRAL} (2 layers, window '
+        f'{cfg.sliding_window})', SEED + 6)
+    assert res['launches']['flash_bwd'] == cfg.n_layers, res['launches']
+    return res
+
+
+def _capture_steps(real, box, preempt_after=None):
+    """A stand-in for trainer.make_train_step (`real`) whose step
+    functions keep the last state they returned in box['state'], and
+    with preempt_after=n send this process SIGTERM after the n-th step,
+    as a spot preemption would (sft's guard then saves a checkpoint at
+    that step boundary and exits 75)."""
+    import signal
+
+    def make(*args, **kw):
+        step_fn = real(*args, **kw)
+        calls = [0]
+
+        def step(state, batch):
+            out = step_fn(state, batch)
+            box['state'] = out[0]
+            calls[0] += 1
+            if calls[0] == preempt_after:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        return step
+    return make
+
+
+def check_sft_resume(card):
+    """sft.main on llama3-1b at 2 x 2048: a 4-step run preempted (SIGTERM)
+    after step 2, which saves and exits 75, then resumed to step 4, must
+    end in the same bits as an unbroken 4-step run: every parameter and
+    AdamW moment, and the steps 3-4 losses (asserted). sft restarts its
+    data stream on resume, as the JAX sft does, so both runs read a JSONL
+    file of exactly two batches of tokens: every run sees batches 0, 1,
+    0, 1. The deterministic-algorithms setting is the same after each
+    sft.main (returned or exited) as before it."""
+    import shutil
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.train import sft, trainer
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'smoke_out', 'resume')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    b, seq = 2, 2048
+    rng = np.random.default_rng(SEED + 12)
+    data = os.path.join(out_dir, 'two_batches.jsonl')
+    with open(data, 'w') as f:
+        # One row plus its 0 separator: 2 x b x (seq + 1) tokens.
+        f.write(json.dumps({'tokens': rng.integers(
+            1, 128256, 2 * b * (seq + 1) - 1).tolist()}) + '\n')
+    argv = ['--model', SFT_MODEL, '--batch', str(b), '--seq', str(seq),
+            '--steps', '4', '--log-every', '1', '--data', data]
+    ckpt = ['--checkpoint-dir', os.path.join(out_dir, 'ckpt')]
+    before = torch.are_deterministic_algorithms_enabled()
+    real = trainer.make_train_step
+    finals, code = [], None
+    try:
+        for run in ('unbroken', 'preempted', 'resumed'):
+            box = {}
+            trainer.make_train_step = _capture_steps(
+                real, box, 2 if run == 'preempted' else None)
+            try:
+                out = sft.main(argv + ([] if run == 'unbroken' else ckpt))
+            except SystemExit as e:
+                assert run == 'preempted', run
+                code = e.code
+            assert torch.are_deterministic_algorithms_enabled() == before
+            if run != 'preempted':
+                finals.append((out, box['state']))
+            del box
+    finally:
+        trainer.make_train_step = real
+    assert code == 75, code
+    (unbroken, sa), (resumed, sb) = finals
+    assert resumed['start_step'] == 2 and sa.step == sb.step == 4, \
+        (resumed['start_step'], sa.step, sb.step)
+    a = list(sa.model.state_dict().items())
+    bb = list(sb.model.state_dict().values())
+    oa, ob = sa.optimizer.state_dict(), sb.optimizer.state_dict()
+    for i in oa['state']:
+        for key in ('exp_avg', 'exp_avg_sq'):
+            a.append((f'optimizer/{i}/{key}', oa['state'][i][key]))
+            bb.append(ob['state'][i][key])
+    differ = [k for (k, x), y in zip(a, bb) if not torch.equal(x, y)]
+    losses_equal = unbroken['losses'][2:] == resumed['losses']
+    res = {'unbroken_losses': unbroken['losses'],
+           'resumed_losses': resumed['losses'], 'tensors': len(a),
+           'tensors_differing': len(differ), 'preempt_exit': code}
+    _log(f'sft resume [{card}] {SFT_MODEL} {b} x {seq} (sft runs with '
+         f'deterministic algorithms on): preempted after step 2 (exit '
+         f'{code}), resumed to step 4; {len(a)} parameter and moment '
+         f'tensors, {len(differ)} differ from the unbroken run\'s; steps '
+         f'3-4 losses unbroken {unbroken["losses"][2:]} vs resumed '
+         f'{resumed["losses"]} (bit-equal {losses_equal})')
+    assert not differ, differ[:5]
+    assert losses_equal, res
+    del finals, sa, sb, a, bb, oa, ob
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res
+
+
+def time_sft_ordered(card, steps=3):
+    """sft's step with the backward's dq adds ordered (deterministic
+    algorithms on, as sft.main runs) and unordered, in turns on one
+    model: llama3-1b at 8 x 2048, `steps` steps per turn after a warm-up,
+    on, off, on, off; s/step per turn (host clock around synchronised
+    steps)."""
+    import torch
+    from skypilot_tpu_torch.train import sft, trainer
+    dev = torch.device('cuda')
+    model = sft.build_model(SFT_MODEL, 'auto', dev, seed=SEED)
+    tx = trainer.make_optimizer(trainer.TrainerConfig())
+    state = trainer.create_state(model, tx)
+    step_fn = trainer.make_train_step(model, tx)
+    data = sft.synthetic_batches(model.cfg.vocab_size, 8, 2048, seed=SEED)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+    turns = {'ordered': [], 'unordered': []}
+    with deterministic_algorithms(True):
+        for _ in range(2):
+            state, _ = step_fn(state, batch)
+    for ordered in (True, False, True, False):
+        with deterministic_algorithms(ordered):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            turns['ordered' if ordered else 'unordered'].append(
+                (time.perf_counter() - t0) / steps)
+    del state, model, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(turns)
+    res['cost_s'] = (sum(turns['ordered']) - sum(turns['unordered'])) / 2
+    _log(f'sft step {SFT_MODEL} 8 x 2048 [{card}]: ordered dq adds '
+         + ', '.join(f'{t:.4f}' for t in turns['ordered'])
+         + ' s/step vs unordered '
+         + ', '.join(f'{t:.4f}' for t in turns['unordered'])
+         + f' (turns on, off, on, off): cost {res["cost_s"] * 1e3:.1f} '
+         'ms/step')
     return res
 
 
@@ -1642,6 +2070,113 @@ def time_flash_bwd(gen):
     return res
 
 
+def band_pairs(s, window):
+    """Visible (q, k) pairs of one causal row of s tokens under a window
+    (0: none): row p sees min(p + 1, window) keys."""
+    w = window if window > 0 else s
+    return sum(min(p + 1, w) for p in range(s))
+
+
+def time_window(gen, s=8192, window=MISTRAL_WINDOW):
+    """Kernels 1 and 8-9 with Mistral's window at [1, s, 32, 8, 128]
+    causal (a full 8192-token row): the forward kernel and the backward
+    kernel (flash_bwd_cuda, also with ordered adds) with the window and
+    without it at the same shape, the plain forward and backward with
+    the window, and SDPA with a boolean band mask (k/v expanded to 32
+    heads; its forward, and its backward eagerly beside the kernel's
+    whole backward eagerly), with the backend SDPA picked. Bounds: 4*d
+    (forward) and 10*d (backward) flops per query head and visible pair,
+    against the bytes each must move once."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    b, hq, hkv, d = 1, 32, 8, 128
+    q, k, v = flash_inputs(gen, s, hq, hkv, d)
+    res = {'shape': [b, s, hq, d], 'kv_heads': hkv, 'window': window}
+    for w, tag in ((window, ''), (0, '_nowindow')):
+        res['fwd_ms' + tag] = time_ms(lambda: fa.flash_attention_fwd_lse(
+            q, k, v, causal=True, window=w), 10)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=True,
+                                          window=window)
+    out0, lse0 = fa.flash_attention_fwd_lse(q, k, v, causal=True)
+    do = torch.randn(out.shape, generator=gen, device='cuda',
+                     dtype=torch.bfloat16)
+    for w, tag, o in ((window, '', out), (0, '_nowindow', out0)):
+        lw = lse if w else lse0
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        res['bwd_ms' + tag] = time_ms(lambda: fa.flash_bwd_cuda(
+            q, k, v, do, lw, delta, None, True, w), 5)
+        if w:
+            with deterministic_algorithms():
+                res['bwd_ordered_ms'] = time_ms(lambda: fa.flash_bwd_cuda(
+                    q, k, v, do, lw, delta, None, True, w), 5)
+    res['bwd_eager_ms'] = eager_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=True, window=window), 5)
+    del out0, lse0
+    torch.cuda.empty_cache()
+    res['fwd_plain_ms'] = eager_ms(lambda: fa.flash_attention_reference(
+        q, k, v, causal=True, window=window), 1)
+    torch.cuda.empty_cache()
+    res['bwd_plain_ms'] = eager_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, do, causal=True, window=window), 1)
+    torch.cuda.empty_cache()
+    pos = torch.arange(s, device='cuda')
+    band = (pos[None, :] <= pos[:, None]) & \
+        (pos[:, None] - pos[None, :] < window)
+    qt = q.transpose(1, 2)
+    kx = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+    vx = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+    mask = band[None, None]
+    names = {int(v): k for k, v in
+             torch.nn.attention.SDPBackend.__members__.items()}
+    backend = int(torch._fused_sdp_choice(qt, kx, vx, mask, 0.0, False))
+    res['library_backend'] = names.get(backend, str(backend))
+    res['fwd_library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kx, vx, attn_mask=mask), 10)
+    leaves = [x.detach().requires_grad_() for x in (qt, kx, vx)]
+    with torch.enable_grad():
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    dot = do.transpose(1, 2)
+    res['bwd_library_ms'] = eager_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, dot, retain_graph=True), 5)
+    del sdpa_out, leaves, kx, vx
+    torch.cuda.empty_cache()
+    for name, per_pair, nbytes in (
+            ('fwd', 4.0, 2 * (2 * q.numel() + k.numel() + v.numel())
+             + 4 * b * hq * s),
+            ('bwd', 10.0, 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
+             + 2 * 4 * b * hq * s)):
+        for w, tag in ((window, ''), (0, '_nowindow')):
+            flops = per_pair * d * b * hq * band_pairs(s, w)
+            bf = flops / BF16_FLOPS_PER_S * 1e3
+            bb = nbytes / HBM_BYTES_PER_S * 1e3
+            res[f'{name}_bound_ms{tag}'] = max(bf, bb)
+            res[f'{name}_bound_by{tag}'] = 'operations' if bf >= bb \
+                else 'bytes'
+    res['pairs_per_head'] = band_pairs(s, window)
+    res['pairs_per_head_nowindow'] = band_pairs(s, 0)
+    return res
+
+
+def log_window_timed(card, tw):
+    for name in ('fwd', 'bwd'):
+        extra = (f'; with ordered adds {tw["bwd_ordered_ms"]:.4f} ms; whole '
+                 f'backward eager {tw["bwd_eager_ms"]:.4f} ms vs SDPA '
+                 f'backward eager {tw["bwd_library_ms"]:.4f} ms'
+                 if name == 'bwd' else
+                 f'; SDPA forward {tw["fwd_library_ms"]:.4f} ms')
+        _log(f'flash_{name} window {tw["window"]} causal {tw["shape"]} kv '
+             f'heads {tw["kv_heads"]} [{card}]: {tw[name + "_ms"]:.4f} ms '
+             f'(bound {tw[name + "_bound_ms"]:.4f}, '
+             f'{tw[name + "_bound_by"]}) vs no window '
+             f'{tw[name + "_ms_nowindow"]:.4f} ms (bound '
+             f'{tw[name + "_bound_ms_nowindow"]:.4f}): ratio '
+             f'{tw[name + "_ms"] / tw[name + "_ms_nowindow"]:.3f} (visible '
+             f'pairs {tw["pairs_per_head"] / tw["pairs_per_head_nowindow"]:.3f}'
+             f'); plain {tw[name + "_plain_ms"]:.2f} ms' + extra
+             + f'; SDPA with the band mask took {tw["library_backend"]}')
+
+
 def log_flash_bwd_timed(card, tb):
     _log(f'flash_bwd causal {tb["shape"]} kv heads 8 [{card}]: '
          f'{tb["bwd_ms"]:.4f} ms in a CUDA graph (kernel + zeroing '
@@ -1680,7 +2215,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
-    name = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     _log(f'card: {card}')
     _log(f'torch {torch.__version__} cuda {torch.version.cuda} '
          f'python {sys.version.split()[0]}')
@@ -1702,11 +2237,12 @@ def main() -> int:
         paged_res = check_paged(gen)
         family_res = check_family(gen)
         lora_res = check_lora(gen)
+        window_res = check_flash_window(gen)
         bwd_res = check_flash_bwd(gen)
     if args.quick:
         _log(card)
         print(json.dumps({'ok': True, 'device': {
-            'platform': 'gpu', 'kind': name,
+            'platform': 'gpu', 'kind': device_kind,
             'count': torch.cuda.device_count()}}))
         return 0
 
@@ -1714,6 +2250,9 @@ def main() -> int:
         args, card, gen, {'flash': flash_res, 'paged': paged_res,
                           'family': family_res, 'lora': lora_res})
     details.update({'card': card, 'build_s': build_s})
+    gc.collect()
+    torch.cuda.empty_cache()
+    mistral_res = run_mistral(card)
     train_res = run_train(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1728,6 +2267,11 @@ def main() -> int:
     ckpt_long_res['unordered'] = check_checkpoint(card, seq=512, exact=False)
     gc.collect()
     torch.cuda.empty_cache()
+    resume_res = check_sft_resume(card)
+    ordered_res = time_sft_ordered(card)
+    mistral_grads = check_mistral_grads(card)
+    tw = time_window(gen)
+    log_window_timed(card, tw)
     tb = time_flash_bwd(gen)
     log_flash_bwd_timed(card, tb)
     _log(f'flash_fwd causal {tb["shape"]} kv heads 8 [{card}]: '
@@ -1762,11 +2306,44 @@ def main() -> int:
                           'train_bound_ms': tb['fwd_bound_ms'],
                           'train_library_ms': tb['fwd_library_ms']})
     kernels += bwd_kernels
+    # The windowed kernels: the forward's launches from the Mistral
+    # engine's run, the backward's from the Mistral grad check (both
+    # counted from 0 just before); times at [1, 8192, 32, 128].
+    for kname, tag, launches, err, line in (
+            ('flash_fwd_window', 'fwd', mistral_res['launches']['flash_fwd'],
+             window_res['mistral_packed']['max_abs_err'], '108 _fwd_kernel'),
+            ('flash_bwd_window', 'bwd',
+             mistral_grads['launches']['flash_bwd'],
+             bwd_res['mistral_window']['max_abs_err'],
+             '168 _dq_kernel, :216 _dkv_kernel')):
+        entry = {
+            'name': kname, 'route': 'cuda',
+            'source': f'skypilot_tpu_torch/csrc/flash_{tag}.cu',
+            'replaces': f'skypilot_tpu/ops/flash_attention.py:{line} '
+                        f'(window > 0)',
+            'launches': launches, 'max_abs_err': err, 'ms': tw[tag + '_ms'],
+            'kernel_ms': tw[tag + '_ms'], 'plain_ms': tw[tag + '_plain_ms'],
+            'bound_ms': tw[tag + '_bound_ms'],
+            'bound_by': tw[tag + '_bound_by'],
+            'library_ms': tw[tag + '_library_ms'],
+            'library': f'SDPA, boolean band mask ({tw["library_backend"]})',
+            'shape': tw['shape'], 'window': tw['window'],
+            'nowindow_ms': tw[tag + '_ms_nowindow'],
+            'nowindow_bound_ms': tw[tag + '_bound_ms_nowindow']}
+        if tag == 'bwd':
+            entry.update({'fused': True,
+                          'ordered_ms': tw['bwd_ordered_ms'],
+                          'eager_ms': tw['bwd_eager_ms']})
+        kernels.append(entry)
     details.update({'train': train_res, 'train_grads': grads_res,
                     'checkpoint': ckpt_res,
                     'checkpoint_512': ckpt_long_res, 'flash_bwd_timed': tb,
+                    'mistral': mistral_res, 'mistral_grads': mistral_grads,
+                    'sft_resume': resume_res, 'sft_ordered': ordered_res,
+                    'window_timed': tw,
                     'checks': {'flash': flash_res, 'paged': paged_res,
                                'family': family_res, 'lora': lora_res,
+                               'flash_window': window_res,
                                'flash_bwd': bwd_res}})
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            'smoke_out')
@@ -1777,7 +2354,7 @@ def main() -> int:
     _log(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': name,
+        'platform': 'gpu', 'kind': device_kind,
         'count': torch.cuda.device_count()}}))
     return 0
 

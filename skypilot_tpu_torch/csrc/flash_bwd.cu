@@ -5,8 +5,8 @@
 // _dkv_kernel (both launched by _bwd_rule). From the forward's residuals
 // (q, k, v, the row logsumexp L) and delta = rowsum(dO * O), it
 // recomputes p = exp(s - L) tile by tile, with s = q.k * scale masked as
-// _block_mask masks it (causal on the packed index, q_seg == k_seg when
-// segment ids are given), and
+// _block_mask masks it (causal on the packed index, q - k < window when a
+// sliding window is given, q_seg == k_seg when segment ids are), and
 //   dp = dO . v^T,  ds = p * (dp - delta) * scale,
 //   dq = ds . k,    dk = ds^T . q,    dv = p^T . dO.
 // A row with no visible key has L = 0 and p exactly 0, as there.
@@ -20,9 +20,11 @@
 //
 // Design (FA2's order, on wgmma). One warpgroup (4 warps) per (64-key
 // tile, kv head, batch) walks its kv head's whole query group and, when
-// causal, the 64-row q tiles from the diagonal down; two such blocks
-// share an SM, so one's tensor-core phases overlap the other's exp and
-// store phases.
+// causal, the 64-row q tiles from the diagonal down, and with a sliding
+// window only to the last q tile whose first query lies within
+// window - 1 of the tile's last key (_qk_block_overlaps), so a windowed
+// key tile costs O(window); two such blocks share an SM, so one's
+// tensor-core phases overlap the other's exp and store phases.
 //   * Per (q tile, head) step it computes the transposed tiles
 //     S^T = K Q^T and dP^T = V dO^T once (wgmma m64n64k16; at head_dim 64
 //     K and V are register A operands held for the whole block), forms
@@ -48,8 +50,14 @@
 //     the unbroken one). The grid then starts a group's last key tile
 //     first, so a block waits only on blocks launched before it, and a
 //     key tile reaches each q tile a group of steps after the key tile
-//     above it. On an H100 the waits and the fences that order the adds
-//     cost ~35% of the kernel's time at the sft shape.
+//     above it. With a sliding window (its own instantiation, so the
+//     unwindowed kernel carries none of its arithmetic) a key tile walks
+//     only the q tiles its window reaches; a key tile that waits for q
+//     tile t waits only on key tiles above it, whose windows reach t too,
+//     so each of them sets its bit there (adds or passes) and no key tile
+//     waits on a bit that is never set. On an H100 the waits and the
+//     fences that order the adds cost ~35% of the kernel's time at the
+//     sft shape.
 //   * Tiles live in shared memory as 64-column panels of 128-byte rows in
 //     the 128-byte swizzle that TMA writes and wgmma descriptors read.
 //   * Pipelined operands: one thread stages the next step's Q and dO by
@@ -60,18 +68,19 @@
 //     separate wgmma groups: the exp runs beside dP^T, dS beside dv.
 //   * Mask classes, decided once per (key tile, q tile) in the prologue:
 //     wholly hidden (skipped before its loads), wholly visible (no
-//     per-element mask), or cut by the causal diagonal, a segment
-//     boundary or the ragged end (per-element mask).
+//     per-element mask), or cut by the causal diagonal, the window's
+//     edge, a segment boundary or the ragged end (per-element mask).
 //   * p and ds are rounded to bf16 before their products, as the TPU
 //     kernels cast them to the operand dtype; dq is summed in f32 across
 //     key tiles and rounded once.
 // Grid: ceil(S / 64) x Hkv x B blocks of 128 threads, a (kv head, batch)
 // group's blocks one after another (its dq rows stay in L2 while they
 // add into them), the heaviest causal key tiles first (the last first
-// when ordered); at the sft shape 32 x 8 x 8 = 2,048 blocks. Shared
-// memory: 101,664 bytes at head_dim 64 (two blocks per SM), 150,816 at
-// head_dim 128 (one), 1 KB of it to align the swizzled tiles, plus 4
-// bytes per q tile for the mask classes.
+// when ordered; with a window the first (S - window) / 64 key tiles tie
+// for the heaviest, and the order stays); at the sft shape 32 x 8 x 8 =
+// 2,048 blocks. Shared memory: 101,920 bytes at head_dim 64 (two blocks
+// per SM), 151,072 at head_dim 128 (one), 1 KB of it to align the
+// swizzled tiles, plus 4 bytes per q tile for the mask classes.
 #include "common.cuh"
 
 #include <cuda.h>
@@ -383,8 +392,9 @@ struct Layout {
   static constexpr size_t qseg = delta + 2 * size_t(kBQ) * 4; // 2 buffers
   static constexpr size_t kseg = qseg + 2 * size_t(kBQ) * 4;
   static constexpr size_t dseg = kseg + size_t(kBN) * 4;  // distinct key
-  static constexpr size_t dmin = dseg + size_t(kBN) * 4;  // segments
-  static constexpr size_t ndist = dmin + size_t(kBN) * 4;
+  static constexpr size_t dmin = dseg + size_t(kBN) * 4;  // segments, their
+  static constexpr size_t dmax = dmin + size_t(kBN) * 4;  // first and last
+  static constexpr size_t ndist = dmax + size_t(kBN) * 4; // keys
   static constexpr size_t bar = ndist + 16;      // 2 mbarriers
   static constexpr size_t cls = bar + 16;        // + 4 bytes per q tile
   // 1024 bytes of slack to align the swizzled tiles.
@@ -398,15 +408,16 @@ struct Params {
   const float *lse, *delta;
   const int *seg;
   float *dq;        // f32 accumulator [B, S, Hq, D], zeroed by the caller
-  unsigned *done;   // [B, Hq, q tiles, words] key-tile bits, zeroed too
+  unsigned *done;   // [B, Hkv, q tiles, words] key-tile bits, zeroed too
   bf16 *dk, *dv;    // [B, S, Hkv, D]
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
       o_ss, o_sh;
   int s, hq, hkv, causal;
+  int window;       // > 0: query i sees key j only when i - j < window
   float scale;
 };
 
-template <int D, bool kOrdered>
+template <int D, bool kOrdered, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   using L = Layout<D>;
@@ -429,6 +440,7 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   int *ksegs = reinterpret_cast<int *>(smem + L::kseg);
   int *dseg = reinterpret_cast<int *>(smem + L::dseg);
   int *dmin = reinterpret_cast<int *>(smem + L::dmin);
+  int *dmax = reinterpret_cast<int *>(smem + L::dmax);
   int *ndist = reinterpret_cast<int *>(smem + L::ndist);
   uint64_t *bars = reinterpret_cast<uint64_t *>(smem + L::bar);
   int *cls = reinterpret_cast<int *>(smem + L::cls);
@@ -443,6 +455,9 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   const int r0 = warp * 16 + g4;
   const int s = p.s;
   const bool causal = p.causal != 0;
+  // The window is its own instantiation: without it, none of its
+  // arithmetic is compiled in.
+  const int window = kWindow ? p.window : 0;
   // A (kv head, batch) group's blocks run together, so its dq rows stay
   // in L2 while they add into them. Within the group the first key tiles
   // (when causal, those that see the most q tiles) start first; when the
@@ -457,7 +472,11 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   const int nqt = (s + kBQ - 1) / kBQ;
   const int *segb = p.seg ? p.seg + static_cast<long long>(b) * s : nullptr;
   // Causal: q tiles wholly above the tile's first key see none of it.
+  // Window: q tiles whose first query lies at or beyond the tile's last
+  // key + window - 1 see none of it; the walk ends before the first.
   const int t_begin = causal ? k0 / kBQ : 0;
+  const int t_end =
+      window > 0 ? min(nqt, (k0 + kBN + window - 2) / kBQ + 1) : nqt;
 
   if (tid == 0) {
     mbar_init(&bars[0], 1);
@@ -470,8 +489,10 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
                 kBN, s - k0, tid);
   if (segb) {
     // Mask classes: the key tile's distinct segment ids, each with its
-    // first key; a q row sees the tile iff some distinct id equals its
-    // own (at a key at or before it when causal).
+    // first and last key; a q row sees the tile iff some distinct id
+    // equals its own (at a key at or before it when causal, and the last
+    // such key within the window). Ids that are not contiguous can make
+    // a row "visible" that sees nothing: its tile is masked per element.
     if (tid == 0) *ndist = 0;
     for (int t = tid; t < nqt; t += kThreads) cls[t] = 0;
     if (tid < kBN) ksegs[tid] = k0 + tid < s ? segb[k0 + tid] : -2;
@@ -481,23 +502,30 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
       bool first = true;
       for (int c = 0; c < tid && first; ++c) first = ksegs[c] != ks;
       if (first) {
+        int last = tid;
+        if (kWindow)
+          for (int c = tid + 1; c < kBN; ++c)
+            last = ksegs[c] == ks ? c : last;
         const int i = atomicAdd(ndist, 1);
         dseg[i] = ks;
         dmin[i] = k0 + tid;
+        dmax[i] = k0 + last;
       }
     }
     __syncthreads();
     const int nd = *ndist;
     const bool uniform = nd == 1 && k0 + kBN <= s;
-    for (int qi = t_begin * kBQ + tid; qi < nqt * kBQ; qi += kThreads) {
+    for (int qi = t_begin * kBQ + tid; qi < t_end * kBQ; qi += kThreads) {
       int bits = 2;   // bit 0: some key visible; bit 1: some key hidden
       if (qi < s) {
         const int qs = segb[qi];
         bool any = false;
         for (int i = 0; i < nd; ++i)
-          any |= dseg[i] == qs && (!causal || dmin[i] <= qi);
+          any |= dseg[i] == qs && (!causal || dmin[i] <= qi) &&
+                 (window <= 0 || qi - dmax[i] < window);
         const bool full = uniform && dseg[0] == qs &&
-                          (!causal || qi >= k0 + kBN - 1);
+                          (!causal || qi >= k0 + kBN - 1) &&
+                          (window <= 0 || qi - k0 < window);
         bits = (any ? 1 : 0) | (full ? 0 : 2);
       }
       atomicOr(&cls[qi / kBQ], bits);
@@ -514,15 +542,19 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
     }
     const int q0 = t * kBQ;
     if (causal && q0 + kBQ - 1 < k0) return kHidden;
+    if (window > 0 && q0 >= k0 + kBN - 1 + window) return kHidden;
     const bool full = q0 + kBQ <= s && k0 + kBN <= s &&
-                      (!causal || q0 >= k0 + kBN - 1);
+                      (!causal || q0 >= k0 + kBN - 1) &&
+                      (window <= 0 || q0 + kBQ - 1 - k0 < window);
     return full ? kFull : kPartial;
   };
   // Ordered adds: each q tile t of the group has a row of bits, one per
   // key tile, set when that key tile's adds into the group's dq tiles of
   // t have completed or when it sees none of t. Key tile kt adds once
   // the bits of the key tiles above it that can see t are set: the adds
-  // land from the last key tile down, on every call.
+  // land from the last key tile down, on every call. With a window, the
+  // key tiles above kt up to last_kt(t) all reach t (their windows end
+  // later), so each sets its bit there.
   const bool issuer = tid == 0;
   const int words = (nkt + 31) / 32;
   auto done_row = [&](int t) -> unsigned * {
@@ -537,10 +569,10 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   auto pass = [&](int t) {
     if (kOrdered && issuer) set_bit_relaxed(done_row(t), kt);
   };
-  // The next q tile after t that the key tile sees (nqt if none),
+  // The next q tile after t that the key tile sees (t_end if none),
   // passing those it does not.
   auto next_tile = [&](int t) -> int {
-    for (++t; t < nqt && tile_class(t) == kHidden; ++t) pass(t);
+    for (++t; t < t_end && tile_class(t) == kHidden; ++t) pass(t);
     return t;
   };
 
@@ -677,10 +709,10 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   int t = next_tile(t_begin - 1), hh = 0;
   int prev_t = -1, prev_h = 0;
   int buf = 0;
-  if (t < nqt) issue(0, t, 0);
+  if (t < t_end) issue(0, t, 0);
   uint32_t phase = 0;   // bit i: parity of buffer i's next completion
   int staged_t = -1, staged_h = 0, stage = 0;   // dq staged, not yet added
-  while (t < nqt) {
+  while (t < t_end) {
     skyt::cp_async_wait_all();
     mbar_wait(&bars[buf], (phase >> buf) & 1);
     phase ^= 1u << buf;
@@ -702,7 +734,7 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
       nh = 0;
       nt_ = next_tile(t);
     }
-    if (nt_ < nqt) issue(buf ^ 1, nt_, nh);
+    if (nt_ < t_end) issue(buf ^ 1, nt_, nh);
 
     // The previous step's dq, staged; then S^T = K Q^T and dP^T = V dO^T
     // (64 keys x 64 queries) in their own commit groups, so that the exp
@@ -766,6 +798,7 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
             const int qi = q0 + c + (e & 1);
             const int kj = e < 2 ? kj0 : kj1;
             const bool ok = qi < s && kj < s && (!causal || kj <= qi) &&
+                            (window <= 0 || qi - kj < window) &&
                             (!segb || qsb[c + (e & 1)] ==
                                           (e < 2 ? kseg0 : kseg1));
             pv = ok ? pv : 0.f;
@@ -922,7 +955,7 @@ bool encode(CUtensorMap *map, CUtensorMapDataType type, int esize,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool kOrdered>
+template <int D, bool kOrdered, bool kWindow>
 int launch(const Params &p, int b, cudaStream_t stream) {
   Maps maps;
   const long long dq_ss = static_cast<long long>(p.hq) * D;
@@ -935,13 +968,20 @@ int launch(const Params &p, int b, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = Layout<D>::bytes(p.s);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<D, kOrdered>,
+      flash_bwd_kernel<D, kOrdered, kWindow>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.s + kBN - 1) / kBN, p.hkv, b);
-  flash_bwd_kernel<D, kOrdered><<<grid, kThreads, bytes, stream>>>(p, maps);
+  flash_bwd_kernel<D, kOrdered, kWindow>
+      <<<grid, kThreads, bytes, stream>>>(p, maps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kOrdered>
+int launch_w(const Params &p, int b, cudaStream_t stream) {
+  return p.window > 0 ? launch<D, kOrdered, true>(p, b, stream)
+                      : launch<D, kOrdered, false>(p, b, stream);
 }
 
 }  // namespace
@@ -955,6 +995,7 @@ SKYT_DEFINE_ERROR_STRING
 // dk, dv [B, S, Hkv, D] bf16 contiguous. With done [B, Hkv, ceil(S / 64),
 // ceil(S / 2048)] int32, zeroed by the caller, dq's adds go in a fixed
 // order (the same bits on every call); with done null, in any order.
+// window > 0: query i sees key j only when i - j < window (0: no window).
 extern "C" int skyt_flash_bwd(
     const void *q, const void *k, const void *v, const void *dout,
     const void *lse, const void *delta, const void *seg, void *dq_acc,
@@ -962,8 +1003,9 @@ extern "C" int skyt_flash_bwd(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int b, int s, int hq, int hkv, int d,
-    int causal, float scale, void *stream) {
-  if (hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+    int causal, int window, float scale, void *stream) {
+  if (hkv <= 0 || hq % hkv != 0 || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params p{static_cast<const bf16 *>(q), static_cast<const bf16 *>(k),
                  static_cast<const bf16 *>(v),
                  static_cast<const bf16 *>(dout),
@@ -973,13 +1015,14 @@ extern "C" int skyt_flash_bwd(
                  static_cast<unsigned *>(done), static_cast<bf16 *>(dk),
                  static_cast<bf16 *>(dv), q_sb, q_ss, q_sh, k_sb, k_ss,
                  k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, s, hq, hkv,
-                 causal, scale};
+                 causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool ordered = done != nullptr;
   if (d == 64)
-    return ordered ? launch<64, true>(p, b, st) : launch<64, false>(p, b, st);
+    return ordered ? launch_w<64, true>(p, b, st)
+                   : launch_w<64, false>(p, b, st);
   if (d == 128)
-    return ordered ? launch<128, true>(p, b, st)
-                   : launch<128, false>(p, b, st);
+    return ordered ? launch_w<128, true>(p, b, st)
+                   : launch_w<128, false>(p, b, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

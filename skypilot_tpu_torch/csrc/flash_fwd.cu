@@ -1,9 +1,9 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in, f32 accumulate.
 //
 // Replaces skypilot_tpu/ops/flash_attention.py:108 _fwd_kernel (launched
-// by _flash_fwd_impl): FA2 online-softmax attention with causal and
-// segment-id masks, GQA (query head h reads kv head h // (Hq/Hkv)) and
-// the per-row logsumexp.
+// by _flash_fwd_impl): FA2 online-softmax attention with causal,
+// segment-id and sliding-window masks, GQA (query head h reads kv head
+// h // (Hq/Hkv)) and the per-row logsumexp.
 //
 // What bounds it on this card: tensor-core FLOPs at long packed rows
 // (useful work 4*Hq*d*sum_j n_j(n_j+1)/2 over the segments against
@@ -13,11 +13,14 @@
 // carrying m/l/acc in VMEM scratch. Here one block of 4 warps owns one
 // (64-row q tile, query head, batch) and walks the k tiles itself:
 //   * the loop stops at the causal diagonal (no tile past the tile's
-//     last query row is touched), and with segment ids a tile whose
-//     keys share no segment with the tile's queries is skipped before
-//     its K/V are loaded (the ids of 8 tiles are checked in one pass),
-//     so a packed row costs about the sum of its segments' own
-//     triangles, not the whole row's;
+//     last query row is touched) and, with a sliding window, starts at
+//     the first tile that reaches the lowest query's window
+//     (_qk_block_overlaps), so a windowed row costs O(window); with
+//     segment ids a tile whose keys share no segment with the tile's
+//     queries (that can see them, with a window) is skipped before its
+//     K/V are loaded (the ids of 8 tiles are checked in one pass), so a
+//     packed row costs about the sum of its segments' own triangles,
+//     not the whole row's;
 //   * Q, K, V tiles are staged in shared memory with 16-byte cp.async
 //     copies, all in flight at once, read through the [B, S, H, D]
 //     strides (no transpose copies);
@@ -29,11 +32,16 @@
 //     the A operand of PV (bf16), and the O accumulators are rescaled
 //     by exp(m_prev - m_new) in registers. V's B operand comes from
 //     shared memory through ldmatrix.trans;
-//   * masks follow _block_mask: causal on the packed index (q >= k), and
-//     q_seg == k_seg when segment ids are given (id 0 padding is masked
-//     like any other segment). Masked scores use the TPU kernel's
-//     -1e30 with exact zeros for p; a row with no visible key gives
-//     out 0 and lse 0.
+//   * masks follow _block_mask: causal on the packed index (q >= k),
+//     q - k < window when a window is given (causal or not: a non-causal
+//     row sees a one-sided band), and q_seg == k_seg when segment ids
+//     are given (id 0 padding is masked like any other segment). Masked
+//     scores use the TPU kernel's -1e30 with exact zeros for p, guarded
+//     by value: a row may see nothing in the first tile it visits (with
+//     a window that is routine), and then its running max is -1e30 and
+//     exp(s - m) would be 1. A row with no visible key gives out 0 and
+//     lse 0. The window is a second instantiation (kWindow), so the
+//     unwindowed kernel carries none of its arithmetic.
 // Still simple: one K/V buffer (no double buffering), no wgmma, TMA or
 // warp specialisation.
 #include "common.cuh"
@@ -90,7 +98,7 @@ __device__ __forceinline__ uint32_t lds32(const bf16 *p) {
   return *reinterpret_cast<const uint32_t *>(p);
 }
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
                  const bf16 *__restrict__ v, const int *__restrict__ seg,
@@ -99,7 +107,7 @@ flash_fwd_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
                  long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh,
                  int sq, int sk, int hq, int hkv, int causal,
-                 float scale) {
+                 int window_arg, float scale) {
   using L = Layout<D>;
   constexpr int LD = L::LD;
   constexpr int kDSteps = D / 16;    // k-steps of S = QK^T
@@ -160,13 +168,19 @@ flash_fwd_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
     o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
   float m0 = skyt::kNegInf, m1 = skyt::kNegInf, l0 = 0.f, l1 = 0.f;
 
-  // Causal: keys past the tile's last query row are all masked.
+  // Causal: keys past the tile's last query row are all masked. Window
+  // (query i sees key j only when i - j < window): keys at or below the
+  // lowest query's q0 - window are all masked, so the loop starts at the
+  // tile holding q0 - window + 1.
+  const int window = kWindow ? window_arg : 0;
   const int k_end = causal ? min(sk, q0 + kBM) : sk;
+  const int k_begin = kWindow ? max(0, q0 - window + 1) / kBN * kBN : 0;
   // k tiles are taken in batches of kBatch: with segment ids, one pass
   // over a batch's ids marks the tiles holding a key whose id some query
-  // row of this tile has (and that a causal row can see); the others are
-  // skipped without loading their K/V.
-  for (int kb0 = 0; kb0 < k_end; kb0 += kBN * kBatch) {
+  // row of this tile has (and that a causal row, or a row whose window
+  // reaches it, can see); the others are skipped without loading their
+  // K/V.
+  for (int kb0 = k_begin; kb0 < k_end; kb0 += kBN * kBatch) {
     unsigned hits = ~0u;
     if (segb) {
       __syncthreads();   // every warp is done with the previous batch
@@ -177,7 +191,12 @@ flash_fwd_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
         const int ks = kj < sk ? segb[kj] : -1;
         ksegs[i] = ks;
         if (kj < k_end && (!causal || kj < q0 + kBM)) {
-          for (int r = 0; r < kBM; ++r) {
+          // With a window, only rows q0 + r in [kj, kj + window) (from 0
+          // when not causal), below sq, see the key.
+          const int r_lo = kWindow && causal ? max(0, kj - q0) : 0;
+          const int r_hi =
+              kWindow ? min(kBM, min(sq, kj + window) - q0) : kBM;
+          for (int r = r_lo; r < r_hi; ++r) {
             if (qsegs[r] == ks) {
               tile_hit[i / kBN] = 1;
               break;
@@ -229,6 +248,7 @@ flash_fwd_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
           const int qi = e < 2 ? qi0 : qi1;
           const int qsg = e < 2 ? qseg0 : qseg1;
           const bool ok = qi < sq && kj < sk && (!causal || kj <= qi) &&
+                          (!kWindow || qi - kj < window) &&
                           (!segb || qsg == ktile_seg[c]);
           s[nt][e] = ok ? s[nt][e] * scale : skyt::kNegInf;
         }
@@ -319,27 +339,45 @@ flash_fwd_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kWindow>
 int launch(const void *q, const void *k, const void *v, const void *seg,
            void *out, void *lse, long long q_sb, long long q_ss,
            long long q_sh, long long k_sb, long long k_ss, long long k_sh,
            long long v_sb, long long v_ss, long long v_sh, int b, int sq,
-           int sk, int hq, int hkv, int causal, float scale,
+           int sk, int hq, int hkv, int causal, int window, float scale,
            cudaStream_t stream) {
   const size_t bytes = Layout<D>::bytes;
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D, kWindow>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   dim3 grid((sq + kBM - 1) / kBM, hq, b);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_kernel<D, kWindow><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16 *>(q), static_cast<const bf16 *>(k),
       static_cast<const bf16 *>(v), static_cast<const int *>(seg),
       static_cast<bf16 *>(out), static_cast<float *>(lse), q_sb, q_ss, q_sh,
-      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sq, sk, hq, hkv, causal, scale);
+      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, sq, sk, hq, hkv, causal, window,
+      scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(const void *q, const void *k, const void *v, const void *seg,
+             void *out, void *lse, long long q_sb, long long q_ss,
+             long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+             long long v_sb, long long v_ss, long long v_sh, int b, int sq,
+             int sk, int hq, int hkv, int causal, int window, float scale,
+             cudaStream_t stream) {
+  return window > 0
+             ? launch<D, true>(q, k, v, seg, out, lse, q_sb, q_ss, q_sh, k_sb,
+                               k_ss, k_sh, v_sb, v_ss, v_sh, b, sq, sk, hq,
+                               hkv, causal, window, scale, stream)
+             : launch<D, false>(q, k, v, seg, out, lse, q_sb, q_ss, q_sh,
+                                k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, b, sq, sk,
+                                hq, hkv, causal, 0, scale, stream);
 }
 
 }  // namespace
@@ -349,22 +387,25 @@ SKYT_DEFINE_ERROR_STRING
 // q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] bf16 with unit last stride and
 // 16-byte aligned rows (strides in elements); seg [B, S] int32 or null;
 // out [B, Sq, Hq, D] bf16 contiguous; lse [B, Hq, Sq] f32 contiguous.
+// window > 0: query i sees key j only when i - j < window (0: no window).
 extern "C" int skyt_flash_fwd(const void *q, const void *k, const void *v,
                               const void *seg, void *out, void *lse,
                               long long q_sb, long long q_ss, long long q_sh,
                               long long k_sb, long long k_ss, long long k_sh,
                               long long v_sb, long long v_ss, long long v_sh,
                               int b, int sq, int sk, int hq, int hkv, int d,
-                              int causal, float scale, void *stream) {
-  if (hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+                              int causal, int window, float scale,
+                              void *stream) {
+  if (hkv <= 0 || hq % hkv != 0 || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return launch<64>(q, k, v, seg, out, lse, q_sb, q_ss, q_sh, k_sb, k_ss,
-                      k_sh, v_sb, v_ss, v_sh, b, sq, sk, hq, hkv, causal,
-                      scale, st);
+    return launch_d<64>(q, k, v, seg, out, lse, q_sb, q_ss, q_sh, k_sb, k_ss,
+                        k_sh, v_sb, v_ss, v_sh, b, sq, sk, hq, hkv, causal,
+                        window, scale, st);
   if (d == 128)
-    return launch<128>(q, k, v, seg, out, lse, q_sb, q_ss, q_sh, k_sb, k_ss,
-                       k_sh, v_sb, v_ss, v_sh, b, sq, sk, hq, hkv, causal,
-                       scale, st);
+    return launch_d<128>(q, k, v, seg, out, lse, q_sb, q_ss, q_sh, k_sb,
+                         k_ss, k_sh, v_sb, v_ss, v_sh, b, sq, sk, hq, hkv,
+                         causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,8 +2,12 @@
 skypilot_tpu/models/llama.py).
 
 GQA, SwiGLU, RMSNorm, RoPE theta 5e5 with the Llama-3.1 scaling, vocab
-128256. The layer stack is a Python loop (the JAX package scans it).
-Attention has four branches, as LlamaAttention there:
+128256, and Mistral's sliding window (sliding_window, window_pattern:
+layer i attends only the last `sliding_window` positions iff
+i % window_pattern == 0). The layer stack is a Python loop (the JAX
+package scans it), so each layer's window is a static int, the
+counterpart of _window_args there. Attention has five branches, as
+LlamaAttention there:
 
   * no cache: causal attention over the row (segment ids optional);
   * dense cache, fresh prefill (positions None): the prompt's K/V are
@@ -11,12 +15,18 @@ Attention has four branches, as LlamaAttention there:
     on the card the flash kernel, unpacked;
   * dense cache with segment ids: the packed ragged prefill, flash with
     segment masks;
+  * dense cache with positions: the reference attention over the cache
+    (q_positions masks);
   * paged cache (k_pool, v_pool, tables), plus (k_scale, v_scale) for
     int8 pools: each slot's s tokens are appended into its pages at
     positions[:, 0] + j, then a paged decode kernel attends the slot's
     pages — the single-query kernel for s == 1, the multi-query one for
     the speculative verify step (s = k+1), their int8 variants for
-    quantized pools.
+    quantized pools. A windowed layer attends through the gather view
+    and the reference attention instead (the JAX package's _xla_gather:
+    the paged kernels take no window), there as here.
+
+Every branch takes the layer's window; the flash kernels compute it.
 
 Training (as the JAX model trains): parameters live in param_dtype
 (f32 masters by default) and are cast to the compute dtype where they are
@@ -35,8 +45,10 @@ ops/lora.py — per-sequence ids [B] take the gather kernel, per-token ids
 part of the state_dict.
 
 Not ported here (raise NotImplementedError): quantized weights,
-remat_policy 'dots' and attn_impl 'ring'. The Qwen/Gemma/Mistral family
-knobs of the JAX LlamaConfig wait for a later slice.
+remat_policy 'dots' and attn_impl 'ring'. The JAX LlamaConfig's other
+family knobs (attn_bias, qk_norm, head_dim_override, the GeGLU, zero-
+centred and sandwich norms, embed_scale, the soft-caps and attn_scale)
+and the Qwen, Phi-3 and Gemma presets wait for a later slice.
 """
 import dataclasses
 import math
@@ -81,10 +93,22 @@ class LlamaConfig:
     attn_impl: str = 'auto'          # 'auto' | 'flash' | 'xla' ('ring': no)
     tie_embeddings: bool = False
     quant: str = 'none'              # weight-only quantization: not ported
+    # Sliding-window attention (Mistral: every layer): query p attends
+    # keys in (p - window, p]. 0 = off. Layer i is windowed iff
+    # i % window_pattern == 0.
+    sliding_window: int = 0
+    window_pattern: int = 1
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    def layer_window(self, i: int) -> int:
+        """Layer i's sliding window (0: none), the counterpart of the
+        JAX package's _window_args for a static layer index."""
+        if self.sliding_window <= 0 or i % max(1, self.window_pattern):
+            return 0
+        return self.sliding_window
 
     def num_params(self) -> int:
         """Analytic parameter count (embedding counted once if tied)."""
@@ -108,6 +132,13 @@ CONFIGS = {
     'llama3-8b': LlamaConfig(),  # the defaults above are 8B
     'llama3-70b': LlamaConfig(dim=8192, n_layers=80, n_heads=64,
                               n_kv_heads=8, mlp_dim=28672),
+    # Mistral-7B-v0.1 (HF MistralConfig): llama + sliding-window
+    # attention on every layer.
+    'mistral-7b': LlamaConfig(vocab_size=32000, dim=4096, n_layers=32,
+                              n_heads=32, n_kv_heads=8, mlp_dim=14336,
+                              max_seq_len=32768, sliding_window=4096,
+                              rope_theta=10000.0,
+                              use_llama31_rope=False, norm_eps=1e-6),
 }
 
 
@@ -170,9 +201,11 @@ class LlamaMLP(nn.Module):
 
 class LlamaAttention(nn.Module):
 
-    def __init__(self, cfg: LlamaConfig, device=None) -> None:
+    def __init__(self, cfg: LlamaConfig, device=None,
+                 window: int = 0) -> None:
         super().__init__()
         self.cfg = cfg
+        self.window = window
         h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.wq = Linear(cfg.dim, h * hd, cfg, device)
         self.wk = Linear(cfg.dim, hk * hd, cfg, device)
@@ -186,7 +219,7 @@ class LlamaAttention(nn.Module):
         triple for one layer, with (k_scale, v_scale) [n_pages, Hkv, P]
         appended for int8 pools. Caches are written in place. lora: the
         layer's adapter routing (see _proj) or None."""
-        cfg = self.cfg
+        cfg, window = self.cfg, self.window
         h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         b, s, _ = x.shape
         q = rope.apply_rope(
@@ -198,12 +231,11 @@ class LlamaAttention(nn.Module):
         if cache is None:
             out = attention_ops.attention(q, k, v, causal=True,
                                           segment_ids=segment_ids,
-                                          impl=cfg.attn_impl)
+                                          window=window, impl=cfg.attn_impl)
         elif len(cache) in (3, 5):
             if positions is None:
                 raise ValueError('the paged cache path needs positions')
-            out = self._paged(q, k, v, cache,
-                              positions[:, 0].to(torch.int32).contiguous())
+            out = self._paged(q, k, v, cache, positions, window)
         elif len(cache) == 2:
             k_cache, v_cache = cache
             if positions is None:
@@ -223,57 +255,81 @@ class LlamaAttention(nn.Module):
                 # fresh k/v with segment masks IS attention over the
                 # cache.
                 out = attention_ops.attention(q, k, v, causal=True,
-                                              segment_ids=segment_ids)
+                                              segment_ids=segment_ids,
+                                              window=window)
             elif positions is None:
                 # Queries at 0..s-1 over a cache written from 0: causal
                 # attention over the fresh k/v.
-                out = attention_ops.attention(q, k, v, causal=True)
+                out = attention_ops.attention(q, k, v, causal=True,
+                                              window=window)
             else:
                 out = attention_ops.mha_reference(
-                    q, k_cache, v_cache, q_positions=positions)
+                    q, k_cache, v_cache, q_positions=positions,
+                    window=window)
         else:
             raise ValueError(f'a layer cache has 2, 3 or 5 entries, got '
                              f'{len(cache)}')
         return _proj(self.wo, out.reshape(b, s, h * hd), lora, 'attn.wo')
 
     @staticmethod
-    def _paged(q, k, v, cache, pos):
-        """Append the s new tokens of every slot (token j at pos + j)
-        into the pools, then attend the slot's pages."""
+    def _paged(q, k, v, cache, positions, window=0):
+        """Append the s new tokens of every slot (token j at
+        positions[:, 0] + j) into the pools, then attend the slot's pages:
+        a paged kernel, or with a window the gather view and the
+        reference attention (the JAX package's _xla_gather)."""
         s = q.shape[1]
-        if len(cache) == 5:
-            k_pool, v_pool, tables, k_scale, v_scale = cache
-            if s == 1:
-                PagePool.append_token_layer_q(k_pool, k_scale, k[:, 0],
-                                              tables, pos)
-                PagePool.append_token_layer_q(v_pool, v_scale, v[:, 0],
-                                              tables, pos)
-                return paged_attention.paged_decode_attention_q(
-                    q[:, 0].contiguous(), k_pool, v_pool, k_scale, v_scale,
-                    tables, pos)[:, None]
+        pos = positions[:, 0].to(torch.int32).contiguous()
+        quantized = len(cache) == 5
+        k_pool, v_pool, tables = cache[:3]
+        k_scale, v_scale = cache[3:] if quantized else (None, None)
+        if quantized and s == 1:
+            PagePool.append_token_layer_q(k_pool, k_scale, k[:, 0], tables,
+                                          pos)
+            PagePool.append_token_layer_q(v_pool, v_scale, v[:, 0], tables,
+                                          pos)
+        elif quantized:
             PagePool.append_tokens_layer_q(k_pool, k_scale, k, tables, pos)
             PagePool.append_tokens_layer_q(v_pool, v_scale, v, tables, pos)
+        elif s == 1:
+            PagePool.append_token_layer(k_pool, k[:, 0], tables, pos)
+            PagePool.append_token_layer(v_pool, v[:, 0], tables, pos)
+        else:
+            PagePool.append_tokens_layer(k_pool, k, tables, pos)
+            PagePool.append_tokens_layer(v_pool, v, tables, pos)
+        if window > 0:
+            if quantized:
+                k_view = PagePool.gather_view_layer_q(k_pool, k_scale,
+                                                      tables, q.dtype)
+                v_view = PagePool.gather_view_layer_q(v_pool, v_scale,
+                                                      tables, q.dtype)
+            else:
+                k_view = PagePool.gather_view_layer(k_pool, tables)
+                v_view = PagePool.gather_view_layer(v_pool, tables)
+            return attention_ops.mha_reference(q, k_view, v_view,
+                                               q_positions=positions,
+                                               window=window)
+        if quantized and s == 1:
+            return paged_attention.paged_decode_attention_q(
+                q[:, 0].contiguous(), k_pool, v_pool, k_scale, v_scale,
+                tables, pos)[:, None]
+        if quantized:
             return paged_attention.paged_decode_attention_mq_q(
                 q.contiguous(), k_pool, v_pool, k_scale, v_scale, tables,
                 pos)
-        k_pool, v_pool, tables = cache
         if s == 1:
-            PagePool.append_token_layer(k_pool, k[:, 0], tables, pos)
-            PagePool.append_token_layer(v_pool, v[:, 0], tables, pos)
             return paged_attention.paged_decode_attention(
                 q[:, 0].contiguous(), k_pool, v_pool, tables, pos)[:, None]
-        PagePool.append_tokens_layer(k_pool, k, tables, pos)
-        PagePool.append_tokens_layer(v_pool, v, tables, pos)
         return paged_attention.paged_decode_attention_mq(
             q.contiguous(), k_pool, v_pool, tables, pos)
 
 
 class LlamaBlock(nn.Module):
 
-    def __init__(self, cfg: LlamaConfig, device=None) -> None:
+    def __init__(self, cfg: LlamaConfig, device=None,
+                 layer_idx: int = 0) -> None:
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, cfg, device)
-        self.attn = LlamaAttention(cfg, device)
+        self.attn = LlamaAttention(cfg, device, cfg.layer_window(layer_idx))
         self.mlp_norm = RMSNorm(cfg.dim, cfg, device)
         self.mlp = LlamaMLP(cfg, device)
 
@@ -307,7 +363,7 @@ class LlamaModel(nn.Module):
             (cfg.vocab_size, cfg.dim), device=device,
             dtype=self.param_dtype))
         self.layers = nn.ModuleList(
-            [LlamaBlock(cfg, device) for _ in range(cfg.n_layers)])
+            [LlamaBlock(cfg, device, i) for i in range(cfg.n_layers)])
         self.final_norm = RMSNorm(cfg.dim, cfg, device)
         self.lm_head = None if cfg.tie_embeddings else Linear(
             cfg.dim, cfg.vocab_size, cfg, device)

@@ -48,9 +48,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     'flash_fwd': [('skyt_flash_fwd',
                    [_P, _P, _P, _P, _P, _P] + [_LL] * 9 +
-                   [_I, _I, _I, _I, _I, _I, _I, _F, _P])],
+                   [_I] * 8 + [_F, _P])],
     'flash_bwd': [('skyt_flash_bwd',
-                   [_P] * 11 + [_LL] * 12 + [_I] * 6 + [_F, _P])],
+                   [_P] * 11 + [_LL] * 12 + [_I] * 7 + [_F, _P])],
     'paged_decode': [('skyt_paged_decode',
                       [_P] * 10 + [_I] * 9 + [_F, _P])],
     'lora': [('skyt_lora', [_P] * 7 + [_I] * 10 + [_P])],

@@ -4,6 +4,13 @@ reference and the dispatch to the flash kernel.
 mha_reference is the plain PyTorch version every attention kernel of the
 port is held to. GQA is folded into the einsum (no K/V repeat). Logits
 and softmax are float32.
+
+A static sliding window (window > 0: Mistral, Phi-3) takes the flash
+kernels under impl 'auto' and 'flash'. The JAX package sends it there
+only under SKYT_WINDOW_FLASH=on (and to XLA otherwise); the port has no
+environment switches, and the math is the same either way (the CPU
+tests hold the windowed plain versions to both the Pallas kernels and
+the XLA reference).
 """
 from typing import Optional, Tuple
 
@@ -90,21 +97,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               softmax_scale: Optional[float] = None,
               impl: str = 'auto') -> torch.Tensor:
     """Public entry: the flash kernels (ops/flash_attention.py,
-    differentiable: the forward kernel, and the dq and dk/dv kernels in
-    the backward) — on a CUDA tensor they launch or raise, on a CPU
-    tensor their plain versions run — unless impl is 'xla' or the
-    attention has a soft-cap, a scale override or a sliding window,
-    which the kernels do not compute: those take the reference
-    (differentiated by autograd), as the JAX package's
-    needs_xla_attention models take XLA."""
+    differentiable: the forward kernel, and the backward kernel in the
+    backward), sliding window included — on a CUDA tensor they launch
+    or raise, on a CPU tensor their plain versions run — unless impl is
+    'xla' or the attention has a soft-cap or a scale override, which the
+    kernels do not compute: those take the reference (differentiated by
+    autograd), as the JAX package's soft-capped and rescaled models take
+    XLA."""
     if impl not in ('auto', 'flash', 'xla'):
         raise ValueError(f"impl must be 'auto', 'flash' or 'xla', got "
                          f'{impl!r}')
-    if impl != 'xla' and window <= 0 and logit_softcap <= 0.0 and \
-            softmax_scale is None:
+    if impl != 'xla' and logit_softcap <= 0.0 and softmax_scale is None:
         from skypilot_tpu_torch.ops import flash_attention
         return flash_attention.flash_attention(
-            q, k, v, causal=causal, segment_ids=segment_ids)
+            q, k, v, causal=causal, segment_ids=segment_ids, window=window)
     return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids,
                          window=window, logit_softcap=logit_softcap,
                          softmax_scale=softmax_scale)

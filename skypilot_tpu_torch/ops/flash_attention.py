@@ -10,6 +10,13 @@ differentiable through the FlashAttention autograd Function, as the
 JAX entry is through its custom_vjp; flash_attention_fwd_lse stays
 forward-only, as there.
 
+Masks are _block_mask's: causal on the packed index (q >= k), q_seg ==
+k_seg when segment ids are given, and with window > 0 (Mistral's
+sliding window) q - k < window, for causal and non-causal rows alike; 0
+is no window. The kernels skip the key tiles wholly outside a tile's
+window (_qk_block_overlaps), so a windowed row costs O(window), not
+O(S).
+
 What bounds it on an H100: tensor-core FLOPs at long packed rows — the
 useful work is 4*Hq*d*sum_j n_j(n_j+1)/2 over the row's segments
 against 989 TFLOP/s bf16; q, k, v and out cross memory once. The design
@@ -54,16 +61,31 @@ def reset_launches() -> None:
     launches = launches_bwd = 0
 
 
+def _check_window(window) -> int:
+    """The sliding window as the kernels take it: an int >= 0 (0: none).
+    Raises on anything else, before any launch. (A window longer than
+    the query rows masks nothing; the wrappers pass at most Sq + 1 to
+    the kernels' 32-bit ints.)"""
+    if isinstance(window, bool) or not isinstance(window, int):
+        raise TypeError(f'window must be an int, got {window!r}')
+    if window < 0:
+        raise ValueError(f'window must be >= 0, got {window}')
+    return window
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = True,
-                              segment_ids: Optional[torch.Tensor] = None
+                              segment_ids: Optional[torch.Tensor] = None,
+                              window: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel, built on mha_reference: (out, lse).
     Rows with no visible key give out 0 and lse 0, as the kernel's
     l == 0 guard does."""
     out = attention_ops.mha_reference(q, k, v, causal=causal,
-                                      segment_ids=segment_ids)
-    logits, mask = attention_ops.masked_logits(q, k, causal, segment_ids)
+                                      segment_ids=segment_ids,
+                                      window=window)
+    logits, mask = attention_ops.masked_logits(q, k, causal, segment_ids,
+                                               window=window)
     b, sq, hq, _ = q.shape
     lse = torch.logsumexp(logits, dim=-1)           # [B, Hkv, G, Sq]
     if mask is not None:
@@ -79,7 +101,8 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, out: torch.Tensor,
                                   lse: torch.Tensor, do: torch.Tensor,
                                   causal: bool = True,
-                                  segment_ids: Optional[torch.Tensor] = None
+                                  segment_ids: Optional[torch.Tensor] = None,
+                                  window: int = 0
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
     """Plain version of the backward kernel: (dq, dk, dv) in the
@@ -92,7 +115,8 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     hkv = k.shape[2]
     g = hq // hkv
     scale = d ** -0.5
-    s, mask = attention_ops.masked_logits(q, k, causal, segment_ids)
+    s, mask = attention_ops.masked_logits(q, k, causal, segment_ids,
+                                          window=window)
     p = torch.exp(s - lse.float().reshape(b, hkv, g, sq, 1))
     if mask is not None:
         p = torch.where(mask, p, torch.zeros((), device=p.device))
@@ -119,8 +143,9 @@ def _check_operand(name: str, x: torch.Tensor) -> None:
                          f'aligned rows, got strides {x.stride()}')
 
 
-def _flash_cuda(q, k, v, segment_ids, causal):
+def _flash_cuda(q, k, v, segment_ids, causal, window=0):
     global launches
+    window = _check_window(window)
     b, sq, hq, d = q.shape
     bk, sk, hkv, dk = k.shape
     for name, x in (('q', q), ('k', k), ('v', v)):
@@ -151,17 +176,19 @@ def _flash_cuda(q, k, v, segment_ids, causal):
     rc = lib.skyt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr, out.data_ptr(),
         lse.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        b, sq, sk, hq, hkv, d, int(causal), d ** -0.5,
+        b, sq, sk, hq, hkv, d, int(causal), min(window, sq + 1), d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, 'flash_fwd')
     launches += 1
     return out, lse
 
 
-def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal):
+def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal,
+                  window=0):
     """Check the backward kernel's operands (raise on anything it does
     not take); returns the C entry point's arguments that come before
     and after the output pointers."""
+    window = _check_window(window)
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     for name, x in (('q', q), ('k', k), ('v', v), ('do', do)):
@@ -197,14 +224,16 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal):
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), seg_ptr)
     rest = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *do.stride()[:3], b, s, hq, hkv, d, int(causal), d ** -0.5,
+            *do.stride()[:3], b, s, hq, hkv, d, int(causal),
+            min(window, s + 1), d ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     return ins, rest
 
 
 def flash_bwd_cuda(q, k, v, do, lse, delta, segment_ids=None,
-                   causal=True) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
+                   causal=True, window=0) -> Tuple[torch.Tensor,
+                                                   torch.Tensor,
+                                                   torch.Tensor]:
     """Kernels 8-9 as one (csrc/flash_bwd.cu flash_bwd_kernel): dq [B, S,
     Hq, D] and dk, dv [B, S, Hkv, D] (each summed over its kv head's
     query group) from the forward's lse and delta = rowsum(do * out),
@@ -214,9 +243,11 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, segment_ids=None,
     from call to call, unless torch.use_deterministic_algorithms(True)
     is on: then they go in key-tile order, kept by a row of bits per
     (batch, kv head, 64-row q tile) zeroed with the accumulator, and
-    every call gives the same bits (at ~1.35x the kernel's time)."""
+    every call gives the same bits (at ~1.35x the kernel's time).
+    window > 0: the sliding window, as in the forward."""
     global launches_bwd
-    ins, rest = _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal)
+    ins, rest = _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal,
+                              window)
     b, s, _, _ = q.shape
     n = q.numel()
     tiles = -(-s // 64)
@@ -240,7 +271,8 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, segment_ids=None,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, causal: bool = True,
-                        segment_ids: Optional[torch.Tensor] = None
+                        segment_ids: Optional[torch.Tensor] = None,
+                        window: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of flash attention from the forward's out and lse and
     the output gradient do. delta = rowsum(do * out) is one elementwise
@@ -248,28 +280,33 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors then launch the backward kernel (bf16, head_dim 64 or 128,
     Sq == Sk; anything else raises), CPU tensors run the plain
     version."""
+    window = _check_window(window)
     if q.is_cuda:
         do = do.contiguous()
         delta = do.float().mul_(out).sum(-1).transpose(1, 2).contiguous()
-        return flash_bwd_cuda(q, k, v, do, lse, delta, segment_ids, causal)
+        return flash_bwd_cuda(q, k, v, do, lse, delta, segment_ids, causal,
+                              window)
     if q.device.type != 'cpu':
         raise ValueError(f'unsupported device {q.device}')
     return flash_attention_bwd_reference(q, k, v, out, lse, do,
                                          causal=causal,
-                                         segment_ids=segment_ids)
+                                         segment_ids=segment_ids,
+                                         window=window)
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the counterpart of the JAX
-    custom_vjp): the forward saves (q, k, v, out, lse, segment_ids), the
-    backward runs flash_attention_bwd on them."""
+    custom_vjp): the forward saves (q, k, v, out, lse, segment_ids) and
+    the window, the backward runs flash_attention_bwd on them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, segment_ids):
+    def forward(ctx, q, k, v, causal, segment_ids, window=0):
         out, lse = flash_attention_fwd_lse(q, k, v, causal=causal,
-                                           segment_ids=segment_ids)
+                                           segment_ids=segment_ids,
+                                           window=window)
         ctx.save_for_backward(q, k, v, out, lse, segment_ids)
         ctx.causal = causal
+        ctx.window = window
         return out
 
     @staticmethod
@@ -277,36 +314,41 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, segment_ids = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
                                          causal=ctx.causal,
-                                         segment_ids=segment_ids)
-        return dq, dk, dv, None, None
+                                         segment_ids=segment_ids,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True,
-                            segment_ids: Optional[torch.Tensor] = None
+                            segment_ids: Optional[torch.Tensor] = None,
+                            window: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward-only flash attention with the per-row logsumexp:
     (out [B, Sq, Hq, D], lse [B, Hq, Sq] f32). CUDA tensors launch the
     kernel (bf16, head_dim 64 or 128; anything else raises); CPU tensors
     run the plain version."""
+    window = _check_window(window)
     if q.is_cuda:
-        return _flash_cuda(q, k, v, segment_ids, causal)
+        return _flash_cuda(q, k, v, segment_ids, causal, window)
     if q.device.type != 'cpu':
         raise ValueError(f'unsupported device {q.device}')
     return flash_attention_reference(q, k, v, causal=causal,
-                                     segment_ids=segment_ids)
+                                     segment_ids=segment_ids, window=window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
-                    segment_ids: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    segment_ids: Optional[torch.Tensor] = None,
+                    window: int = 0) -> torch.Tensor:
     """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D].
     segment_ids: optional [B, S] int32 packed-sequence ids (Sq == Sk).
-    Differentiable in q, k and v (FlashAttention) when autograd records;
-    otherwise the forward alone."""
+    window > 0: query p sees key k only when p - k < window. Differentiable
+    in q, k and v (FlashAttention) when autograd records; otherwise the
+    forward alone."""
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal, segment_ids)
+        return FlashAttention.apply(q, k, v, causal, segment_ids, window)
     return flash_attention_fwd_lse(q, k, v, causal=causal,
-                                   segment_ids=segment_ids)[0]
+                                   segment_ids=segment_ids,
+                                   window=window)[0]

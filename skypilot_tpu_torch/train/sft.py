@@ -13,6 +13,16 @@ exit (code 75) at a step boundary (train/checkpoint.py). Synthetic or
 byte-level JSONL data, the same batches as the JAX entrypoint for the
 same seed.
 
+The run is bit-reproducible, as the JAX entrypoint's is: main() runs
+with torch.use_deterministic_algorithms(True, warn_only=True), so the
+flash backward adds dq in a fixed order and a run preempted (exit 75)
+and resumed from its checkpoint ends in the same bits as an unbroken
+one. It leaves
+torch.utils.deterministic.fill_uninitialized_memory off: that fill of
+every torch.empty (a debugging aid, no part of the results' bits) cost
+~32 ms of a ~0.55 s llama3-1b step on an H100. The caller's settings
+are restored when main() returns or exits.
+
 The flags are the JAX entrypoint's. Those whose machinery belongs to
 another slice exit with the reason instead of being ignored: a mesh of
 more than one device, --dcn-mesh and --attn ring (parallelism),
@@ -152,8 +162,23 @@ def build_model(name: str, attn: str, device: torch.device, seed: int = 0):
 
 
 def main(argv=None) -> Dict[str, Any]:
-    """Runs the loop; returns a summary (steps run, the per-step losses,
-    the last logged step time, tokens/s and MFU, FLOPs per step)."""
+    """Runs the loop with deterministic algorithms on (the caller's
+    setting restored after); returns a summary (steps run, the per-step
+    losses, the last logged step time, tokens/s and MFU, FLOPs per
+    step)."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.utils.deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        return _main(argv)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.utils.deterministic.fill_uninitialized_memory = was[2]
+
+
+def _main(argv) -> Dict[str, Any]:
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='llama3-1b')
     parser.add_argument('--mesh', default='auto',
