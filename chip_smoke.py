@@ -38,7 +38,15 @@ Phases (any failure exits non-zero and prints no result line):
      [1, 6144] causal row and packed [1, 8192] row (6000 + 2000 tokens)
      at window 4096, windows 1, 7, 63, 65, 100 and one of S (bit-equal to
      no window), non-causal bands, head_dim 64 and 128, MHA, ragged
-     tails, and rows that see no key (out 0 and lse 0 exactly);
+     tails, and rows that see no key (out 0 and lse 0 exactly). At head_dim
+     256 (check_d256, on a generator of its own so that every check
+     above keeps its inputs): the forward on gemma-7b's packed burst row
+     [1, 2048, 16, 256] and lone row [1, 512, 16, 256], gemma-2b's packed
+     row (8 q heads on 1 kv head), a ragged non-causal row and two
+     windowed rows; the four paged kernels at gemma-7b's decode shapes
+     (q [8, 16, 256] or [8, 4, 16, 256], pools [257, 16, 64, 256]) and
+     gemma-2b's (pools [257, 1, 64, 256]; T = 4 gives 32 query rows a kv
+     head), bf16 and int8;
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -69,11 +77,21 @@ Phases (any failure exits non-zero and prints no result line):
      kernels never (windowed layers decode through the gather view, as
      in the JAX package); the 6000-token prompt's last-token logits must
      match the plain attention, and the window must move them at least
-     4x as far as the kernel's rounding does; TTFT and ms per token;
+     4x as far as the kernel's rounding does; TTFT and ms per token.
+     Then Gemma (run_gemma): gemma-7b at full width (build_engine, random
+     bf16 weights from the seed, llama3-8b's engine settings and
+     traffic) through four engines on one model, bf16, int8 KV,
+     spec_decode=3 and both, and gemma-2b with spec_decode=3, whose
+     verify steps run paged_decode_mq at 32 query rows a kv head (the
+     counter by rows shows it); every request returns its tokens, each
+     path's kernels launch, and prefill and step logits match the plain
+     path within LOGIT_REL_L2; then the head_dim-256 timings (time_d256);
   4. kernel timings: device time per call from CUDA events around a
      replayed CUDA graph of many calls (eager_ms: the same with Python's
      launch overhead), for the kernel, its plain version and one PyTorch
-     library call where one computes the same function; and the bound
+     library call where one computes the same function (for the paged
+     kernels also the split pass's and the merge's device ms per call,
+     from torch.profiler's kernel records); and the bound
      (the larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s, counted
      from this run's inputs);
   3'. training, after the serving engines: sft.main on llama3-1b at
@@ -194,6 +212,38 @@ def eager_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms_by_kernel(fn, names, iters: int = 20):
+    """Device ms per fn() call of each kernel whose name holds one of
+    `names` (one call may launch several kernels), from torch.profiler's
+    kernel records over `iters` eager calls; None for a name the
+    profiler recorded no device time for."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                us[name] += e.self_device_time_total
+    return {name: us[name] / 1e3 / iters if us[name] > 0 else None
+            for name in names}
+
+
+def parts_text(t) -> str:
+    """The split pass's and the merge's device ms of a paged timing."""
+    if 'split_ms' not in t:
+        return ''
+    return '; ' + ', '.join(
+        f'{part} ' + (f'{t[part + "_ms"]:.4f} ms' if t[part + '_ms']
+                      is not None else 'not measured')
+        for part in ('split', 'merge')) + ' (profiler, per call)'
+
+
 def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -222,20 +272,22 @@ def flash_inputs(gen, s, hq=32, hkv=8, d=128):
     return q, k, v
 
 
-def check_flash(gen):
+def check_flash(gen, cases=None):
     """The slice's shapes (a packed row of the engine's 4-segment layout,
     an unpacked causal row), then head_dim 64 with GQA 8/2, a ragged
-    tail and non-causal rows for the kernel's other variants."""
+    tail and non-causal rows for the kernel's other variants; or the
+    given cases (name, S, segment ids, shape, causal)."""
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
     res = {}
     seg = torch.as_tensor(packed_segments(BURST, 64, 2048), device='cuda')
     seg_small = torch.as_tensor(packed_segments((50, 3, 70, 33), 16, 200),
                                 device='cuda')
-    cases = (('packed', 2048, seg, {}, True),
-             ('causal', 512, None, {}, True),
-             ('d64_packed', 200, seg_small, dict(hq=8, hkv=2, d=64), True),
-             ('d64_full', 200, None, dict(hq=8, hkv=2, d=64), False))
+    cases = cases or (
+        ('packed', 2048, seg, {}, True),
+        ('causal', 512, None, {}, True),
+        ('d64_packed', 200, seg_small, dict(hq=8, hkv=2, d=64), True),
+        ('d64_full', 200, None, dict(hq=8, hkv=2, d=64), False))
     for name, s, sg, shape, causal in cases:
         q, k, v = flash_inputs(gen, s, **shape)
         out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal,
@@ -295,7 +347,7 @@ def seen_rows(sq, sk, causal, seg, window):
     return m.any(-1)
 
 
-def check_flash_window(gen):
+def check_flash_window(gen, cases=FWD_WINDOW_CASES):
     """Kernel 1 with the window (FWD_WINDOW_CASES) against its plain
     version on the same inputs: out and lse within atol = rtol = 2e-2;
     rows that see no key give out 0 and lse 0 exactly; a window of S
@@ -303,8 +355,7 @@ def check_flash_window(gen):
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
     res = {}
-    for name, sq, sk, hq, hkv, d, causal, lengths, window in \
-            FWD_WINDOW_CASES:
+    for name, sq, sk, hq, hkv, d, causal, lengths, window in cases:
         q = torch.randn((1, sq, hq, d), generator=gen, device='cuda',
                         dtype=torch.bfloat16)
         k, v = (torch.randn((1, sk, hkv, d), generator=gen, device='cuda',
@@ -484,18 +535,26 @@ def check_flash_bwd(gen):
     return res
 
 
-def paged_inputs(gen, t=1, quant=False):
-    """The slice's decode shapes: q [8, 32, 128] (t == 1) or
-    [8, t, 32, 128], pools [257, 8, 64, 128] — bf16, or int8 from
-    quantize_kv of bf16 data with f32 scales [257, 8, 64]; slots of mixed
-    lengths (0 included, the longest run ending at position 2047) and a
-    freed slot (all-zero row, stale length). Returns (q, k_pool, v_pool,
-    tables, lengths), or with quant (q, k_pool, v_pool, k_scale,
-    v_scale, tables, lengths)."""
+# Paged decode shapes (query heads, kv heads, head_dim) of the served
+# models: llama3-8b (the slice's), gemma-7b, and gemma-2b, whose 8 query
+# heads share 1 kv head (the verify step's T = 4 makes 32 query rows).
+PAGED_SHAPES = {'slice': (32, 8, 128), 'gemma7b': (16, 16, 256),
+                'gemma2b': (8, 1, 256)}
+
+
+def paged_inputs(gen, t=1, quant=False, shape='slice'):
+    """Decode shapes of PAGED_SHAPES[shape]: at the slice's, q
+    [8, 32, 128] (t == 1) or [8, t, 32, 128], pools [257, 8, 64, 128] —
+    bf16, or int8 from quantize_kv of bf16 data with f32 scales
+    [257, 8, 64]; slots of mixed lengths (0 included, the longest run
+    ending at position 2047) and a freed slot (all-zero row, stale
+    length). Returns (q, k_pool, v_pool, tables, lengths), or with quant
+    (q, k_pool, v_pool, k_scale, v_scale, tables, lengths)."""
     import numpy as np
     import torch
     from skypilot_tpu_torch.infer import paged_cache
-    slots, hq, hkv, d, page, n_pages, mp = 8, 32, 8, 128, 64, 257, 32
+    hq, hkv, d = PAGED_SHAPES[shape]
+    slots, page, n_pages, mp = 8, 64, 257, 32
     qshape = (slots, hq, d) if t == 1 else (slots, t, hq, d)
     q = torch.randn(qshape, generator=gen, device='cuda',
                     dtype=torch.bfloat16)
@@ -580,6 +639,12 @@ FAMILY = {
 }
 
 
+# Kernel 2 and kernels 3-5.
+PAGED_KERNELS = {'paged_decode': ('paged_decode_attention', 1, False,
+                                  'skypilot_tpu/ops/paged_attention.py:50 '
+                                  '_kernel'), **FAMILY}
+
+
 def small_family_inputs(gen, t, quant):
     """head_dim 64, 8 query heads per kv head (T*G = 8 or 16 rows),
     32-token pages, a freed slot and an unreserved gap."""
@@ -625,6 +690,55 @@ def check_family(gen):
                  '(atol=rtol=2e-2)')
             res.setdefault(kname, {})[name] = {'shape': list(a[0].shape),
                                                'max_abs_err': err}
+    return res
+
+
+# Head_dim 256 (Gemma): windowed forward rows (the D = 256 windowed
+# instantiation): a packed row whose segments outlast the window on
+# gemma-2b's 8 q / 1 kv heads, and a non-causal band with GQA 4/2.
+D256_WINDOW_CASES = (
+    ('w100_packed_d256', 300, 300, 8, 1, 256, True, (120, 90, 60), 100),
+    ('w50_noncausal_d256', 200, 200, 4, 2, 256, False, None, 50),
+)
+
+
+def check_d256(gen):
+    """The kernels at head_dim 256 against their plain versions: the
+    flash forward on gemma-7b's packed burst row and lone row (16 q /
+    16 kv heads), gemma-2b's packed row (8 q heads on 1 kv head), a
+    ragged non-causal row and D256_WINDOW_CASES; the four paged kernels
+    at gemma-7b's and gemma-2b's decode shapes (PAGED_SHAPES; T = 4 for
+    the verify kernels, 32 query rows a kv head at gemma-2b's). gen is
+    their own generator, so the earlier checks keep their inputs."""
+    import torch
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    seg = torch.as_tensor(packed_segments(BURST, 64, 2048), device='cuda')
+    res = {'flash': check_flash(gen, (
+        ('gemma7b_packed', 2048, seg, dict(hq=16, hkv=16, d=256), True),
+        ('gemma7b_lone', 512, None, dict(hq=16, hkv=16, d=256), True),
+        ('gemma2b_packed', 2048, seg, dict(hq=8, hkv=1, d=256), True),
+        ('d256_full', 200, None, dict(hq=8, hkv=2, d=256), False))),
+        'flash_window': check_flash_window(gen, D256_WINDOW_CASES)}
+    for kname, (fn, t, quant, _) in PAGED_KERNELS.items():
+        for shape in ('gemma7b', 'gemma2b'):
+            a = paged_inputs(gen, t, quant, shape)
+            out = getattr(pa, fn)(*a)
+            ref = getattr(pa, fn + '_reference')(*a)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out.float()).all(), \
+                f'{kname} {shape}: non-finite'
+            torch.testing.assert_close(out.float(), ref.float(), **TOL)
+            err = max_abs(out, ref)
+            hq, hkv, _ = PAGED_SHAPES[shape]
+            _log(f'{kname} {shape} q {list(a[0].shape)} pools '
+                 f'{list(a[1].shape)} {a[1].dtype} ({t * hq // hkv} query '
+                 f'rows a kv head): max|out-ref| {err:.3e} '
+                 '(atol=rtol=2e-2)')
+            res.setdefault(kname, {})[shape] = {
+                'shape': list(a[0].shape), 'rows': t * hq // hkv,
+                'max_abs_err': err}
+            del a, out, ref
+    torch.cuda.empty_cache()
     return res
 
 
@@ -762,7 +876,6 @@ def plain_proj(lora, i, name, linear, x):
 def plain_block(model, i, x, cos, sin, attend, lora):
     """Layer i by hand: attend(q, k, v) [B, S, Hq, d] in the kernel's
     place, every projection through plain_proj."""
-    import torch.nn.functional as F
     from skypilot_tpu_torch.ops import rope
     cfg = model.cfg
     b, s, _ = x.shape
@@ -779,9 +892,26 @@ def plain_block(model, i, x, cos, sin, attend, lora):
     x = x + plain_proj(lora, i, 'attn.wo', a.wo,
                        out.to(model.dtype).reshape(b, s, h * hd))
     hn = layer.mlp_norm(x)
-    hidden = F.silu(plain_proj(lora, i, 'mlp.w_gate', m.w_gate, hn)) * \
+    hidden = m.act(plain_proj(lora, i, 'mlp.w_gate', m.w_gate, hn)) * \
         plain_proj(lora, i, 'mlp.w_up', m.w_up, hn)
     return x + plain_proj(lora, i, 'mlp.w_down', m.w_down, hidden)
+
+
+def embed(model, tokens):
+    """The model's input embedding, with Gemma's sqrt(dim) scale rounded
+    to the compute dtype where the config has it."""
+    import torch
+    x = model.tok_embed[tokens].to(model.dtype)
+    if model.cfg.embed_scale:
+        x = x * torch.tensor(model.cfg.dim ** 0.5, dtype=model.dtype)
+    return x
+
+
+def head(model, x):
+    """The model's output head: lm_head, or the tied embedding."""
+    if model.lm_head is None:
+        return x @ model.tok_embed.to(model.dtype).t()
+    return model.lm_head(x)
 
 
 def plain_last_logits(model, tokens, exact=False, lora=None):
@@ -795,7 +925,7 @@ def plain_last_logits(model, tokens, exact=False, lora=None):
     from skypilot_tpu_torch.ops import rope
     cfg = model.cfg
     b, s = tokens.shape
-    x = model.tok_embed.to(model.dtype)[tokens]
+    x = embed(model, tokens)
     pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
     cos, sin = rope.rope_freqs(pos, cfg.head_dim, cfg.rope_theta,
                                use_llama31_scaling=cfg.use_llama31_rope)
@@ -808,7 +938,7 @@ def plain_last_logits(model, tokens, exact=False, lora=None):
     for i in range(len(model.layers)):
         x = plain_block(model, i, x, cos, sin, functools.partial(
             attend, window=model.layers[i].attn.window), lora)
-    return model.lm_head(model.final_norm(x)[:, -1:])[:, 0].float()
+    return head(model, model.final_norm(x)[:, -1:])[:, 0].float()
 
 
 def kernel_last_logits(model, tokens, lora=None):
@@ -1150,6 +1280,100 @@ def run_paths(model, card, bf16_ms_per_token):
     return out
 
 
+# ----------------------------------------------------------- phase 3: Gemma
+# gemma-7b at full width (28 layers, dim 3072, 16 q / 16 kv heads,
+# head_dim 256, GeGLU mlp 24576, vocab 256000, tied embeddings; the JAX
+# preset llama.py:207), random bf16 weights from SEED, with llama3-8b's
+# engine settings and traffic (8 slots, max_seq_len 2048, page 64; the
+# burst packed into one [1, 2048] prefill, the lone 300-token prompt):
+# one model through four engines, bf16, int8 KV, spec_decode=3 and both.
+# Then gemma-2b (18 layers, dim 2048, 8 q heads on 1 kv head; :198) with
+# spec_decode=3: its verify steps run paged_decode_mq at T*G = 4*8 = 32
+# query rows a kv head.
+GEMMA7B = 'gemma-7b'
+GEMMA2B = 'gemma-2b'
+
+
+def run_gemma(card):
+    """Serve gemma-7b (four engines) and gemma-2b (spec) on the card;
+    every request returns its tokens, the launch counters (0 just before
+    each run) show the head_dim-256 flash forward and each paged kernel
+    on its path and 32-row verify launches on gemma-2b, and prefill,
+    decode-step and verify-step logits match the plain path."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import server
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    res = {}
+    for name, opts in ((GEMMA7B, {}), (GEMMA2B, {'spec_decode': 3})):
+        t0 = time.perf_counter()
+        eng = server.build_engine(name, seed=SEED, **opts)
+        torch.cuda.synchronize()
+        cfg = eng.model.cfg
+        _log(f'build_engine({name!r}, {opts}): '
+             f'{cfg.num_params() / 1e9:.2f}B params, head_dim '
+             f'{cfg.head_dim}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads, '
+             f'{time.perf_counter() - t0:.1f}s; paged pool '
+             f'{list(eng.cache["k"].shape)} {eng.cache["k"].dtype}')
+        spec = bool(opts)
+        burst, params, lone = traffic(cfg.vocab_size, repeat=spec)
+        cold_s = warm_up(eng, np.random.default_rng(SEED + 2))
+        outs, launches, burst_ttft, lone_s = serve(eng, burst, params, lone)
+        by_rows = {f'{k}/{r}': n for (k, r), n in
+                   sorted(pa.launches_by_rows.items())}
+        perf = eng.perf_stats()
+        kernel = 'paged_decode_mq' if spec else 'paged_decode'
+        assert launches['flash_fwd'] > 0, f'{name}: flash never launched'
+        assert launches[kernel] > 0, f'{name}: {kernel} never launched'
+        lone_ttft = eng.ttfts()[-1]
+        ms_tok = (lone_s - lone_ttft) / (MAX_NEW - 1) * 1e3
+        _log(f'engine {name} [{card}]: {len(outs)} requests x {MAX_NEW} '
+             f'tokens; launches {launches}; paged launches by query rows a '
+             f'kv head {by_rows}; warm-up request {cold_s:.2f} s; burst '
+             f'TTFT max {burst_ttft * 1e3:.1f} ms; lone TTFT '
+             f'{lone_ttft * 1e3:.1f} ms, then {ms_tok:.1f} ms per token; '
+             f'steady decode {perf.get("steady_decode_tok_s", 0):.1f} tok/s'
+             + (f'; spec_accept_per_step '
+                f'{perf.get("spec_accept_per_step", 0):.3f} over '
+                f'{perf["spec_verify_steps"]} verify steps' if spec else ''))
+        if spec:
+            assert by_rows.get('paged_decode_mq/32', 0) > 0, by_rows
+        run = {'launches': launches, 'launches_by_rows': by_rows,
+               'warmup_request_s': cold_s, 'burst_ttft_max_s': burst_ttft,
+               'lone_ttft_s': lone_ttft, 'lone_ms_per_token': ms_tok,
+               'steady_decode_tok_s': perf.get('steady_decode_tok_s'),
+               'perf': perf}
+        model = eng.model
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        run['logits'] = check_logits(model, lone, f'{name} lone')
+        run['step_rel_kernel_plain'] = check_step(model, False,
+                                                  4 if spec else 1)['rel']
+        if not spec:
+            res['paths'] = run_paths(model, card, ms_tok)
+        res[name] = run
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def time_d256(gen):
+    """Phase 4 at head_dim 256: the flash forward on gemma-7b's packed
+    burst row, its lone row and gemma-2b's packed row (SDPA's causal
+    forward beside it), the four paged kernels at gemma-7b's and
+    gemma-2b's decode shapes."""
+    seg = packed_segments(BURST, 64, 2048)
+    res = {'flash_gemma7b_packed': time_flash(gen, 2048, seg, 16, 16, 256),
+           'flash_gemma7b_lone': time_flash(gen, 512, None, 16, 16, 256),
+           'flash_gemma2b_packed': time_flash(gen, 2048, seg, 8, 1, 256)}
+    for shape in ('gemma7b', 'gemma2b'):
+        for k in PAGED_KERNELS:
+            res[f'{k}_{shape}'] = time_paged(gen, k, shape)
+    return res
+
+
 # The phase-3 adapters: ranks, alphas (scaling 2 each) and their seed.
 LORA_RANKS = (16, 8, 16)
 LORA_ALPHAS = (32.0, 16.0, 32.0)
@@ -1294,7 +1518,7 @@ def plain_step_logits(model, toks, positions, cache, lora=None):
     import torch
     from skypilot_tpu_torch.ops import rope
     cfg = model.cfg
-    x = model.tok_embed[toks]
+    x = embed(model, toks)
     cos, sin = rope.rope_freqs(positions, cfg.head_dim, cfg.rope_theta,
                                use_llama31_scaling=cfg.use_llama31_rope)
     pos = positions[:, 0].to(torch.int32).contiguous()
@@ -1303,7 +1527,7 @@ def plain_step_logits(model, toks, positions, cache, lora=None):
         def attend(q, k, v, i=i):
             return paged_plain(cache, i, q, k, v, tables, pos)
         x = plain_block(model, i, x, cos, sin, attend, lora)
-    return model.lm_head(model.final_norm(x)).float()
+    return head(model, model.final_norm(x)).float()
 
 
 def paged_plain(cache, i, q, k, v, tables, pos):
@@ -1471,12 +1695,12 @@ def profile_decode(eng, card, slot_lora=None):
 
 
 # ----------------------------------------------------------- phase 4
-def time_flash(gen, s, seg_np=None):
+def time_flash(gen, s, seg_np=None, hq=32, hkv=8, d=128):
     import numpy as np
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import flash_attention as fa
-    q, k, v = flash_inputs(gen, s)
+    q, k, v = flash_inputs(gen, s, hq, hkv, d)
     seg = torch.as_tensor(seg_np, device='cuda') if seg_np is not None \
         else None
     b, _, hq, d = q.shape
@@ -1511,19 +1735,21 @@ def time_flash(gen, s, seg_np=None):
             else 'bytes', 'flops': flops, 'bytes': nbytes}
 
 
-def time_paged(gen, kname):
-    """Kernel 2 (kname 'paged_decode') or one of FAMILY at the slice's
-    decode shapes. The bound counts each visible K/V row (and its scales)
-    once, q and out once, and 4*d flops per query head and visible
-    (token, key) pair."""
+def time_paged(gen, kname, shape='slice'):
+    """One of PAGED_KERNELS (kernel 2 or 3-5) at the decode
+    shapes of PAGED_SHAPES[shape]. The bound counts each visible K/V row
+    (and its scales) once, q and out once, and 4*d flops per query head
+    and visible (token, key) pair."""
     from skypilot_tpu_torch.ops import paged_attention as pa
-    fn, t, quant, _ = FAMILY.get(kname, ('paged_decode_attention', 1,
-                                         False, None))
-    args = paged_inputs(gen, t, quant)
+    fn, t, quant, _ = PAGED_KERNELS[kname]
+    args = paged_inputs(gen, t, quant, shape)
     wrapper = getattr(pa, fn)
     plain = getattr(pa, fn + '_reference')
     ms = time_ms(lambda: wrapper(*args), 50)
     launch_ms = eager_ms(lambda: wrapper(*args), 50)
+    # The wrapper launches two kernels: the split pass, then the merge.
+    parts = device_ms_by_kernel(lambda: wrapper(*args),
+                                ('paged_decode_split', 'paged_decode_merge'))
     plain_ms = time_ms(lambda: plain(*args), 5)
     q, kp, tables, lengths = args[0], args[1], args[-2], args[-1]
     hq, d = q.shape[-2:]
@@ -1537,6 +1763,8 @@ def time_paged(gen, kname):
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_flops = flops / BF16_FLOPS_PER_S * 1e3
     return {'shape': list(q.shape), 'ms': ms, 'eager_ms': launch_ms,
+            'split_ms': parts['paged_decode_split'],
+            'merge_ms': parts['paged_decode_merge'],
             'plain_ms': plain_ms, 'library_ms': None,
             'bound_ms': max(bound_bytes, bound_flops),
             'bound_by': 'bytes' if bound_bytes >= bound_flops
@@ -2239,6 +2467,9 @@ def main() -> int:
         lora_res = check_lora(gen)
         window_res = check_flash_window(gen)
         bwd_res = check_flash_bwd(gen)
+        gen_d256 = torch.Generator(device='cuda')
+        gen_d256.manual_seed(SEED + 40)
+        d256_res = check_d256(gen_d256)
     if args.quick:
         _log(card)
         print(json.dumps({'ok': True, 'device': {
@@ -2253,6 +2484,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mistral_res = run_mistral(card)
+    gemma_res = run_gemma(card)
+    with torch.inference_mode():
+        td = time_d256(gen_d256)
+    kernels += gemma_kernels(card, gemma_res, td, d256_res)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_res = run_train(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2339,12 +2576,13 @@ def main() -> int:
                     'checkpoint': ckpt_res,
                     'checkpoint_512': ckpt_long_res, 'flash_bwd_timed': tb,
                     'mistral': mistral_res, 'mistral_grads': mistral_grads,
+                    'gemma': gemma_res, 'd256_timed': td,
                     'sft_resume': resume_res, 'sft_ordered': ordered_res,
                     'window_timed': tw,
                     'checks': {'flash': flash_res, 'paged': paged_res,
                                'family': family_res, 'lora': lora_res,
                                'flash_window': window_res,
-                               'flash_bwd': bwd_res}})
+                               'flash_bwd': bwd_res, 'd256': d256_res}})
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            'smoke_out')
     os.makedirs(out_dir, exist_ok=True)
@@ -2357,6 +2595,68 @@ def main() -> int:
         'platform': 'gpu', 'kind': device_kind,
         'count': torch.cuda.device_count()}}))
     return 0
+
+
+def gemma_kernels(card, gemma_res, td, d256_res):
+    """Log phase 4's head_dim-256 timings; return their entries of the
+    kernels line: the flash forward and the four paged kernels at
+    gemma-7b's shapes (launches from the gemma-7b engines' runs), and
+    the flash forward and the 32-row verify kernel at gemma-2b's
+    (launches from the gemma-2b spec run)."""
+    for label, t in td.items():
+        lib = f'{t["library_ms"]:.4f}' if t['library_ms'] else 'none'
+        _log(f'{label} {t["shape"]} [{card}]: {t["ms"]:.4f} ms (eager '
+             f'{t["eager_ms"]:.4f}), plain {t["plain_ms"]:.4f} ms, library '
+             f'{lib} ms, bound {t["bound_ms"]:.4f} ms ({t["bound_by"]})'
+             + parts_text(t))
+    g7, g2 = gemma_res[GEMMA7B], gemma_res[GEMMA2B]
+    path_of = {kernel: label for label, _, kernel in PATHS}
+    entries = []
+    for model, shape, runs in (
+            ('gemma7b', 'gemma7b_packed', {'flash_fwd': g7,
+                                           'paged_decode': g7}),
+            ('gemma2b', 'gemma2b_packed', {'flash_fwd': g2,
+                                           'paged_decode_mq': g2})):
+        for k in ('flash_fwd', *PAGED_KERNELS):
+            if model == 'gemma7b' and k in path_of:
+                run = gemma_res['paths'][path_of[k]]
+            elif k in runs:
+                run = runs[k]
+            else:
+                continue
+            flash = k == 'flash_fwd'
+            t = td[f'flash_{shape}' if flash else f'{k}_{model}']
+            check = d256_res['flash'][shape] if flash else \
+                d256_res[k][model]
+            entry = {
+                'name': f'{k}_{model}', 'route': 'cuda',
+                'source': 'skypilot_tpu_torch/csrc/' +
+                ('flash_fwd.cu' if flash else 'paged_decode.cu'),
+                'replaces': 'skypilot_tpu/ops/flash_attention.py:108 '
+                '_fwd_kernel' if flash else PAGED_KERNELS[k][3],
+                'launches': run['launches'][k],
+                'max_abs_err': check['max_abs_err'], 'ms': t['ms'],
+                'kernel_ms': t['ms'], 'eager_ms': t['eager_ms'],
+                'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+                'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
+                'shape': t['shape'], 'head_dim': 256}
+            if flash and model == 'gemma7b':
+                lone = td['flash_gemma7b_lone']
+                entry.update({'lone_shape': lone['shape'],
+                              'lone_ms': lone['ms'],
+                              'lone_bound_ms': lone['bound_ms'],
+                              'lone_plain_ms': lone['plain_ms'],
+                              'lone_library_ms': lone['library_ms']})
+            if not flash:
+                entry.update({'split_ms': t['split_ms'],
+                              'merge_ms': t['merge_ms'],
+                              'query_rows': check['rows']})
+                entry['launches_by_rows'] = {
+                    r: n for r, n in run['launches_by_rows'].items()
+                    if r.startswith(k + '/')} if 'launches_by_rows' in \
+                    run else None
+            entries.append(entry)
+    return entries
 
 
 def run_serving(args, card, gen, checks):
@@ -2383,7 +2683,7 @@ def run_serving(args, card, gen, checks):
     with torch.inference_mode():
         tf = time_flash(gen, 2048, packed_segments(BURST, 64, 2048))
         tf_causal = time_flash(gen, 512)
-        tp = {k: time_paged(gen, k) for k in ('paged_decode', *FAMILY)}
+        tp = {k: time_paged(gen, k) for k in PAGED_KERNELS}
         tl = {c: time_lora(gen, cases[c]) for c in LORA_TIMED}
     timed = [('flash packed [1, 2048, 32, 128]', tf),
              ('flash unpacked causal [1, 512, 32, 128]', tf_causal)] + [
@@ -2394,7 +2694,7 @@ def run_serving(args, card, gen, checks):
         lib = f'{t["library_ms"]:.4f}' if t['library_ms'] else 'none'
         extra = (f'; in place into y {t["fused_ms"]:.4f} ms; index_select + '
                  f'2 bmm {t["index_bmm_ms"]:.4f} ms'
-                 if 'fused_ms' in t else '')
+                 if 'fused_ms' in t else parts_text(t))
         _log(f'{label} [{card}]: {t["ms"]:.4f} ms (eager '
              f'{t["eager_ms"]:.4f}), plain {t["plain_ms"]:.4f} ms, '
              f'library {lib} ms, bound {t["bound_ms"]:.4f} ms '
@@ -2422,10 +2722,10 @@ def run_serving(args, card, gen, checks):
         kernels.append({
             'name': k, 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/paged_decode.cu',
-            'replaces': FAMILY[k][3] if k in FAMILY else
-            'skypilot_tpu/ops/paged_attention.py:50 _kernel',
+            'replaces': PAGED_KERNELS[k][3],
             'launches': launches, 'max_abs_err': err, 'ms': t['ms'],
             'kernel_ms': t['ms'], 'eager_ms': t['eager_ms'],
+            'split_ms': t['split_ms'], 'merge_ms': t['merge_ms'],
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': t['bound_by'], 'library_ms': None,
             'shape': t['shape']})

@@ -28,6 +28,10 @@
 //     registers, as FA2 does: S = QK^T and O += PV run on the tensor
 //     cores as mma.sync m16n8k16 bf16 with f32 accumulation; a thread
 //     holds 2 rows x 16 scores, so a row's max and sum take 2 shuffles;
+//     at D = 256 (Gemma) the O accumulators alone take 128 registers a
+//     thread, so Q's A fragments (64 more) are not kept: each key tile
+//     re-reads them from shared memory, one k-step at a time, for all
+//     of S's n8 tiles at once (kQRegs; D = 64 and 128 keep them);
 //     the softmax weights P go from the S accumulators straight into
 //     the A operand of PV (bf16), and the O accumulators are rescaled
 //     by exp(m_prev - m_new) in registers. V's B operand comes from
@@ -42,6 +46,9 @@
 //     exp(s - m) would be 1. A row with no visible key gives out 0 and
 //     lse 0. The window is a second instantiation (kWindow), so the
 //     unwindowed kernel carries none of its arithmetic.
+// Shared memory: Q, K and V tiles at a pitch of D + 8 bf16 and the
+// segment ids, 54 KB a block at D = 128 and 104 KB at D = 256 (two
+// blocks an SM).
 // Still simple: one K/V buffer (no double buffering), no wgmma, TMA or
 // warp specialisation.
 #include "common.cuh"
@@ -113,6 +120,7 @@ flash_fwd_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
   constexpr int kDSteps = D / 16;    // k-steps of S = QK^T
   constexpr int kSTiles = kBN / 8;   // n8 tiles of S
   constexpr int kOTiles = D / 8;     // n8 tiles of O
+  constexpr bool kQRegs = D <= 128;  // Q's fragments stay in registers
   extern __shared__ __align__(128) unsigned char smem[];
   bf16 *Qs = reinterpret_cast<bf16 *>(smem + L::q);
   bf16 *Ks = reinterpret_cast<bf16 *>(smem + L::k);
@@ -152,14 +160,18 @@ flash_fwd_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
   const int r0 = warp * 16 + g4;
   const int qi0 = q0 + r0, qi1 = qi0 + 8;
   const int qseg0 = qsegs[r0], qseg1 = qsegs[r0 + 8];
-  uint32_t qf[kDSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kDSteps; ++ks) {
+  // Q's A fragment of k-step ks (rows r0 and r0 + 8, dims ks*16 ..).
+  auto load_qf = [&](uint32_t (&a)[4], int ks) {
     const bf16 *base = Qs + r0 * LD + ks * 16 + 2 * t4;
-    qf[ks][0] = lds32(base);
-    qf[ks][1] = lds32(base + 8 * LD);
-    qf[ks][2] = lds32(base + 8);
-    qf[ks][3] = lds32(base + 8 * LD + 8);
+    a[0] = lds32(base);
+    a[1] = lds32(base + 8 * LD);
+    a[2] = lds32(base + 8);
+    a[3] = lds32(base + 8 * LD + 8);
+  };
+  uint32_t qf[kQRegs ? kDSteps : 1][4];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int ks = 0; ks < kDSteps; ++ks) load_qf(qf[ks], ks);
   }
 
   float o[kOTiles][4];
@@ -228,13 +240,30 @@ flash_fwd_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
 
       // S [16, kBN] for this warp: n8 tile nt covers keys nt*8 .. +8.
       float s[kSTiles][4];
+      if constexpr (kQRegs) {
 #pragma unroll
-      for (int nt = 0; nt < kSTiles; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        const bf16 *kr = Ks + (nt * 8 + g4) * LD + 2 * t4;
+        for (int nt = 0; nt < kSTiles; ++nt) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+          const bf16 *kr = Ks + (nt * 8 + g4) * LD + 2 * t4;
 #pragma unroll
-        for (int ks = 0; ks < kDSteps; ++ks)
-          mma_bf16(s[nt], qf[ks], lds32(kr + ks * 16), lds32(kr + ks * 16 + 8));
+          for (int ks = 0; ks < kDSteps; ++ks)
+            mma_bf16(s[nt], qf[ks], lds32(kr + ks * 16),
+                     lds32(kr + ks * 16 + 8));
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < kSTiles; ++nt)
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < kDSteps; ++ks) {
+          uint32_t a[4];
+          load_qf(a, ks);
+#pragma unroll
+          for (int nt = 0; nt < kSTiles; ++nt) {
+            const bf16 *kr = Ks + (nt * 8 + g4) * LD + ks * 16 + 2 * t4;
+            mma_bf16(s[nt], a, lds32(kr), lds32(kr + 8));
+          }
+        }
       }
 
       // Scale, mask and the online-softmax update of rows qi0 and qi1.
@@ -405,6 +434,10 @@ extern "C" int skyt_flash_fwd(const void *q, const void *k, const void *v,
                         window, scale, st);
   if (d == 128)
     return launch_d<128>(q, k, v, seg, out, lse, q_sb, q_ss, q_sh, k_sb,
+                         k_ss, k_sh, v_sb, v_ss, v_sh, b, sq, sk, hq, hkv,
+                         causal, window, scale, st);
+  if (d == 256)
+    return launch_d<256>(q, k, v, seg, out, lse, q_sb, q_ss, q_sh, k_sb,
                          k_ss, k_sh, v_sb, v_ss, v_sh, b, sq, sk, hq, hkv,
                          causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);

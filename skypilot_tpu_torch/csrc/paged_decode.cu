@@ -24,21 +24,28 @@
 // [Hkv, P, d] page block per step. Decode has few (slot, kv head) pairs
 // (64 for 8 slots of llama3-8b) and long page walks, so here the walk is
 // split and each page goes to its own warp:
-//   * pass 1: one block of 4 warps per (slot, kv head, run of
-//     `pages_per_split` pages); warp w takes pages w, w+4, ... of the
-//     run. A warp reads its page's K and V rows straight from the
-//     page-major pool into registers with 16-byte loads (K) and 2-8 byte
-//     loads (V), several rows in flight per lane, and keeps its own
-//     online-softmax state for all R = T*G query rows of the kv group
-//     (row r = token r/G, head r%G; R <= 16), so each K/V row is read
-//     once and used R times:
+//   * pass 1: one block of 4 warps per (slot, kv head, group of query
+//     rows, run of `pages_per_split` pages); warp w takes pages w,
+//     w+4, ... of the run. A warp reads its page's K and V rows straight
+//     from the page-major pool into registers with 16-byte loads (K) and
+//     2-16 byte loads (V), several rows in flight per lane, and keeps its
+//     own online-softmax state for the block's rows of the R = T*G query
+//     rows of the kv group (row r = token r/G, head r%G), so each K/V row
+//     is read once a group and used by each of its rows. A group holds
+//     at most kGroupRows = 4 rows, fewer when the grid would not give
+//     each SM two blocks (choose_group): a warp walks its page once per
+//     row of its group, and with more rows that walk, not the bytes,
+//     sets the time (16-row groups ran llama3-8b's verify step 1.29x
+//     slower than 4-row groups, PERF.md). Each group reads the slot's K/V
+//     again, mostly from L2. R is not bounded: gemma-2b's verify step
+//     (G = 8, T = 4, R = 32) runs 8 groups;
 //       - scores: d/16 lanes per token, 16 elements each, a 2-3 step
 //         shuffle reduction per row; q comes from shared memory;
 //       - softmax update per row over the page (warp reductions);
 //       - PV: lane owns d/32 output columns for every row.
 //     The 4 warps' states are merged in shared memory and the block
 //     writes its run's (m, l, acc);
-//   * pass 2: one block per (slot, kv head) merges the runs:
+//   * pass 2: one block per (slot, kv head, query row) merges the runs:
 //     m = max m_i, l = sum l_i e^(m_i - m), acc = sum acc_i e^(m_i - m),
 //     out = acc / l, and l == 0 gives 0.
 //   * int8 pages: the codes convert to f32 exactly (as the TPU kernel's
@@ -47,9 +54,9 @@
 //     rounded to bf16 (the TPU kernel's pd). The running sum l takes the
 //     unscaled p. Half the K/V bytes of bf16 pages, plus 4 B per row of
 //     scales; the score pass keeps twice as many rows in flight.
-//   * template: the head dim D, the register state's row bound MAXR (4,
-//     8 or 16 >= R), the KV type, and kMulti (T > 1): the T = 1
-//     instantiations test visibility against lengths[s] alone, which
+//   * template: the head dim D (64, 128 or 256), the KV type, and kMulti
+//     (T > 1): the T = 1 instantiations test visibility against
+//     lengths[s] alone, which
 //     keeps the single-query inner loop as lean as a kernel of its own;
 //     the T > 1 ones against a per-row limit.
 //   * skip rule, exactly the TPU kernels': page j is walked iff
@@ -63,6 +70,7 @@
 //     page 0 is visible to every row.
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -73,10 +81,19 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPvUnroll = 16;      // V rows with loads in flight
 
-// Shared memory of pass 1: q [R, D], per-warp scores [4, R, P], and the
-// per-warp states for the final merge: m, l [4, R], acc [4, R, D].
+// Query rows one block keeps state for, at most (a group of the R =
+// T*G rows): the register state's row bound.
+constexpr int kGroupRows = 4;
+// V rows with loads in flight in PV: 16 rows of D/32 columns a lane, 8
+// at D = 256 (the same 64 registers).
+__host__ __device__ constexpr int pv_unroll(int d) {
+  return d == 256 ? 8 : 16;
+}
+
+// Shared memory of pass 1 for a group of R rows: q [R, D], per-warp
+// scores [4, R, P], and the per-warp states for the final merge: m, l
+// [4, R], acc [4, R, D].
 inline size_t pass1_smem(int rows, int d, int page_size) {
   return sizeof(float) *
          (size_t(rows) * d + size_t(kWarps) * rows * page_size +
@@ -135,7 +152,16 @@ struct KRow<int8_t> {
 template <int D>
 __device__ __forceinline__ void load_row_cols(const bf16 *src,
                                               float (&out)[D / 32]) {
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+    const uint4 w = *reinterpret_cast<const uint4 *>(src);
+    const __nv_bfloat162 *pr = reinterpret_cast<const __nv_bfloat162 *>(&w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(pr[e]);
+      out[2 * e] = f.x;
+      out[2 * e + 1] = f.y;
+    }
+  } else if constexpr (D == 128) {
     const uint2 w = *reinterpret_cast<const uint2 *>(src);
     const float2 a = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162 *>(&w.x));
@@ -156,7 +182,17 @@ __device__ __forceinline__ void load_row_cols(const bf16 *src,
 template <int D>
 __device__ __forceinline__ void load_row_cols(const int8_t *src,
                                               float (&out)[D / 32]) {
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+    const uint2 w = *reinterpret_cast<const uint2 *>(src);
+    const char4 *c = reinterpret_cast<const char4 *>(&w);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      out[4 * e] = static_cast<float>(c[e].x);
+      out[4 * e + 1] = static_cast<float>(c[e].y);
+      out[4 * e + 2] = static_cast<float>(c[e].z);
+      out[4 * e + 3] = static_cast<float>(c[e].w);
+    }
+  } else if constexpr (D == 128) {
     const char4 c = *reinterpret_cast<const char4 *>(src);
     out[0] = static_cast<float>(c.x);
     out[1] = static_cast<float>(c.y);
@@ -176,7 +212,14 @@ struct Args {
   float scale;
 };
 
-template <int D, int MAXR, typename KV, bool kMulti>
+inline int n_splits(const Args &a) {
+  return (a.mp + a.pages_per_split - 1) / a.pages_per_split;
+}
+
+// Shared memory a block can use on Hopper.
+constexpr size_t kSmemLimit = 227 * 1024;
+
+template <int D, typename KV, bool kMulti>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_split(const bf16 *__restrict__ q,
                    const KV *__restrict__ k_pool,
@@ -188,16 +231,21 @@ paged_decode_split(const bf16 *__restrict__ q,
                    float *__restrict__ part_acc,   // [S, Hkv, n_split, R, D]
                    float *__restrict__ part_ml,    // [S, Hkv, n_split, R, 2]
                    int t_count, int hq, int hkv, int page_size, int mp,
-                   int pages_per_split, float scale) {
+                   int pages_per_split, int group, float scale) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   using Row = KRow<KV>;
   constexpr int kScoreUnroll = Row::kUnroll;
   constexpr int kLanesPerTok = D / 16;       // 16 elements per lane
   constexpr int kTokPerPass = 32 / kLanesPerTok;
   constexpr int kCols = D / 32;              // PV columns per lane
+  constexpr int kPvUnroll = pv_unroll(D);
   extern __shared__ __align__(16) float smem[];
   const int g_count = hq / hkv;
-  const int rows = t_count * g_count;
+  const int rows_all = t_count * g_count;
+  const int n_groups = (rows_all + group - 1) / group;
+  // This block's rows r0 .. r0 + rows of the kv group's R.
+  const int r0 = blockIdx.y % n_groups * group;
+  const int rows = min(group, rows_all - r0);
   float *qs = smem;                                       // [R, D]
   float *sc_all = qs + rows * D;                          // [4, R, P]
   float *wm = sc_all + kWarps * rows * page_size;         // [4, R]
@@ -205,7 +253,7 @@ paged_decode_split(const bf16 *__restrict__ q,
   float *wacc = wl + kWarps * rows;                       // [4, R, D]
 
   const int s = blockIdx.x;
-  const int hk = blockIdx.y;
+  const int hk = blockIdx.y / n_groups;
   const int split = blockIdx.z;
   const int n_split = gridDim.z;
   const int tid = threadIdx.x;
@@ -214,24 +262,24 @@ paged_decode_split(const bf16 *__restrict__ q,
   float *sc = sc_all + warp * rows * page_size;           // this warp's
 
   // Row r = t*G + g: query token t, head hk*G + g (heads h // G == hk
-  // share kv head hk); token t's G rows are contiguous in q.
-  for (int t = 0; t < t_count; ++t) {
-    const bf16 *qrow =
-        q + ((static_cast<long long>(s) * t_count + t) * hq + hk * g_count) *
-                D;
-    for (int i = tid; i < g_count * D; i += kThreads)
-      qs[t * g_count * D + i] = __bfloat162float(qrow[i]);
+  // share kv head hk).
+  for (int i = tid; i < rows * D; i += kThreads) {
+    const int r = r0 + i / D;
+    const int t = r / g_count;
+    qs[i] = __bfloat162float(
+        q[((static_cast<long long>(s) * t_count + t) * hq + hk * g_count +
+           r - t * g_count) * D + i % D]);
   }
   __syncthreads();
 
   const int pos = lengths[s];   // the first token's position (attendable)
-  float m_run[MAXR], l_run[MAXR], acc[MAXR][kCols];
-  int lim[MAXR];                // kMulti: row r sees positions <= lim[r]
+  float m_run[kGroupRows], l_run[kGroupRows], acc[kGroupRows][kCols];
+  int lim[kGroupRows];          // kMulti: row r sees positions <= lim[r]
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
+  for (int r = 0; r < kGroupRows; ++r) {
     m_run[r] = skyt::kNegInf;
     l_run[r] = 0.f;
-    lim[r] = pos + r / g_count;
+    lim[r] = pos + (r0 + r) / g_count;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
   }
@@ -275,7 +323,7 @@ paged_decode_split(const bf16 *__restrict__ q,
         const bool in_page = t < page_size;
         const int idx = j * page_size + t;
 #pragma unroll
-        for (int r = 0; r < MAXR; ++r) {
+        for (int r = 0; r < kGroupRows; ++r) {
           if (r < rows) {
             const float4 *qv =
                 reinterpret_cast<const float4 *>(qs + r * D + sub * 16);
@@ -305,7 +353,7 @@ paged_decode_split(const bf16 *__restrict__ q,
     // pages, rounded to bf16) replaces the scores, and this page's
     // rescale multiplies the running sums.
 #pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
+    for (int r = 0; r < kGroupRows; ++r) {
       if (r < rows) {
         float mx = skyt::kNegInf;
         for (int t = lane; t < page_size; t += 32)
@@ -343,7 +391,7 @@ paged_decode_split(const bf16 *__restrict__ q,
       for (int u = 0; u < kPvUnroll; ++u) {
         if (t0 + u < page_size) {
 #pragma unroll
-          for (int r = 0; r < MAXR; ++r) {
+          for (int r = 0; r < kGroupRows; ++r) {
             if (r < rows) {
               const float p = sc[r * page_size + t0 + u];
 #pragma unroll
@@ -358,7 +406,7 @@ paged_decode_split(const bf16 *__restrict__ q,
 
   // Merge the 4 warps' states in shared memory.
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
+  for (int r = 0; r < kGroupRows; ++r) {
     if (r < rows) {
       if (lane == 0) {
         wm[warp * rows + r] = m_run[r];
@@ -371,7 +419,8 @@ paged_decode_split(const bf16 *__restrict__ q,
   }
   __syncthreads();
   const long long part =
-      ((static_cast<long long>(s) * hkv + hk) * n_split + split) * rows;
+      ((static_cast<long long>(s) * hkv + hk) * n_split + split) * rows_all +
+      r0;
   for (int i = tid; i < rows * D; i += kThreads) {
     const int r = i / D, c = i % D;
     float m = skyt::kNegInf;
@@ -400,45 +449,47 @@ paged_decode_merge(const float *__restrict__ part_acc,
                    int n_split) {
   const int s = blockIdx.x;
   const int hk = blockIdx.y;
+  const int r = blockIdx.z;
   const int tid = threadIdx.x;
   const int g_count = hq / hkv;
   const int rows = t_count * g_count;
   const long long base =
-      (static_cast<long long>(s) * hkv + hk) * n_split * rows;
+      (static_cast<long long>(s) * hkv + hk) * n_split * rows + r;
+  float m = skyt::kNegInf;
+  for (int i = 0; i < n_split; ++i)
+    m = fmaxf(m, part_ml[(base + i * rows) * 2]);
+  float l = 0.f, a = 0.f;
+  for (int i = 0; i < n_split; ++i) {
+    const long long idx = base + i * rows;
+    const float w = __expf(part_ml[idx * 2] - m);
+    l += part_ml[idx * 2 + 1] * w;
+    a += part_acc[idx * D + tid] * w;
+  }
   // Row r = t*G + g goes to out[s, t, hk*G + g]: token t's G rows are
   // contiguous there too.
-  for (int r = 0; r < rows; ++r) {
-    float m = skyt::kNegInf;
-    for (int i = 0; i < n_split; ++i)
-      m = fmaxf(m, part_ml[(base + i * rows + r) * 2]);
-    float l = 0.f, a = 0.f;
-    for (int i = 0; i < n_split; ++i) {
-      const long long idx = base + i * rows + r;
-      const float w = __expf(part_ml[idx * 2] - m);
-      l += part_ml[idx * 2 + 1] * w;
-      a += part_acc[idx * D + tid] * w;
-    }
-    const int t = r / g_count;
-    out[((static_cast<long long>(s) * t_count + t) * hq + hk * g_count +
-         r - t * g_count) * D + tid] = __float2bfloat16(l == 0.f ? 0.f :
-                                                         a / l);
-  }
+  const int t = r / g_count;
+  out[((static_cast<long long>(s) * t_count + t) * hq + hk * g_count +
+       r - t * g_count) * D + tid] = __float2bfloat16(l == 0.f ? 0.f :
+                                                       a / l);
 }
 
-template <int D, int MAXR, typename KV, bool kMulti>
-int launch(const Args &a, cudaStream_t stream) {
+template <int D, typename KV, bool kMulti>
+int launch(const Args &a, int group, cudaStream_t stream) {
   const int rows = a.t_count * (a.hq / a.hkv);
-  const size_t bytes = pass1_smem(rows, D, a.page_size);
+  const int n_groups = (rows + group - 1) / group;
+  const size_t bytes = pass1_smem(group, D, a.page_size);
+  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_split<D, MAXR, KV, kMulti>,
+        paged_decode_split<D, KV, kMulti>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int n_split = (a.mp + a.pages_per_split - 1) / a.pages_per_split;
-  paged_decode_split<D, MAXR, KV, kMulti>
-      <<<dim3(a.slots, a.hkv, n_split), kThreads, bytes, stream>>>(
+  const int n_split = n_splits(a);
+  paged_decode_split<D, KV, kMulti>
+      <<<dim3(a.slots, a.hkv * n_groups, n_split), kThreads, bytes,
+         stream>>>(
           static_cast<const bf16 *>(a.q), static_cast<const KV *>(a.k_pool),
           static_cast<const KV *>(a.v_pool),
           static_cast<const float *>(a.k_scale),
@@ -447,34 +498,46 @@ int launch(const Args &a, cudaStream_t stream) {
           static_cast<const int *>(a.lengths),
           static_cast<float *>(a.part_acc), static_cast<float *>(a.part_ml),
           a.t_count, a.hq, a.hkv, a.page_size, a.mp, a.pages_per_split,
-          a.scale);
+          group, a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  paged_decode_merge<D><<<dim3(a.slots, a.hkv), D, 0, stream>>>(
+  paged_decode_merge<D><<<dim3(a.slots, a.hkv, rows), D, 0, stream>>>(
       static_cast<const float *>(a.part_acc),
       static_cast<const float *>(a.part_ml), static_cast<bf16 *>(a.out),
       a.t_count, a.hq, a.hkv, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The register state is sized by MAXR >= R = T*G: 4, 8 or 16 rows.
-template <int D, typename KV>
-int launch_rows(const Args &a, cudaStream_t stream) {
+// Rows a block keeps state for: up to kGroupRows, fewer while the grid
+// would leave the card's SMs without two blocks each (MQA decode:
+// gemma-2b's one kv head gives 8 slots x 8 splits = 64 blocks a group).
+int choose_group(const Args &a, int sms) {
   const int rows = a.t_count * (a.hq / a.hkv);
-  if (a.t_count == 1) {
-    if (rows <= 4) return launch<D, 4, KV, false>(a, stream);
-    if (rows <= 8) return launch<D, 8, KV, false>(a, stream);
-    return launch<D, 16, KV, false>(a, stream);
-  }
-  if (rows <= 4) return launch<D, 4, KV, true>(a, stream);
-  if (rows <= 8) return launch<D, 8, KV, true>(a, stream);
-  return launch<D, 16, KV, true>(a, stream);
+  int group = std::min(rows, kGroupRows);
+  const long long pairs = static_cast<long long>(a.slots) * a.hkv *
+                          n_splits(a);
+  while (group > 1 && pairs * ((rows + group - 1) / group) < 2LL * sms)
+    group = (group + 1) / 2;
+  return group;
+}
+
+template <int D, typename KV>
+int launch_t(const Args &a, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int group = choose_group(a, sms);
+  return a.t_count == 1 ? launch<D, KV, false>(a, group, stream)
+                        : launch<D, KV, true>(a, group, stream);
 }
 
 template <typename KV>
 int launch_d(const Args &a, int d, cudaStream_t stream) {
-  if (d == 64) return launch_rows<64, KV>(a, stream);
-  if (d == 128) return launch_rows<128, KV>(a, stream);
+  if (d == 64) return launch_t<64, KV>(a, stream);
+  if (d == 128) return launch_t<128, KV>(a, stream);
+  if (d == 256) return launch_t<256, KV>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -488,8 +551,9 @@ SKYT_DEFINE_ERROR_STRING
 // int32; lengths [S] int32 (token t of slot s sits at lengths[s] + t);
 // part_acc f32 [S, Hkv, n_split, R, D] and part_ml f32
 // [S, Hkv, n_split, R, 2] scratch with n_split = ceil(mp /
-// pages_per_split) and R = T*Hq/Hkv <= 16; out [S, T, Hq, D] bf16
-// contiguous.
+// pages_per_split) and R = T*Hq/Hkv; out [S, T, Hq, D] bf16 contiguous;
+// D is 64, 128 or 256. A page size whose pass-1 shared memory passes
+// kSmemLimit returns cudaErrorInvalidValue.
 extern "C" int skyt_paged_decode(const void *q, const void *k_pool,
                                  const void *v_pool, const void *k_scale,
                                  const void *v_scale, const void *tables,
@@ -498,8 +562,7 @@ extern "C" int skyt_paged_decode(const void *q, const void *k_pool,
                                  int t_count, int hq, int hkv, int d,
                                  int page_size, int mp, int pages_per_split,
                                  int kv_int8, float scale, void *stream) {
-  if (hkv <= 0 || hq % hkv != 0 || t_count < 1 ||
-      t_count * (hq / hkv) > 16 || pages_per_split <= 0 ||
+  if (hkv <= 0 || hq % hkv != 0 || t_count < 1 || pages_per_split <= 0 ||
       (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q,        k_pool,   v_pool,  k_scale,   v_scale,

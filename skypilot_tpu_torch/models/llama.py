@@ -44,13 +44,21 @@ ops/lora.py — per-sequence ids [B] take the gather kernel, per-token ids
 [B, S] the grouped one. The stack (infer/lora.py) is an argument, never
 part of the state_dict.
 
+Gemma (the gemma-2b and gemma-7b presets) is this module with four
+knobs, as in the JAX LlamaConfig: head_dim_override (head_dim 256, so
+wq/wk/wv/wo map dim <-> heads*head_dim, which is not dim), mlp_act
+'gelu_tanh' (GeGLU), norm_zero_centered (RMSNorm weights applied as
+1 + w and initialised to 0) and embed_scale (embeddings times sqrt(dim)
+rounded to the compute dtype first).
+
 Not ported here (raise NotImplementedError): quantized weights,
 remat_policy 'dots' and attn_impl 'ring'. The JAX LlamaConfig's other
-family knobs (attn_bias, qk_norm, head_dim_override, the GeGLU, zero-
-centred and sandwich norms, embed_scale, the soft-caps and attn_scale)
-and the Qwen, Phi-3 and Gemma presets wait for a later slice.
+family knobs (attn_bias, qk_norm, the sandwich norms, the soft-caps and
+attn_scale) and the Qwen, Phi-3 and Gemma-2 presets wait for a later
+slice.
 """
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -98,10 +106,15 @@ class LlamaConfig:
     # i % window_pattern == 0.
     sliding_window: int = 0
     window_pattern: int = 1
+    # Gemma family knobs (the JAX LlamaConfig's).
+    head_dim_override: int = 0       # head_dim != dim / n_heads
+    mlp_act: str = 'silu'            # 'silu' | 'gelu_tanh' (GeGLU)
+    norm_zero_centered: bool = False  # norm weight applied as (1 + w)
+    embed_scale: bool = False        # embeddings * sqrt(dim)
 
     @property
     def head_dim(self) -> int:
-        return self.dim // self.n_heads
+        return self.head_dim_override or self.dim // self.n_heads
 
     def layer_window(self, i: int) -> int:
         """Layer i's sliding window (0: none), the counterpart of the
@@ -139,6 +152,22 @@ CONFIGS = {
                               max_seq_len=32768, sliding_window=4096,
                               rope_theta=10000.0,
                               use_llama31_rope=False, norm_eps=1e-6),
+    # Gemma released shapes (HF GemmaConfig: GeGLU, 1+w norms,
+    # sqrt(dim) embed scale, head_dim 256, tied embeddings).
+    'gemma-2b': LlamaConfig(vocab_size=256000, dim=2048, n_layers=18,
+                            n_heads=8, n_kv_heads=1, mlp_dim=16384,
+                            head_dim_override=256, max_seq_len=8192,
+                            rope_theta=10000.0, use_llama31_rope=False,
+                            norm_eps=1e-6, tie_embeddings=True,
+                            mlp_act='gelu_tanh', norm_zero_centered=True,
+                            embed_scale=True),
+    'gemma-7b': LlamaConfig(vocab_size=256000, dim=3072, n_layers=28,
+                            n_heads=16, n_kv_heads=16, mlp_dim=24576,
+                            head_dim_override=256, max_seq_len=8192,
+                            rope_theta=10000.0, use_llama31_rope=False,
+                            norm_eps=1e-6, tie_embeddings=True,
+                            mlp_act='gelu_tanh', norm_zero_centered=True,
+                            embed_scale=True),
 }
 
 
@@ -171,30 +200,41 @@ def _proj(linear: nn.Linear, x: torch.Tensor, lora, name: str):
     return lora_ops.add_lora_delta_(y, x, ab[0], ab[1], ids, scale)
 
 
+# The gate activations of the MLP: SwiGLU's SiLU, Gemma's GeGLU (GELU
+# with the tanh approximation, as flax's nn.gelu(approximate=True)).
+_ACTS = {'silu': F.silu,
+         'gelu_tanh': functools.partial(F.gelu, approximate='tanh')}
+
+
 class RMSNorm(nn.Module):
 
     def __init__(self, dim: int, cfg: LlamaConfig, device=None) -> None:
         super().__init__()
         self.eps = cfg.norm_eps
+        self.zero_centered = cfg.norm_zero_centered
         self.weight = nn.Parameter(torch.empty(
             (dim,), device=device, dtype=torch_dtype(cfg.param_dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # rms_norm computes in f32 with the weight cast to f32 and returns
         # x's dtype, as the JAX RMSNorm does with its param_dtype weight.
-        return norms.rms_norm(x, self.weight, eps=self.eps)
+        return norms.rms_norm(x, self.weight, eps=self.eps,
+                              zero_centered=self.zero_centered)
 
 
 class LlamaMLP(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None) -> None:
         super().__init__()
+        if cfg.mlp_act not in _ACTS:
+            raise ValueError(f'unknown mlp_act {cfg.mlp_act!r}')
+        self.act = _ACTS[cfg.mlp_act]
         self.w_gate = Linear(cfg.dim, cfg.mlp_dim, cfg, device)
         self.w_up = Linear(cfg.dim, cfg.mlp_dim, cfg, device)
         self.w_down = Linear(cfg.mlp_dim, cfg.dim, cfg, device)
 
     def forward(self, x: torch.Tensor, lora=None) -> torch.Tensor:
-        hidden = F.silu(_proj(self.w_gate, x, lora, 'mlp.w_gate')) * \
+        hidden = self.act(_proj(self.w_gate, x, lora, 'mlp.w_gate')) * \
             _proj(self.w_up, x, lora, 'mlp.w_up')
         return _proj(self.w_down, hidden, lora, 'mlp.w_down')
 
@@ -372,14 +412,15 @@ class LlamaModel(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """Random weights from `generator`: embedding N(0, 0.02), each
         projection N(0, 1/fan_in) (the variance of flax's lecun_normal,
-        untruncated), norm weights 1."""
+        untruncated), norm weights 1, or 0 when zero-centred (applied as
+        1 + w: the identity either way, as the JAX init)."""
         self.tok_embed.normal_(0.0, 0.02, generator=generator)
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
                                    generator=generator)
             elif isinstance(mod, RMSNorm):
-                mod.weight.fill_(1.0)
+                mod.weight.fill_(0.0 if mod.zero_centered else 1.0)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -409,6 +450,10 @@ class LlamaModel(nn.Module):
         # embed.astype(dtype)[tokens], gathered before the cast (the same
         # values without a cast copy of the whole table).
         x = self.tok_embed[tokens].to(self.dtype)
+        if cfg.embed_scale:
+            # Gemma: sqrt(dim) rounded to the compute dtype first, as the
+            # JAX model (and HF) round the normalizer.
+            x = x * torch.tensor(cfg.dim ** 0.5, dtype=self.dtype)
         rope_pos = positions if positions is not None else \
             rope.positions_from_segment_ids(segment_ids, b, s,
                                             device=tokens.device)

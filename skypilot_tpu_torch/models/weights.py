@@ -8,7 +8,10 @@ package's LlamaModel state_dict. Dense kernels are [in, out] there and
 (params['layers'][...]), the unscanned one names each block layer_{i}.
 Each leaf keeps its dtype (the training trees' f32 masters stay f32);
 load_state_dict then copies it into the model's param_dtype. A gradient
-tree of the same layout (jax.grad of the params) maps the same way.
+tree of the same layout (jax.grad of the params) maps the same way. So
+does a Gemma tree: tied (no lm_head), zero-centred norm weights as
+stored (the model applies 1 + w), and projections between dim and
+heads*head_dim, which differ there (gemma-7b: 3072 and 4096).
 """
 from typing import Any, Dict, Mapping
 

@@ -11,6 +11,12 @@ only under SKYT_WINDOW_FLASH=on (and to XLA otherwise); the port has no
 environment switches, and the math is the same either way (the CPU
 tests hold the windowed plain versions to both the Pallas kernels and
 the XLA reference).
+
+Under 'auto' the head dim is gated as the JAX package's _flash_ok gates
+it: d % 64 == 0 and d <= 512 take the flash kernels, any other head dim
+(Phi-3's 96, say) the reference. That is a dispatch by shape, as there.
+Of the admitted head dims the CUDA kernels build 64, 128 and 256; the
+wrappers raise on the others (ROADMAP.md queue 2 A).
 """
 from typing import Optional, Tuple
 
@@ -100,13 +106,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiable: the forward kernel, and the backward kernel in the
     backward), sliding window included — on a CUDA tensor they launch
     or raise, on a CPU tensor their plain versions run — unless impl is
-    'xla' or the attention has a soft-cap or a scale override, which the
-    kernels do not compute: those take the reference (differentiated by
-    autograd), as the JAX package's soft-capped and rescaled models take
-    XLA."""
+    'xla', the attention has a soft-cap or a scale override, which the
+    kernels do not compute, or (under 'auto') the head dim is not a
+    multiple of 64 up to 512 (the JAX package's _flash_ok rule): those
+    take the reference (differentiated by autograd), as the JAX package
+    takes XLA for them."""
     if impl not in ('auto', 'flash', 'xla'):
         raise ValueError(f"impl must be 'auto', 'flash' or 'xla', got "
                          f'{impl!r}')
+    d = q.shape[-1]
+    if impl == 'auto' and (d % 64 or d > 512):
+        impl = 'xla'
     if impl != 'xla' and logit_softcap <= 0.0 and softmax_scale is None:
         from skypilot_tpu_torch.ops import flash_attention
         return flash_attention.flash_attention(

@@ -55,6 +55,11 @@ from skypilot_tpu_torch.ops import attention as attention_ops
 launches = 0
 launches_bwd = 0
 
+# Head dims each kernel is instantiated for (csrc/flash_fwd.cu,
+# csrc/flash_bwd.cu); the wrappers raise on any other.
+FWD_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)
+
 
 def reset_launches() -> None:
     global launches, launches_bwd
@@ -155,9 +160,10 @@ def _flash_cuda(q, k, v, segment_ids, causal, window=0):
     if v.shape != k.shape or bk != b or dk != d:
         raise ValueError(f'shape mismatch: q {tuple(q.shape)}, k '
                          f'{tuple(k.shape)}, v {tuple(v.shape)}')
-    if d not in (64, 128):
-        raise ValueError(f'flash kernel supports head_dim 64 and 128, '
-                         f'got {d}')
+    if d not in FWD_HEAD_DIMS:
+        raise ValueError(f'flash kernel builds head_dim {FWD_HEAD_DIMS}, '
+                         f'got {d} (other multiples of 64 up to 512 wait '
+                         'in ROADMAP.md queue 2 A)')
     if hq % hkv:
         raise ValueError(f'q heads ({hq}) must be a multiple of kv heads '
                          f'({hkv})')
@@ -200,9 +206,10 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal,
         raise ValueError(f'the backward kernel takes Sq == Sk: q '
                          f'{tuple(q.shape)}, k {tuple(k.shape)}, v '
                          f'{tuple(v.shape)}, do {tuple(do.shape)}')
-    if d not in (64, 128):
-        raise ValueError(f'flash backward supports head_dim 64 and 128, '
-                         f'got {d}')
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f'flash backward builds head_dim {BWD_HEAD_DIMS}, '
+                         f'got {d} (head_dim 256 comes with the Gemma '
+                         'training slice, ROADMAP.md queue 2 A)')
     if hq % hkv:
         raise ValueError(f'q heads ({hq}) must be a multiple of kv heads '
                          f'({hkv})')
@@ -326,8 +333,8 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward-only flash attention with the per-row logsumexp:
     (out [B, Sq, Hq, D], lse [B, Hq, Sq] f32). CUDA tensors launch the
-    kernel (bf16, head_dim 64 or 128; anything else raises); CPU tensors
-    run the plain version."""
+    kernel (bf16, head_dim 64, 128 or 256; anything else raises); CPU
+    tensors run the plain version."""
     window = _check_window(window)
     if q.is_cuda:
         return _flash_cuda(q, k, v, segment_ids, causal, window)

@@ -24,9 +24,11 @@ pools, (2*Hkv*d*1 B + 2*Hkv*4 B)*sum_s(lengths[s]+T) for int8, against
 tensor-core ridge. The design (csrc/paged_decode.cu) splits each (slot,
 kv head) walk into runs of PAGES_PER_SPLIT pages, one block each and one
 page per warp, so a few long slots still fill the card with loads in
-flight; a warp reads each K/V row once for all T*G query rows of its kv
-group, walks only the pages some token can see, and a second small pass
-merges the runs' softmax partials.
+flight; a warp reads each K/V row once for a group of the T*G query
+rows of its kv group (up to 4, fewer where the grid would leave SMs
+idle; more rows take more blocks, so any GQA group and T run), walks
+only the pages some token can see, and a second small pass merges the
+runs' softmax partials. Head dims 64, 128 and 256 are built.
 
 Skip rule, the TPU kernels': page j is walked iff
 j*P <= lengths[s] + T-1 and (tables[s, j] != 0 or j == 0). A released
@@ -35,7 +37,8 @@ slot (all-zero table row, stale length) reads only dummy page 0.
 On a CUDA tensor each wrapper launches its kernel or raises; the plain
 versions (*_reference) run only for CPU tensors.
 """
-from typing import Optional
+import collections
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,18 +51,20 @@ from skypilot_tpu_torch.ops import attention as attention_ops
 KERNELS = ('paged_decode', 'paged_decode_mq', 'paged_decode_q',
            'paged_decode_mq_q')
 launches = dict.fromkeys(KERNELS, 0)
+# The same launches by (kernel, query rows a kv head: T*G).
+launches_by_rows: Dict[Tuple[str, int], int] = collections.Counter()
 
-_SMEM_LIMIT = 227 * 1024  # shared memory a block can use on Hopper
 # Pages per block in the split pass, one per warp: 8 slots x 8 kv heads
 # at 2048 tokens (32 pages of 64) make 512 blocks.
 PAGES_PER_SPLIT = 4
-# Query rows (T tokens x G heads per kv head) a warp keeps state for.
-MAX_ROWS = 16
+# Head dims the kernel is instantiated for.
+HEAD_DIMS = (64, 128, 256)
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+    launches_by_rows.clear()
 
 
 # ------------------------------------------------------- plain versions
@@ -177,17 +182,12 @@ def _paged_cuda(name: str, q, k_pool, v_pool, k_scale, v_scale, tables,
                 not x.is_contiguous() or x.device != q.device:
             raise ValueError(f'{what} must be a contiguous int32 '
                              f'{shape} on {q.device}')
-    if d not in (64, 128):
-        raise ValueError(f'{name} supports head_dim 64 and 128, got {d}')
+    if d not in HEAD_DIMS:
+        raise ValueError(f'{name} builds head_dim {HEAD_DIMS}, got {d} '
+                         '(other head dims wait in ROADMAP.md queue 2 A)')
     if hq % hkv:
         raise ValueError(f'{name} needs Hq % Hkv == 0 (Hq={hq}, Hkv={hkv})')
     rows = t * (hq // hkv)
-    if rows > MAX_ROWS:
-        raise ValueError(f'{name} keeps at most {MAX_ROWS} query rows per '
-                         f'kv head, got T*G = {t}*{hq // hkv} = {rows}')
-    if 4 * rows * (5 * d + 4 * page_size + 8) > _SMEM_LIMIT:
-        raise ValueError(f'page_size {page_size} with {rows} query rows '
-                         'per kv head exceeds the kernel\'s shared memory')
     mp = tables.shape[1]
     n_split = -(-mp // PAGES_PER_SPLIT)
     out = torch.empty_like(q)
@@ -206,6 +206,7 @@ def _paged_cuda(name: str, q, k_pool, v_pool, k_scale, v_scale, tables,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, name)
     launches[name] += 1
+    launches_by_rows[name, rows] += 1
     return out
 
 

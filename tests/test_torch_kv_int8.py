@@ -204,7 +204,9 @@ def int8_engines():
     jm = jax_llama.LlamaModel(cfg)
     jp = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
     tree = jax.tree_util.tree_map(np.asarray, nn.meta.unbox(jp))
-    pcfg = llama.CONFIGS['debug']
+    # 'flash': the debug preset's head_dim 16 takes the reference under
+    # 'auto' (the _flash_ok rule); this holds the flash path to JAX.
+    pcfg = dataclasses.replace(llama.CONFIGS['debug'], attn_impl='flash')
     rng = np.random.default_rng(0)
     prompts = [(rng.integers(1, 256, n).tolist(), m)
                for n, m in BURST + [LONE]]

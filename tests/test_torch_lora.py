@@ -97,7 +97,9 @@ def base():
     adapters = [_adapter(params, *a) for a in ADAPTERS]
     graft = _adapter(params, *GRAFT)
     jstack = jax_lora.build_stack(adapters, dtype='float32')
-    pcfg = llama.CONFIGS['debug']
+    # 'flash': the debug preset's head_dim 16 takes the reference under
+    # 'auto' (the _flash_ok rule); this holds the flash path to JAX.
+    pcfg = dataclasses.replace(llama.CONFIGS['debug'], attn_impl='flash')
     sd = weights.params_from_jax({'params': params}, pcfg)
 
     def port_model():

@@ -44,7 +44,10 @@ def _jax_model(scan_layers=True, tie=False):
 
 
 def _port_model(jax_params, tie=False):
-    cfg = dataclasses.replace(llama.CONFIGS['debug'], tie_embeddings=tie)
+    # 'flash': the debug preset's head_dim 16 takes the reference under
+    # 'auto' (the _flash_ok rule); this holds the flash path to JAX.
+    cfg = dataclasses.replace(llama.CONFIGS['debug'], tie_embeddings=tie,
+                              attn_impl='flash')
     tree = jax.tree_util.tree_map(np.asarray, nn.meta.unbox(jax_params))
     model = llama.LlamaModel(cfg)
     model.load_state_dict(weights.params_from_jax(tree, cfg))

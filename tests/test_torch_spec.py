@@ -144,7 +144,9 @@ def jax_debug(max_seq=MAX_SEQ):
 
 
 def port_model(jp):
-    cfg = llama.CONFIGS['debug']
+    # 'flash': the debug preset's head_dim 16 takes the reference under
+    # 'auto' (the _flash_ok rule); this holds the flash path to JAX.
+    cfg = dataclasses.replace(llama.CONFIGS['debug'], attn_impl='flash')
     tree = jax.tree_util.tree_map(np.asarray, nn.meta.unbox(jp))
     model = llama.LlamaModel(cfg)
     model.load_state_dict(weights.params_from_jax(tree, cfg))

@@ -70,7 +70,10 @@ def _numpy_tree(tree):
 
 
 def _port_model(jax_params, remat=False):
-    cfg = dataclasses.replace(llama.CONFIGS['debug'], remat=remat)
+    # 'flash': the debug preset's head_dim 16 takes the reference under
+    # 'auto' (the _flash_ok rule); this holds the flash path to JAX.
+    cfg = dataclasses.replace(llama.CONFIGS['debug'], remat=remat,
+                              attn_impl='flash')
     model = llama.LlamaModel(cfg)
     model.load_state_dict(weights.params_from_jax(_numpy_tree(jax_params),
                                                   cfg))

@@ -168,7 +168,9 @@ def test_dispatch_sends_a_window_to_flash(monkeypatch, impl, kw, flash):
     """attention(window > 0) reaches flash_attention with the window
     under 'auto' and 'flash' (a spy: on the CPU it runs the plain
     version), and the reference under 'xla' or with a soft-cap; both
-    agree with the JAX package's reference."""
+    agree with the JAX package's reference. Head_dim 64: 'auto' takes
+    the flash kernels only for a multiple of 64 (the JAX package's
+    _flash_ok rule)."""
     seen = []
     real = flash_attention.flash_attention
 
@@ -176,7 +178,10 @@ def test_dispatch_sends_a_window_to_flash(monkeypatch, impl, kw, flash):
         seen.append(kwargs.get('window'))
         return real(*args, **kwargs)
     monkeypatch.setattr(flash_attention, 'flash_attention', spy)
-    q, k, v, _, _ = _inputs(64, 3, False)
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(1, 64, 4, 64)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 64, 2, 64)).astype(np.float32)
+            for _ in range(2))
     out = attention.attention(_t(q), _t(k), _t(v), causal=True, window=9,
                               impl=impl, **kw)
     assert seen == ([9] if flash else [])

@@ -61,7 +61,11 @@ def _cfgs(pattern, window=WINDOW):
     kw = dict(sliding_window=window, window_pattern=pattern,
               max_seq_len=MAX_SEQ)
     return (dataclasses.replace(jax_llama.CONFIGS['debug'], **kw),
-            dataclasses.replace(llama.CONFIGS['debug'], **kw))
+            # 'flash': the debug preset's head_dim 16 takes the reference
+            # under 'auto' (the _flash_ok rule); this holds the flash path
+            # to JAX.
+            dataclasses.replace(llama.CONFIGS['debug'], attn_impl='flash',
+                                **kw))
 
 
 def _tree(jp):
