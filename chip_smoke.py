@@ -46,7 +46,12 @@ Phases (any failure exits non-zero and prints no result line):
      windowed rows; the four paged kernels at gemma-7b's decode shapes
      (q [8, 16, 256] or [8, 4, 16, 256], pools [257, 16, 64, 256]) and
      gemma-2b's (pools [257, 1, 64, 256]; T = 4 gives 32 query rows a kv
-     head), bf16 and int8;
+     head), bf16 and int8; and the backward at head_dim 256
+     (BWD_CASES_D256, on a generator of its own, both modes as above):
+     gemma-2b's sft shape [4, 2048, 8, 256] with 1 kv head, gemma-7b's
+     MHA row [1, 2048, 16, 256], a packed row with segment boundaries
+     inside key tiles, a ragged S of 200, windows 100 (causal) and 65
+     (not);
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -113,16 +118,24 @@ Phases (any failure exits non-zero and prints no result line):
      cost of the ordered adds (on, off, on, off in one process); a grad
      check through two full-width mistral-7b layers (window 4096) at
      1 x 6144 against attn_impl='xla' (rel L2 <= 5e-2, losses within
-     1e-2, the backward kernel launched once per layer);
+     1e-2, the backward kernel launched once per layer); sft.main on
+     gemma-2b at full width at the largest of batch 8, 4 and 2 x 2048
+     that fits (a batch that does not runs out of memory in its first
+     step, in the loss's f32 logits over vocab 256000), 6 steps: 36
+     forward and 18 backward launches a step, finite losses, the first logged within
+     1.5 of ln 256000; a grad check through two full-width gemma-7b
+     layers (head_dim 256, MHA) at 1 x 2048, as Mistral's;
   4'. the windowed forward and backward kernels at [1, 8192, 32, 128]
      with window 4096 against themselves without the window, their plain
      versions and SDPA with a boolean band mask (its backend logged);
      the backward kernel (and the forward) timed at the sft shape
      [8, 2048, 32, 64] causal against the plain backward and SDPA, with
      its adds ordered too, and the backward kernel at head_dim 128 and on
-     packed rows; then the
-     {"kernels": [...]} line (all nine kernels, and the windowed forward
-     and backward);
+     packed rows; the same at head_dim 256 on gemma-2b's sft shape
+     [4, 2048, 8, 256] (1 kv head) and gemma-7b's [1, 2048, 16, 256];
+     then the {"kernels": [...]} line (all nine kernels, the windowed
+     forward and backward, and the head_dim-256 entries *_gemma7b and
+     *_gemma2b);
   5. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -429,6 +442,20 @@ BWD_CASES = (
     ('packed_mid_tile_window65', 1, 1024, 32, 8, 64, True,
      (100, 37, 250, 300), 65),
 )
+# Head_dim 256, Gemma training (checked on a generator of its own, after
+# check_d256, so that every check above keeps its inputs): gemma-2b's sft
+# shape [4, 2048, 8 q / 1 kv heads], gemma-7b's MHA row [1, 2048, 16 /
+# 16], a packed row whose segments end inside 64-key tiles, a ragged S of
+# 200, windows that are not multiples of 64, causal and not.
+BWD_CASES_D256 = (
+    ('gemma2b_sft', 4, 2048, 8, 1, 256, True, None, 0),
+    ('gemma7b_causal', 1, 2048, 16, 16, 256, True, None, 0),
+    ('d256_packed_mid_tile', 1, 1024, 8, 1, 256, True, (100, 37, 250, 300),
+     0),
+    ('d256_ragged_noncausal', 2, 200, 8, 2, 256, False, None, 0),
+    ('d256_window100', 1, 600, 8, 1, 256, True, None, 100),
+    ('d256_noncausal_window65', 2, 300, 4, 2, 256, False, None, 65),
+)
 
 
 def bwd_inputs(gen, case):
@@ -473,9 +500,9 @@ def deterministic_algorithms(on=True):
         torch.utils.deterministic.fill_uninitialized_memory = was[2]
 
 
-def check_flash_bwd(gen):
+def check_flash_bwd(gen, cases=BWD_CASES):
     """Kernels 8-9 (flash_attention_bwd on CUDA tensors: one backward
-    kernel) against the plain backward on the same inputs (BWD_CASES):
+    kernel) against the plain backward on the same inputs (cases):
     dq, dk and dv within atol = rtol = 2e-2, and dk and dv of a second
     call on the same inputs bit-equal to the first (dq's bit-equality is
     logged). Then the same with deterministic algorithms on (the
@@ -484,7 +511,7 @@ def check_flash_bwd(gen):
     import torch
     from skypilot_tpu_torch.ops import flash_attention as fa
     res = {}
-    for case in BWD_CASES:
+    for case in cases:
         name, causal, window = case[0], case[6], case[8]
         q, k, v, out, lse, do, seg = bwd_inputs(gen, case)
         ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
@@ -1841,27 +1868,41 @@ LORA_TIMED = ('gather_decode', 'gather_decode_down', 'gather_verify',
 SFT_MODEL = 'llama3-1b'
 SFT_ARGV = ['--model', SFT_MODEL, '--batch', '8', '--seq', '2048',
             '--steps', '6', '--log-every', '2', '--prefetch', '2']
+# Gemma training: sft on gemma-2b at full width (18 layers, dim 2048, 8 q
+# heads on 1 kv head, head_dim 256, GeGLU mlp 16384, vocab 256000, tied)
+# at the largest of these batches that fits: sft's default of 8 need not,
+# as the loss's f32 logits of [8 x 2048, 256000] (15.6 GiB, one of
+# several such copies) sit beside 40 GB of masters, gradients and AdamW
+# moments.
+GEMMA_SFT_BATCHES = (8, 4, 2)
+
+
+def gemma_sft_argv(batch):
+    return ['--model', GEMMA2B, '--batch', str(batch), '--seq', '2048',
+            '--steps', '6', '--log-every', '2', '--prefetch', '2']
 GRAD_REL_L2 = 5e-2
 LOSS_ABS = 1e-2
 
 
-def run_train(card):
-    """sft.main on the card. The flash launch counters are set to 0 just
-    before and read just after: per step 32 forward launches (16 blocks,
-    then 16 again in the remat recompute) and 16 backward launches. Every
-    step's loss must be finite, and the first logged one within 1.5 of
-    ln(vocab) (random weights predict a near-uniform distribution)."""
+def run_train(card, argv=SFT_ARGV):
+    """sft.main(argv) on the card. The flash launch counters are set to 0
+    just before and read just after: per step 2 * layers forward launches
+    (every block, then again in the remat recompute) and one backward
+    launch a block (llama3-1b: 32 and 16). Every step's loss must be
+    finite, and the first logged one within 1.5 of ln(vocab) (random
+    weights predict a near-uniform distribution)."""
     import torch
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.train import sft
-    cfg = llama.CONFIGS[SFT_MODEL]
+    model = argv[argv.index('--model') + 1]
+    cfg = llama.CONFIGS[model]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     t0 = time.perf_counter()
-    out = sft.main(SFT_ARGV)
+    out = sft.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {'flash_fwd': fa.launches, 'flash_bwd': fa.launches_bwd}
@@ -1872,7 +1913,7 @@ def run_train(card):
     losses = out['losses']
     last = out['logs'][-1]
     ln_v = math.log(cfg.vocab_size)
-    _log(f'sft {" ".join(SFT_ARGV)} [{card}]: {steps} steps in '
+    _log(f'sft {" ".join(argv)} [{card}]: {steps} steps in '
          f'{wall:.1f} s (model build included); losses '
          + ', '.join(f'{x:.4f}' for x in losses)
          + f' (ln vocab {ln_v:.4f}); logged '
@@ -1880,7 +1921,7 @@ def run_train(card):
                      f'{g["grad_norm"]:.3f} step {g["step_time_s"]:.3f} s'
                      for g in out['logs']))
     mfu = 'n/a' if last['mfu'] is None else f'{last["mfu"]:.4f}'
-    _log(f'sft {SFT_MODEL} [{card}]: last window {last["step_time_s"]:.4f} '
+    _log(f'sft {model} [{card}]: last window {last["step_time_s"]:.4f} '
          f's/step, {last["window_tokens_per_sec"]:.0f} tokens/s, MFU {mfu} '
          f'of 989 TFLOP/s ({out["flops_per_step"]:.4e} FLOPs/step, '
          f'analytic); peak memory {peak_gib:.2f} GiB; launches {launches} '
@@ -1888,7 +1929,8 @@ def run_train(card):
     assert all(math.isfinite(x) for x in losses), losses
     assert abs(out['logs'][0]['loss'] - ln_v) <= 1.5, out['logs'][0]
     assert launches == want, (launches, want)
-    return {'launches': launches, 'steps': steps, 'losses': losses,
+    return {'model': model, 'argv': argv, 'launches': launches,
+            'steps': steps, 'losses': losses,
             'logs': out['logs'], 'wall_s': wall, 'peak_gib': peak_gib,
             'step_time_s': last['step_time_s'],
             'tokens_per_sec': last['window_tokens_per_sec'],
@@ -1964,6 +2006,43 @@ def check_mistral_grads(card, seq=6144):
     res = check_train_grads(
         card, cfg, seq, f'{MISTRAL} (2 layers, window '
         f'{cfg.sliding_window})', SEED + 6)
+    assert res['launches']['flash_bwd'] == cfg.n_layers, res['launches']
+    return res
+
+
+def run_gemma_train(card):
+    """run_train on gemma-2b at the largest batch of GEMMA_SFT_BATCHES
+    that fits on the card (a batch that does not runs out of memory in
+    its first step, and its error is kept)."""
+    import torch
+    oom = {}
+    for batch in GEMMA_SFT_BATCHES:
+        try:
+            res = run_train(card, gemma_sft_argv(batch))
+        except torch.OutOfMemoryError as e:
+            oom[batch] = str(e).split('\n')[0][:400]
+            _log(f'sft {GEMMA2B} batch {batch} [{card}]: out of memory: '
+                 f'{oom[batch]}')
+        else:
+            res.update({'batch': batch, 'out_of_memory': oom})
+            return res
+        # Out of the handler, the failed run's frames are freed.
+        gc.collect()
+        torch.cuda.empty_cache()
+    raise RuntimeError(f'{GEMMA2B} sft fits at none of {GEMMA_SFT_BATCHES}')
+
+
+def check_gemma_grads(card, seq=2048):
+    """check_train_grads through two layers of gemma-7b at full width
+    (head_dim 256, 16 q / 16 kv heads, GeGLU, 1 + w norms, embedding
+    scale, tied; f32 masters, bf16 compute, remat) at 1 x seq: the
+    head_dim-256 forward and backward kernels against the plain
+    attention. The backward kernel must launch once per layer."""
+    import dataclasses
+    from skypilot_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.CONFIGS[GEMMA7B], n_layers=2)
+    res = check_train_grads(card, cfg, seq, f'{GEMMA7B} (2 layers)',
+                            SEED + 7)
     assert res['launches']['flash_bwd'] == cfg.n_layers, res['launches']
     return res
 
@@ -2183,26 +2262,21 @@ def check_checkpoint(card, seq=128, exact=True):
             'losses_resumed': lb, 'max_param_diff': diff}
 
 
-def time_flash_bwd(gen):
-    """Kernels 8-9 (one backward kernel) at the sft shape [8, 2048, 32,
-    64], 8 kv heads, causal: flash_bwd_cuda (the kernel with the zeroing
-    of its f32 dq accumulator and the cast to bf16; CUDA graph of
-    calls), also with deterministic algorithms on (ordered adds), the
-    zeroing and the cast alone, the whole backward
-    (flash_attention_bwd: delta, then flash_bwd_cuda) eagerly beside one
-    eager SDPA backward (k/v expanded to 32 heads; PyTorch's flash
-    backward, dq, dk and dv), and the plain backward; and kernel 1 at the
-    same shape against SDPA's forward. Then flash_bwd_cuda alone on the
-    burst's packed rows at the same shape and at head_dim 128 ([4, 2048,
-    32, 128] causal, 8 kv heads: llama3-8b's attention). Bounds: 4*d
-    flops per visible (q, k) pair and query head for the forward, 10*d
-    for the backward (s, dp, dv, dk, dq once each), against the bytes
-    each must move once."""
-    import numpy as np
+def time_bwd_at(gen, b, s, hq, hkv, d):
+    """Kernels 8-9 (one backward kernel) at [b, s, hq, d], hkv kv heads,
+    causal: flash_bwd_cuda (the kernel with the zeroing of its f32 dq
+    accumulator and the cast to bf16; CUDA graph of calls), also with
+    deterministic algorithms on (ordered adds), the zeroing and the cast
+    alone, the whole backward (flash_attention_bwd: delta, then
+    flash_bwd_cuda) eagerly beside one eager SDPA backward (k/v expanded
+    to hq heads; dq, dk and dv; the backend SDPA picked is kept), and the
+    plain backward; and kernel 1 at the same shape against its plain
+    version and SDPA's forward. Bounds: 4*d flops per visible (q, k) pair and query head for
+    the forward, 10*d for the backward (s, dp, dv, dk, dq once each),
+    against the bytes each must move once."""
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import flash_attention as fa
-    b, s, hq, hkv, d = 8, 2048, 32, 8, 64
     q = torch.randn((b, s, hq, d), generator=gen, device='cuda',
                     dtype=torch.bfloat16)
     k = torch.randn((b, s, hkv, d), generator=gen, device='cuda',
@@ -2234,6 +2308,8 @@ def time_flash_bwd(gen):
     # SDPA's forward on the same expanded k/v.
     res['fwd_ms'] = time_ms(lambda: fa.flash_attention_fwd_lse(
         q, k, v, causal=True), 10)
+    res['fwd_plain_ms'] = time_ms(lambda: fa.flash_attention_reference(
+        q, k, v, causal=True), 1, reps=2)
     kx = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
     vx = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
     res['fwd_library_ms'] = time_ms(lambda: F.scaled_dot_product_attention(
@@ -2241,6 +2317,10 @@ def time_flash_bwd(gen):
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt = kx.detach().requires_grad_()
     vt = vx.detach().requires_grad_()
+    names = {int(v): k for k, v in
+             torch.nn.attention.SDPBackend.__members__.items()}
+    backend = int(torch._fused_sdp_choice(qt, kt, vt, None, 0.0, True))
+    res['library_backend'] = names.get(backend, str(backend))
     with torch.enable_grad():
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
@@ -2263,7 +2343,23 @@ def time_flash_bwd(gen):
         res[f'{name}_flops'] = flops
         res[f'{name}_bytes'] = nbytes
     res['shape'] = [b, s, hq, d]
+    res['kv_heads'] = hkv
     res['pairs'] = pairs
+    del sdpa_out, qt, kt, vt, kx, vx
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_flash_bwd(gen):
+    """time_bwd_at at the sft shape [8, 2048, 32, 64], 8 kv heads
+    (llama3-1b's attention). Then flash_bwd_cuda alone on the burst's
+    packed rows at the same shape and at head_dim 128 ([4, 2048, 32, 128]
+    causal, 8 kv heads: llama3-8b's attention)."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    b, s, hq, hkv, d = 8, 2048, 32, 8, 64
+    res = time_bwd_at(gen, b, s, hq, hkv, d)
     # The backward kernel's other variants on the training path's kind of
     # input: packed rows (8 copies of the burst's segments) and head_dim
     # 128.
@@ -2406,19 +2502,27 @@ def log_window_timed(card, tw):
 
 
 def log_flash_bwd_timed(card, tb):
-    _log(f'flash_bwd causal {tb["shape"]} kv heads 8 [{card}]: '
+    _log(f'flash_bwd causal {tb["shape"]} kv heads {tb["kv_heads"]} '
+         f'[{card}]: '
          f'{tb["bwd_ms"]:.4f} ms in a CUDA graph (kernel + zeroing '
          f'{tb["zero_ms"]:.4f} + cast {tb["cast_ms"]:.4f}; with ordered '
          f'adds {tb["bwd_ordered_ms"]:.4f}), bound '
          f'{tb["bwd_bound_ms"]:.4f} ms ({tb["bwd_bound_by"]}); whole '
          f'backward eager (delta, zeroing, kernel, cast) '
          f'{tb["bwd_eager_ms"]:.4f} ms vs one SDPA backward eager (k/v '
-         f'expanded to 32 heads) {tb["library_ms"]:.4f} ms: '
-         f'{tb["ratio_to_library"]:.3f}x (with ordered adds '
+         f'expanded to {tb["shape"][2]} heads) {tb["library_ms"]:.4f} ms: '
+         f'{tb["ratio_to_library"]:.3f}x, SDPA took '
+         f'{tb["library_backend"]} (with ordered adds '
          f'{tb["bwd_ordered_eager_ms"]:.4f} ms, '
          f'{tb["bwd_ordered_eager_ms"] / tb["library_ms"]:.3f}x); plain '
          f'backward {tb["plain_ms"]:.4f} ms')
+    _log(f'flash_fwd causal {tb["shape"]} kv heads {tb["kv_heads"]} '
+         f'[{card}]: {tb["fwd_ms"]:.4f} ms, bound {tb["fwd_bound_ms"]:.4f} '
+         f'ms ({tb["fwd_bound_by"]}), plain {tb["fwd_plain_ms"]:.4f} ms, '
+         f'SDPA forward {tb["fwd_library_ms"]:.4f} ms')
     for name in ('packed', 'd128'):
+        if name not in tb:
+            continue
         t = tb[name]
         _log(f'flash_bwd causal {name} {t["shape"]} kv heads {t["kv_heads"]} '
              f'[{card}]: {t["ms"]:.4f} ms in a CUDA graph, bound '
@@ -2470,6 +2574,9 @@ def main() -> int:
         gen_d256 = torch.Generator(device='cuda')
         gen_d256.manual_seed(SEED + 40)
         d256_res = check_d256(gen_d256)
+        gen_bwd256 = torch.Generator(device='cuda')
+        gen_bwd256.manual_seed(SEED + 41)
+        bwd256_res = check_flash_bwd(gen_bwd256, BWD_CASES_D256)
     if args.quick:
         _log(card)
         print(json.dumps({'ok': True, 'device': {
@@ -2507,14 +2614,24 @@ def main() -> int:
     resume_res = check_sft_resume(card)
     ordered_res = time_sft_ordered(card)
     mistral_grads = check_mistral_grads(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma_train = run_gemma_train(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma_grads = check_gemma_grads(card)
     tw = time_window(gen)
     log_window_timed(card, tw)
     tb = time_flash_bwd(gen)
     log_flash_bwd_timed(card, tb)
-    _log(f'flash_fwd causal {tb["shape"]} kv heads 8 [{card}]: '
-         f'{tb["fwd_ms"]:.4f} ms, bound {tb["fwd_bound_ms"]:.4f} ms '
-         f'({tb["fwd_bound_by"]}), SDPA forward {tb["fwd_library_ms"]:.4f} '
-         f'ms; {train_res["launches"]["flash_fwd"]} launches in the sft run')
+    # Head_dim 256 at gemma-2b's sft shape (batch 4, 8 q heads on 1 kv
+    # head) and gemma-7b's MHA row, on a generator of their own.
+    gen_t256 = torch.Generator(device='cuda')
+    gen_t256.manual_seed(SEED + 42)
+    tg = {GEMMA2B: time_bwd_at(gen_t256, 4, 2048, 8, 1, 256),
+          GEMMA7B: time_bwd_at(gen_t256, 1, 2048, 16, 16, 256)}
+    for t in tg.values():
+        log_flash_bwd_timed(card, t)
     # Rows 8 and 9 (_dq_kernel, _dkv_kernel) are one fused kernel here:
     # both entries carry its numbers and "fused": true; add them once.
     bwd_kernels = [
@@ -2533,6 +2650,17 @@ def main() -> int:
          'd128_shape': tb['d128']['shape']}
         for line in ('168 _dq_kernel', '216 _dkv_kernel')]
     for entry in kernels:
+        if entry['name'] == 'flash_fwd_gemma2b':
+            # gemma-2b's training shape and launches beside its serving
+            # path's.
+            t = tg[GEMMA2B]
+            entry.update({'train_shape': t['shape'],
+                          'train_launches': gemma_train['launches'][
+                              'flash_fwd'],
+                          'train_ms': t['fwd_ms'],
+                          'train_plain_ms': t['fwd_plain_ms'],
+                          'train_bound_ms': t['fwd_bound_ms'],
+                          'train_library_ms': t['fwd_library_ms']})
         if entry['name'] == 'flash_fwd':
             # The training path's shape and launches beside the serving
             # path's.
@@ -2540,9 +2668,32 @@ def main() -> int:
                           'train_launches': train_res['launches'][
                               'flash_fwd'],
                           'train_ms': tb['fwd_ms'],
+                          'train_plain_ms': tb['fwd_plain_ms'],
                           'train_bound_ms': tb['fwd_bound_ms'],
                           'train_library_ms': tb['fwd_library_ms']})
     kernels += bwd_kernels
+    # The head_dim-256 backward: gemma-2b's launches from its sft run,
+    # gemma-7b's from its grad check (both counted from 0 just before).
+    for model, run, check in (
+            (GEMMA2B, gemma_train, bwd256_res['gemma2b_sft']),
+            (GEMMA7B, gemma_grads, bwd256_res['gemma7b_causal'])):
+        t = tg[model]
+        kernels.append({
+            'name': 'flash_bwd_' + model.replace('-', ''), 'route': 'cuda',
+            'fused': True,
+            'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
+            'replaces': 'skypilot_tpu/ops/flash_attention.py:168 '
+                        '_dq_kernel, :216 _dkv_kernel (head_dim 256)',
+            'launches': run['launches']['flash_bwd'],
+            'max_abs_err': check['max_abs_err'], 'ms': t['bwd_ms'],
+            'kernel_ms': t['bwd_ms'], 'eager_ms': t['bwd_eager_ms'],
+            'plain_ms': t['plain_ms'], 'bound_ms': t['bwd_bound_ms'],
+            'bound_by': t['bwd_bound_by'], 'library_ms': t['library_ms'],
+            'library': f'SDPA backward, k/v expanded '
+                       f'({t["library_backend"]})',
+            'shape': t['shape'], 'kv_heads': t['kv_heads'], 'head_dim': 256,
+            'ordered_ms': t['bwd_ordered_ms'],
+            'ordered_eager_ms': t['bwd_ordered_eager_ms']})
     # The windowed kernels: the forward's launches from the Mistral
     # engine's run, the backward's from the Mistral grad check (both
     # counted from 0 just before); times at [1, 8192, 32, 128].
@@ -2577,12 +2728,15 @@ def main() -> int:
                     'checkpoint_512': ckpt_long_res, 'flash_bwd_timed': tb,
                     'mistral': mistral_res, 'mistral_grads': mistral_grads,
                     'gemma': gemma_res, 'd256_timed': td,
+                    'gemma_train': gemma_train, 'gemma_grads': gemma_grads,
+                    'gemma_bwd_timed': tg,
                     'sft_resume': resume_res, 'sft_ordered': ordered_res,
                     'window_timed': tw,
                     'checks': {'flash': flash_res, 'paged': paged_res,
                                'family': family_res, 'lora': lora_res,
                                'flash_window': window_res,
-                               'flash_bwd': bwd_res, 'd256': d256_res}})
+                               'flash_bwd': bwd_res, 'd256': d256_res,
+                               'flash_bwd_d256': bwd256_res}})
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            'smoke_out')
     os.makedirs(out_dir, exist_ok=True)

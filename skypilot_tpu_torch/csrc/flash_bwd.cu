@@ -16,7 +16,9 @@
 // against 989 TFLOP/s bf16; at the sft shape [8, 2048, 32, 64] causal
 // with 8 kv heads that is 3.438e11 flops, 0.3476 ms, against 0.081 ms
 // for the 272.6 MB it must read and write once. (The two kernels it
-// replaces recomputed s and dp in both: 14*d, a 0.4867 ms bound.)
+// replaces recomputed s and dp in both: 14*d, a 0.4867 ms bound.) At
+// gemma-2b's sft shape [4, 2048, 8, 256] causal with 1 kv head: 1.719e11
+// flops, 0.1738 ms.
 //
 // Design (FA2's order, on wgmma). One warpgroup (4 warps) per (64-key
 // tile, kv head, batch) walks its kv head's whole query group and, when
@@ -81,6 +83,32 @@
 // 2,048 blocks. Shared memory: 101,920 bytes at head_dim 64 (two blocks
 // per SM), 151,072 at head_dim 128 (one), 1 KB of it to align the
 // swizzled tiles, plus 4 bytes per q tile for the mask classes.
+//
+// Head_dim 256 (Gemma). The design above does not fit as it stands: dk
+// and dv of a 64-key tile in f32 would take 64 x 256 x 2 / 128 = 256
+// registers a thread, past the 255 limit before S^T and dP^T, and
+// double-buffered Q and dO beside K, V and a 64 KB dq stage ~275 KB of
+// shared memory, past 227 KB. So the grid gets a second factor over the
+// two 128-column blocks of D (column blocks, neighbours in the grid: a
+// key tile's two blocks read the same K, V, Q and dO, mostly from L2):
+//   * each block computes S^T and dP^T over all 256 columns (16 k-steps)
+//     but accumulates dk, dv and its dq only for its own 128 columns, so
+//     its accumulators are head_dim 128's (64 + 64 f32 registers a thread
+//     for dk and dv, 64 for dq, its dq stage 32 KB). S^T and dP^T are
+//     computed once per column block: 14*d flops a visible pair per q
+//     head instead of 10*d. ptxas for sm_90a: 242 registers (240 with the
+//     window, 246 and 244 with ordered adds), no spills;
+//   * Q and dO are single-buffered (32 KB each): one thread stages the
+//     next step's Q and dO after the barrier that ends a step, and the
+//     block computes the previous step's dq product while they arrive.
+//     Shared memory: 32 + 32 (K, V) + 64 (Q, dO) + 16 (dS^T) + 32 (dq
+//     stage) KB and the small rows, 183,840 bytes plus 4 per q tile: one
+//     block an SM;
+//   * the two column blocks' dq adds touch disjoint columns; ordered adds
+//     keep one row of bits per column block, so each orders its own.
+// At gemma-2b's sft shape [4, 2048, 8, 256] with 1 kv head (MQA) the grid
+// is 32 key tiles x 2 column blocks x 1 x 4 = 256 blocks, each walking
+// the group's 8 query heads; the heaviest key tiles still start first.
 #include "common.cuh"
 
 #include <cuda.h>
@@ -374,18 +402,26 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 
 template <int D>
 struct Layout {
+  // Column blocks: past head_dim 128 a block owns one 128-column block
+  // of dq, dk and dv (cols columns), so its accumulators stay those of
+  // head_dim 128; S^T and dP^T still take all D columns.
+  static constexpr int col_blocks = D > 128 ? D / 128 : 1;
+  static constexpr int cols = D / col_blocks;
+  // Q and dO buffers: two (the next step's loads overlap this step) up to
+  // head_dim 128; one at 256, where two do not fit beside K and V.
+  static constexpr int q_bufs = col_blocks == 1 ? 2 : 1;
   static constexpr size_t kv_tile = size_t(kBN) * D * 2;   // K or V
   static constexpr size_t q_tile = size_t(kBQ) * D * 2;    // Q or dO buffer
   static constexpr size_t ds_tile = size_t(kBN) * kBQ * 2; // dS^T buffer
   static constexpr size_t dq_box = size_t(kBQ) * 32 * 4;   // 64 x 32 f32
-  // dq stages: two at head_dim 64; one at 128, where two do not fit.
+  // dq stages: two at head_dim 64; one from 128, where two do not fit.
   static constexpr int dq_stages = D == 64 ? 2 : 1;
-  static constexpr size_t dq_stage = size_t(D / 32) * dq_box;
+  static constexpr size_t dq_stage = size_t(cols / 32) * dq_box;
   static constexpr size_t k = 0;
   static constexpr size_t v = k + kv_tile;
-  static constexpr size_t q = v + kv_tile;           // 2 buffers
-  static constexpr size_t dout = q + 2 * q_tile;     // 2 buffers
-  static constexpr size_t ds = dout + 2 * q_tile;    // 2 buffers
+  static constexpr size_t q = v + kv_tile;
+  static constexpr size_t dout = q + q_bufs * q_tile;
+  static constexpr size_t ds = dout + q_bufs * q_tile;    // 2 buffers
   static constexpr size_t dq = ds + 2 * ds_tile;
   static constexpr size_t lse = dq + dq_stages * dq_stage;   // 2 buffers
   static constexpr size_t delta = lse + 2 * size_t(kBQ) * 4; // 2 buffers
@@ -408,7 +444,8 @@ struct Params {
   const float *lse, *delta;
   const int *seg;
   float *dq;        // f32 accumulator [B, S, Hq, D], zeroed by the caller
-  unsigned *done;   // [B, Hkv, q tiles, words] key-tile bits, zeroed too
+  // [B, Hkv, column blocks, q tiles, words] key-tile bits, zeroed too
+  unsigned *done;
   bf16 *dk, *dv;    // [B, S, Hkv, D]
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
       o_ss, o_sh;
@@ -421,10 +458,16 @@ template <int D, bool kOrdered, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   using L = Layout<D>;
-  constexpr int kPanels = D / 64;
+  constexpr int kPanels = D / 64;   // panels of Q, dO, K and V
   constexpr int kKSteps = D / 16;   // k-steps of S^T and dP^T
-  constexpr int kAcc = D / 2;       // dk, dv, dq registers per thread
+  constexpr int DC = L::cols;       // the block's columns of dq, dk, dv
+  constexpr int kCPanels = DC / 64;
+  constexpr int kAcc = DC / 2;      // dk, dv, dq registers per thread
   constexpr bool kRegKV = D == 64;  // K, V as register A operands
+  constexpr bool kOneBuf = L::q_bufs == 1;
+  // With one Q and dO buffer, the single dq stage's barrier publishes each
+  // step's loads.
+  static_assert(!kOneBuf || L::dq_stages == 1, "one buffer, one stage");
   extern __shared__ unsigned char smem_raw[];
   unsigned char *smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -463,8 +506,13 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   // (when causal, those that see the most q tiles) start first; when the
   // adds are ordered, the last key tile starts first: key tile j adds
   // into a q tile after the key tiles above it, which run ahead of it.
+  // A key tile's column blocks are neighbours in the grid (they read the
+  // same K, V, Q and dO).
   const int nkt = (s + kBN - 1) / kBN;
-  const int kt = kOrdered ? nkt - 1 - blockIdx.x : blockIdx.x;
+  const int cb = L::col_blocks > 1 ? blockIdx.x % L::col_blocks : 0;
+  const int c0 = cb * DC;           // the block's first column
+  const int kt_i = blockIdx.x / L::col_blocks;
+  const int kt = kOrdered ? nkt - 1 - kt_i : kt_i;
   const int k0 = kt * kBN;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
@@ -554,12 +602,14 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   // the bits of the key tiles above it that can see t are set: the adds
   // land from the last key tile down, on every call. With a window, the
   // key tiles above kt up to last_kt(t) all reach t (their windows end
-  // later), so each sets its bit there.
+  // later), so each sets its bit there. Each column block has rows of its
+  // own: it orders only its own adds.
   const bool issuer = tid == 0;
   const int words = (nkt + 31) / 32;
   auto done_row = [&](int t) -> unsigned * {
     return p.done +
-           ((static_cast<long long>(b) * p.hkv + hk) * nqt + t) * words;
+           (((static_cast<long long>(b) * p.hkv + hk) * L::col_blocks + cb) *
+                nqt + t) * words;
   };
   // The last key tile that can see q tile t.
   auto last_kt = [&](int t) -> int {
@@ -606,18 +656,20 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   const uint64_t ds_desc = smem_desc(dSs);
 
   // Stage step (q tile t, head hh of the group) into buffer buf: Q and
-  // dO by TMA (one thread, counted on the buffer's mbarrier), lse, delta
-  // and segment ids by 4-byte cp.async.
+  // dO by TMA (one thread, counted on the buffer's mbarrier; with one Q
+  // and dO buffer, buffer 0), lse, delta and segment ids by 4-byte
+  // cp.async.
   auto issue = [&](int buf, int t, int hh) {
     const int h = hk * group + hh;
     const int q0 = t * kBQ;
+    const int qb = kOneBuf ? 0 : buf;
     if (tid == 0) {
-      mbar_expect_tx(&bars[buf], static_cast<int>(2 * L::q_tile));
+      mbar_expect_tx(&bars[qb], static_cast<int>(2 * L::q_tile));
 #pragma unroll
       for (int np = 0; np < kPanels; ++np) {
-        tma_load(Qs + buf * L::q_tile + np * kBQ * 128, &m.q, &bars[buf],
+        tma_load(Qs + qb * L::q_tile + np * kBQ * 128, &m.q, &bars[qb],
                  np * 64, h, q0, b);
-        tma_load(dOs + buf * L::q_tile + np * kBQ * 128, &m.o, &bars[buf],
+        tma_load(dOs + qb * L::q_tile + np * kBQ * 128, &m.o, &bars[qb],
                  np * 64, h, q0, b);
       }
     }
@@ -633,19 +685,29 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
+  // Wait for the step staged into buffer buf (each thread: its own
+  // cp.async copies and the TMA bytes; a barrier follows).
+  uint32_t phase = 0;   // bit i: parity of mbarrier i's next completion
+  auto wait_loads = [&](int buf) {
+    const int qb = kOneBuf ? 0 : buf;
+    skyt::cp_async_wait_all();
+    mbar_wait(&bars[qb], (phase >> qb) & 1);
+    phase ^= 1u << qb;
+  };
 
-  // dq [64, D] = dS [64, 64] . K [64, D] of the step whose dS^T is in
-  // buffer buf (dS and K read transposed).
+  // dq [64, DC] = dS [64, 64] . K [64, c0 .. c0 + DC) of the step whose
+  // dS^T is in buffer buf (dS and K read transposed).
   float dqa[kAcc];
   auto dq_issue = [&](int buf) {
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
       const uint64_t a = ds_desc + ((buf * L::ds_tile + kk * 2048) >> 4);
 #pragma unroll
-      for (int np = 0; np < kPanels; ++np)
-        wgmma_ss_n64<1, 1>(panel(dqa, np), a,
-                           k_desc + ((np * kBN * 128 + kk * 2048) >> 4),
-                           kk > 0);
+      for (int np = 0; np < kCPanels; ++np)
+        wgmma_ss_n64<1, 1>(
+            panel(dqa, np), a,
+            k_desc + (((c0 / 64 + np) * kBN * 128 + kk * 2048) >> 4),
+            kk > 0);
     }
   };
   // dq goes to the f32 accumulator by TMA reduce-adds from a stage in
@@ -660,7 +722,7 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
       __syncthreads();
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DC / 8; ++j) {
       // Columns 8 j + 2 t4 (+1): box j / 4, 16-byte chunk 2 (j % 4) +
       // t4 / 2, bytes 8 (t4 % 2).
       unsigned char *box = stage + (j / 4) * L::dq_box + 8 * (t4 & 1);
@@ -697,9 +759,9 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
         }
       }
 #pragma unroll
-      for (int x = 0; x < D / 32; ++x)
-        tma_reduce_add(&m.dq, dqs + i * L::dq_stage + x * L::dq_box, x * 32,
-                       hk * group + hh, t * kBQ, b);
+      for (int x = 0; x < DC / 32; ++x)
+        tma_reduce_add(&m.dq, dqs + i * L::dq_stage + x * L::dq_box,
+                       c0 + x * 32, hk * group + hh, t * kBQ, b);
       bulk_commit();
       pending = hh == group - 1 ? row : nullptr;
     }
@@ -710,20 +772,22 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   int prev_t = -1, prev_h = 0;
   int buf = 0;
   if (t < t_end) issue(0, t, 0);
-  uint32_t phase = 0;   // bit i: parity of buffer i's next completion
   int staged_t = -1, staged_h = 0, stage = 0;   // dq staged, not yet added
   while (t < t_end) {
-    skyt::cp_async_wait_all();
-    mbar_wait(&bars[buf], (phase >> buf) & 1);
-    phase ^= 1u << buf;
-    // The stage written in this step was last added a step ago; when
-    // ordered, that add's bit is set once it has completed.
-    if (L::dq_stages == 2 && issuer) bulk_wait_read();
-    retire();
-    fence_async_smem();
-    // Step (t, hh) is staged; the previous step is done with its buffers,
-    // its dS^T and its dq stage are written.
-    __syncthreads();
+    if constexpr (!kOneBuf) {
+      wait_loads(buf);
+      // The stage written in this step was last added a step ago; when
+      // ordered, that add's bit is set once it has completed.
+      if (L::dq_stages == 2 && issuer) bulk_wait_read();
+      retire();
+      fence_async_smem();
+      // Step (t, hh) is staged; the previous step is done with its
+      // buffers, its dS^T and its dq stage are written.
+      __syncthreads();
+    }
+    // (One Q and dO buffer: the barrier at the end of the previous step
+    // stands for this one, and the loads are awaited below, after the
+    // previous step's dq product.)
     if (staged_t >= 0) {
       dq_add(stage, staged_t, staged_h);
       stage = (stage + 1) % L::dq_stages;
@@ -734,7 +798,7 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
       nh = 0;
       nt_ = next_tile(t);
     }
-    if (nt_ < t_end) issue(buf ^ 1, nt_, nh);
+    if (!kOneBuf && nt_ < t_end) issue(buf ^ 1, nt_, nh);
 
     // The previous step's dq, staged; then S^T = K Q^T and dP^T = V dO^T
     // (64 keys x 64 queries) in their own commit groups, so that the exp
@@ -745,12 +809,17 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dqa);
+      // The single stage's barrier (dq_stage) also publishes the loads.
+      if constexpr (kOneBuf) wait_loads(buf);
       dq_stage(stage);
       staged_t = prev_t;
       staged_h = prev_h;
+    } else if constexpr (kOneBuf) {
+      wait_loads(buf);
+      __syncthreads();
     }
     float st[32], dpt[32];
-    const size_t qoff = buf * L::q_tile;
+    const size_t qoff = kOneBuf ? 0 : buf * L::q_tile;
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
@@ -778,8 +847,9 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
     fence_regs(st);
 
     // P^T = exp(S^T - L) on visible entries (accumulator chunk j holds
-    // queries q0 + 8 j + 2 t4 (+1)), then dv [64, D] += P^T [64, 64] .
-    // dO [64, D] (P^T as the register A operand, dO read transposed).
+    // queries q0 + 8 j + 2 t4 (+1)), then dv [64, DC] += P^T [64, 64] .
+    // dO [64, c0 .. c0 + DC) (P^T as the register A operand, dO read
+    // transposed).
     const float *lb = lses + buf * kBQ;
     const float *db = deltas + buf * kBQ;
     const int *qsb = qsegs + buf * kBQ;
@@ -821,13 +891,14 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
 #pragma unroll
     for (int j = 0; j < kBQ / 16; ++j)
 #pragma unroll
-      for (int np = 0; np < kPanels; ++np)
-        wgmma_rs_n64<1>(panel(dva, np), pa[j],
-                        o_desc + ((qoff + np * kBQ * 128 + j * 2048) >> 4));
+      for (int np = 0; np < kCPanels; ++np)
+        wgmma_rs_n64<1>(
+            panel(dva, np), pa[j],
+            o_desc + ((qoff + (c0 / 64 + np) * kBQ * 128 + j * 2048) >> 4));
     wgmma_commit();
 
     // dS^T = P^T (dP^T - delta) * scale, to shared memory (bf16) for dq,
-    // and dk [64, D] += dS^T . Q (Q read transposed).
+    // and dk [64, DC] += dS^T . Q [64, c0 .. c0 + DC) (Q read transposed).
     wgmma_wait<1>();
     fence_regs(dpt);
     uint32_t sa[kBQ / 16][4];
@@ -860,13 +931,21 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
 #pragma unroll
     for (int j = 0; j < kBQ / 16; ++j)
 #pragma unroll
-      for (int np = 0; np < kPanels; ++np)
-        wgmma_rs_n64<1>(panel(dka, np), sa[j],
-                        q_desc + ((qoff + np * kBQ * 128 + j * 2048) >> 4));
+      for (int np = 0; np < kCPanels; ++np)
+        wgmma_rs_n64<1>(
+            panel(dka, np), sa[j],
+            q_desc + ((qoff + (c0 / 64 + np) * kBQ * 128 + j * 2048) >> 4));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dka);
     fence_regs(dva);
+    if constexpr (kOneBuf) {
+      // Every thread is done with Q and dO and has written its dS^T and
+      // dq stage: stage the next step into the one buffer.
+      fence_async_smem();
+      __syncthreads();
+      if (nt_ < t_end) issue(buf ^ 1, nt_, nh);
+    }
 
     prev_t = t;
     prev_h = hh;
@@ -898,12 +977,12 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   retire();
 
   // dk, dv [B, S, Hkv, D] contiguous; register 4 n + e holds column
-  // 8 n + 2 t4 (+1).
+  // c0 + 8 n + 2 t4 (+1).
   const long long pitch = static_cast<long long>(p.hkv) * D;
-  bf16 *dkb = p.dk + (static_cast<long long>(b) * s * p.hkv + hk) * D;
-  bf16 *dvb = p.dv + (static_cast<long long>(b) * s * p.hkv + hk) * D;
+  bf16 *dkb = p.dk + (static_cast<long long>(b) * s * p.hkv + hk) * D + c0;
+  bf16 *dvb = p.dv + (static_cast<long long>(b) * s * p.hkv + hk) * D + c0;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DC / 8; ++n) {
     const int c = n * 8 + 2 * t4;
     if (kj0 < s) {
       *reinterpret_cast<__nv_bfloat162 *>(dkb + kj0 * pitch + c) =
@@ -972,7 +1051,7 @@ int launch(const Params &p, int b, cudaStream_t stream) {
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.s + kBN - 1) / kBN, p.hkv, b);
+  dim3 grid((p.s + kBN - 1) / kBN * Layout<D>::col_blocks, p.hkv, b);
   flash_bwd_kernel<D, kOrdered, kWindow>
       <<<grid, kThreads, bytes, stream>>>(p, maps);
   return static_cast<int>(cudaGetLastError());
@@ -992,9 +1071,10 @@ SKYT_DEFINE_ERROR_STRING
 // last stride and 16-byte aligned rows (strides in elements); lse and
 // delta [B, Hq, S] f32 contiguous; seg [B, S] int32 or null. Adds dq into
 // dq_acc [B, S, Hq, D] f32 contiguous (zeroed by the caller) and writes
-// dk, dv [B, S, Hkv, D] bf16 contiguous. With done [B, Hkv, ceil(S / 64),
-// ceil(S / 2048)] int32, zeroed by the caller, dq's adds go in a fixed
-// order (the same bits on every call); with done null, in any order.
+// dk, dv [B, S, Hkv, D] bf16 contiguous. With done [B, Hkv, ceil(D / 128),
+// ceil(S / 64), ceil(S / 2048)] int32, zeroed by the caller, dq's adds go
+// in a fixed order (the same bits on every call); with done null, in any
+// order. d is 64, 128 or 256.
 // window > 0: query i sees key j only when i - j < window (0: no window).
 extern "C" int skyt_flash_bwd(
     const void *q, const void *k, const void *v, const void *dout,
@@ -1024,5 +1104,8 @@ extern "C" int skyt_flash_bwd(
   if (d == 128)
     return ordered ? launch_w<128, true>(p, b, st)
                    : launch_w<128, false>(p, b, st);
+  if (d == 256)
+    return ordered ? launch_w<256, true>(p, b, st)
+                   : launch_w<256, false>(p, b, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -33,7 +33,9 @@ TMA reduce-adds into an f32 accumulator that the wrapper zeroes and
 casts to bf16. Those adds land in no fixed order unless
 torch.use_deterministic_algorithms(True) is on; then they go in
 key-tile order and every call gives the same bits. It is bound by
-tensor-core FLOPs (10*d per query head and visible pair).
+tensor-core FLOPs (10*d per query head and visible pair). At head_dim
+256 each key tile takes two blocks, one per 128-column block of dq, dk
+and dv, each recomputing s and dp over all 256 columns.
 
 Layout is the JAX package's: q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D], read
 through their strides (no transpose copies); lse [B, Hq, Sq] f32.
@@ -58,7 +60,7 @@ launches_bwd = 0
 # Head dims each kernel is instantiated for (csrc/flash_fwd.cu,
 # csrc/flash_bwd.cu); the wrappers raise on any other.
 FWD_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
 
 
 def reset_launches() -> None:
@@ -193,7 +195,8 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal,
                   window=0):
     """Check the backward kernel's operands (raise on anything it does
     not take); returns the C entry point's arguments that come before
-    and after the output pointers."""
+    the output pointers and those after them but the stream, which the
+    launch adds (so the checks run on tensors of any device)."""
     window = _check_window(window)
     b, s, hq, d = q.shape
     hkv = k.shape[2]
@@ -208,8 +211,8 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal,
                          f'{tuple(v.shape)}, do {tuple(do.shape)}')
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f'flash backward builds head_dim {BWD_HEAD_DIMS}, '
-                         f'got {d} (head_dim 256 comes with the Gemma '
-                         'training slice, ROADMAP.md queue 2 A)')
+                         f'got {d} (other multiples of 64 up to 512 wait '
+                         'in ROADMAP.md queue 2 A)')
     if hq % hkv:
         raise ValueError(f'q heads ({hq}) must be a multiple of kv heads '
                          f'({hkv})')
@@ -232,8 +235,7 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal,
            lse.data_ptr(), delta.data_ptr(), seg_ptr)
     rest = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], b, s, hq, hkv, d, int(causal),
-            min(window, s + 1), d ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            min(window, s + 1), d ** -0.5)
     return ins, rest
 
 
@@ -251,26 +253,32 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, segment_ids=None,
     is on: then they go in key-tile order, kept by a row of bits per
     (batch, kv head, 64-row q tile) zeroed with the accumulator, and
     every call gives the same bits (at ~1.35x the kernel's time).
-    window > 0: the sliding window, as in the forward."""
+    window > 0: the sliding window, as in the forward. Head dims 64, 128
+    and 256 (as two 128-column blocks); other multiples of 64 up to 512
+    raise (ROADMAP.md queue 2 A)."""
     global launches_bwd
     ins, rest = _bwd_operands(q, k, v, do, lse, delta, segment_ids, causal,
                               window)
-    b, s, _, _ = q.shape
+    b, s, _, d = q.shape
     n = q.numel()
     tiles = -(-s // 64)
     ordered = torch.are_deterministic_algorithms_enabled()
     # One zeroed buffer: the accumulator, then (ordered) the bit rows, one
-    # bit per 64-key tile in 32-bit words.
-    bits = b * k.shape[2] * tiles * -(-tiles // 32) if ordered else 0
+    # bit per 64-key tile in 32-bit words, a row per (batch, kv head,
+    # 128-column block of D, q tile): the kernel's grid
+    # (csrc/flash_bwd.cu Layout::col_blocks).
+    col_blocks = -(-d // 128)
+    bits = (b * k.shape[2] * col_blocks * tiles * -(-tiles // 32)
+            if ordered else 0)
     buf = torch.zeros(n + bits, dtype=torch.float32, device=q.device)
     dq_acc = buf[:n].view(q.shape)
     done = buf[n:].data_ptr() if ordered else None
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     lib = _build.load('flash_bwd')
-    _build.check(lib, lib.skyt_flash_bwd(*ins, dq_acc.data_ptr(),
-                                         done, dk.data_ptr(),
-                                         dv.data_ptr(), *rest), 'flash_bwd')
+    _build.check(lib, lib.skyt_flash_bwd(
+        *ins, dq_acc.data_ptr(), done, dk.data_ptr(), dv.data_ptr(), *rest,
+        torch.cuda.current_stream(q.device).cuda_stream), 'flash_bwd')
     launches_bwd += 1
     return dq_acc.to(q.dtype), dk, dv
 
@@ -284,8 +292,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of flash attention from the forward's out and lse and
     the output gradient do. delta = rowsum(do * out) is one elementwise
     pass in f32 (outside the kernel, as in the JAX backward); CUDA
-    tensors then launch the backward kernel (bf16, head_dim 64 or 128,
-    Sq == Sk; anything else raises), CPU tensors run the plain
+    tensors then launch the backward kernel (bf16, head_dim 64, 128 or
+    256, Sq == Sk; anything else raises), CPU tensors run the plain
     version."""
     window = _check_window(window)
     if q.is_cuda:

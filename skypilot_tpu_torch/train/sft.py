@@ -144,7 +144,8 @@ def _refuse(args) -> None:
 
 def build_model(name: str, attn: str, device: torch.device, seed: int = 0):
     """The preset on `device` with random weights from `seed` (embedding
-    N(0, 0.02), projections N(0, 1/fan_in), norms 1)."""
+    N(0, 0.02), projections N(0, 1/fan_in), norms 1, or 0 where they are
+    zero-centred and applied as 1 + w, as Gemma's are)."""
     from skypilot_tpu_torch.models import llama
     if name in MOE_MODELS:
         raise SystemExit(f'{name} is a MoE model: MoE is not ported yet')

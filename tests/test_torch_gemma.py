@@ -362,18 +362,22 @@ def test_attention_dispatch_by_head_dim(monkeypatch, d, path):
 
 
 def test_cuda_wrappers_refuse_unbuilt_head_dims():
-    """Before any launch: the flash forward builds head_dim 64, 128 and
-    256 (a head dim the reference admits but no instantiation builds,
-    192 or 320, names ROADMAP.md); the backward raises at 256 naming the
-    Gemma training slice; the paged kernels take 64, 128 and 256."""
+    """Before any launch: the flash forward and backward build head_dim
+    64, 128 and 256 (a head dim the reference admits but no
+    instantiation builds, 192 or 320, names ROADMAP.md; the backward's
+    operand check passes at 256); the paged kernels take 64, 128 and
+    256."""
+    lse = torch.zeros((1, 2, 64))
     for d in (192, 320):
         q = torch.zeros((1, 64, 2, d), dtype=torch.bfloat16)
         with pytest.raises(ValueError, match='ROADMAP.md'):
             flash_attention._flash_cuda(q, q, q, None, True)
+        with pytest.raises(ValueError, match='ROADMAP.md'):
+            flash_attention.flash_bwd_cuda(q, q, q, q, lse, lse)
     q = torch.zeros((1, 64, 2, D), dtype=torch.bfloat16)
-    lse = torch.zeros((1, 2, 64))
-    with pytest.raises(ValueError, match='Gemma training'):
-        flash_attention.flash_bwd_cuda(q, q, q, q, lse, lse)
+    ins, rest = flash_attention._bwd_operands(q, q, q, q, lse, lse, None,
+                                              True)
+    assert rest[12:17] == (1, 64, 2, 2, D)   # b, s, hq, hkv, d
     pool = torch.zeros((3, 1, 16, 320), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match='ROADMAP.md'):
         paged_attention._paged_cuda(
