@@ -51,7 +51,11 @@ Phases (any failure exits non-zero and prints no result line):
      gemma-2b's sft shape [4, 2048, 8, 256] with 1 kv head, gemma-7b's
      MHA row [1, 2048, 16, 256], a packed row with segment boundaries
      inside key tiles, a ragged S of 200, windows 100 (causal) and 65
-     (not);
+     (not); and the forward as redesigned for Hopper (FWD_CASES, on a
+     generator of its own): the two training shapes, batch > 1 with
+     ragged tails, packed rows whose segments cross the 128-row q tiles,
+     a window below one key tile at head_dim 256, Sq > Sk with rows that
+     see no key and Sq < Sk, each also bit-equal across two calls;
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -413,6 +417,89 @@ def check_flash_window(gen, cases=FWD_WINDOW_CASES):
              + ('' if same_as_unwindowed is None else
                 f'; bit-equal to no window {same_as_unwindowed}'))
         del q, k, v, out, lse, ref, ref_lse
+        torch.cuda.empty_cache()
+    return res
+
+
+# Kernel 1 as redesigned for Hopper (128-row q tiles, two consumer
+# warpgroups of 64 rows, 128-key tiles up to head_dim 128, 64-key tiles at
+# 256): (name, B, Sq, Sk, Hq, Hkv, D, causal, segment lengths per row or
+# None, window). The two training shapes (llama3-1b's GQA and gemma-2b's
+# MQA), batch > 1 with ragged tails (S = 200 and 130, not multiples of
+# 128 or of a key tile), packed rows whose segments (on 1-token pages,
+# different in each row) cross the 128-row tile edges, a window below one
+# 64-key tile at head_dim 256 (causal and not), Sq > Sk non-causal with a
+# window (the last rows see no key: out 0 and lse 0 exactly) and without,
+# and Sq < Sk causal.
+FWD_CASES = (
+    ('llama3_1b_train', 8, 2048, 2048, 32, 8, 64, True, None, 0),
+    ('gemma2b_train', 4, 2048, 2048, 8, 1, 256, True, None, 0),
+    ('ragged_s200_b2_d64', 2, 200, 200, 8, 2, 64, True, None, 0),
+    ('ragged_s130_b3_d128', 3, 130, 130, 8, 2, 128, True, None, 0),
+    ('ragged_s200_b2_d256_noncausal', 2, 200, 200, 8, 1, 256, False, None,
+     0),
+    ('packed_b2_d64', 2, 1024, 1024, 8, 2, 64, True,
+     ((100, 150, 300, 77), (500, 27, 260)), 0),
+    ('packed_b2_d128_noncausal', 2, 700, 700, 8, 2, 128, False,
+     ((130, 250, 129), (64, 300, 200)), 0),
+    ('packed_b2_d256', 2, 640, 640, 8, 1, 256, True,
+     ((100, 150, 300), (64, 64, 200, 129)), 0),
+    ('packed_window_d128', 1, 1000, 1000, 8, 2, 128, True,
+     ((130, 250, 129, 300),), 100),
+    ('window40_d256', 1, 300, 300, 8, 1, 256, True, None, 40),
+    ('window40_b2_d256_noncausal', 2, 300, 300, 8, 2, 256, False, None, 40),
+    ('sq_gt_sk_window_unseen', 2, 300, 130, 8, 2, 128, False, None, 60),
+    ('sq_gt_sk_d64', 1, 300, 200, 8, 2, 64, False, None, 0),
+    ('sq_lt_sk_causal_d256', 1, 130, 300, 8, 2, 256, True, None, 0),
+)
+
+
+def check_fwd(gen, cases=FWD_CASES):
+    """Kernel 1 on FWD_CASES against its plain version on the same
+    inputs: out and lse within atol = rtol = 2e-2, rows that see no key
+    give out 0 and lse 0 exactly, and a second call gives the same bits
+    (each block owns its rows' whole key range: no atomics). gen is their
+    own generator, so the earlier checks keep their inputs."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    res = {}
+    for name, b, sq, sk, hq, hkv, d, causal, rows, window in cases:
+        q = torch.randn((b, sq, hq, d), generator=gen, device='cuda',
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((b, sk, hkv, d), generator=gen, device='cuda',
+                            dtype=torch.bfloat16) for _ in range(2))
+        seg = None if rows is None else torch.as_tensor(np.concatenate(
+            [packed_segments(r, 1, sq) for r in rows]), device='cuda')
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                              segment_ids=seg, window=window)
+        again = fa.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                           segment_ids=seg, window=window)
+        ref, ref_lse = fa.flash_attention_reference(
+            q, k, v, causal=causal, segment_ids=seg, window=window)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), f'flash {name}: non-finite'
+        torch.testing.assert_close(out.float(), ref.float(), **TOL)
+        torch.testing.assert_close(lse, ref_lse, **TOL)
+        same = bool(torch.equal(out, again[0]) and torch.equal(lse, again[1]))
+        assert same, f'flash {name}: two calls differ'
+        unseen = ~seen_rows(sq, sk, causal, seg, window).expand(b, sq)
+        n_unseen = int(unseen.sum())
+        if n_unseen:
+            assert not out[unseen].any(), f'{name}: unseen rows not 0'
+            assert not lse.transpose(1, 2)[unseen].any(), \
+                f'{name}: unseen rows lse not 0'
+        err = max(max_abs(out, ref), max_abs(lse, ref_lse))
+        res[name] = {'shape': list(q.shape), 'kv_shape': list(k.shape),
+                     'causal': causal, 'segments': rows, 'window': window,
+                     'max_abs_err': err, 'rows_seeing_nothing': n_unseen,
+                     'bit_equal_across_calls': same}
+        _log(f'flash fwd {name} q {list(q.shape)} k {list(k.shape)} causal '
+             f'{causal} segments {rows} window {window}: max|out-ref| '
+             f'{max_abs(out, ref):.3e}, max|lse-ref| '
+             f'{max_abs(lse, ref_lse):.3e} (atol=rtol=2e-2); rows seeing no '
+             f'key {n_unseen} (exact 0s); bit-equal across calls {same}')
+        del q, k, v, out, lse, again, ref, ref_lse
         torch.cuda.empty_cache()
     return res
 
@@ -2577,6 +2664,9 @@ def main() -> int:
         gen_bwd256 = torch.Generator(device='cuda')
         gen_bwd256.manual_seed(SEED + 41)
         bwd256_res = check_flash_bwd(gen_bwd256, BWD_CASES_D256)
+        gen_fwd = torch.Generator(device='cuda')
+        gen_fwd.manual_seed(SEED + 43)
+        fwd_res = check_fwd(gen_fwd)
     if args.quick:
         _log(card)
         print(json.dumps({'ok': True, 'device': {
@@ -2736,7 +2826,8 @@ def main() -> int:
                                'family': family_res, 'lora': lora_res,
                                'flash_window': window_res,
                                'flash_bwd': bwd_res, 'd256': d256_res,
-                               'flash_bwd_d256': bwd256_res}})
+                               'flash_bwd_d256': bwd256_res,
+                               'flash_fwd': fwd_res}})
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            'smoke_out')
     os.makedirs(out_dir, exist_ok=True)
@@ -2867,7 +2958,11 @@ def run_serving(args, card, gen, checks):
          'max_abs_err': flash_res['packed']['max_abs_err'],
          'ms': tf['ms'], 'kernel_ms': tf['ms'], 'plain_ms': tf['plain_ms'],
          'bound_ms': tf['bound_ms'], 'bound_by': tf['bound_by'],
-         'library_ms': tf['library_ms'], 'shape': tf['shape']}]
+         'library_ms': tf['library_ms'], 'shape': tf['shape'],
+         'lone_shape': tf_causal['shape'], 'lone_ms': tf_causal['ms'],
+         'lone_plain_ms': tf_causal['plain_ms'],
+         'lone_bound_ms': tf_causal['bound_ms'],
+         'lone_library_ms': tf_causal['library_ms']}]
     for k, t in tp.items():
         launches = eng_res['launches'][k] if k == 'paged_decode' else \
             paths_res[path_of[k]]['launches'][k]

@@ -110,9 +110,8 @@
 // is 32 key tiles x 2 column blocks x 1 x 4 = 256 blocks, each walking
 // the group's 8 query heads; the heaviest key tiles still start first.
 #include "common.cuh"
+#include "hopper.cuh"
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -120,6 +119,8 @@
 using bf16 = __nv_bfloat16;
 
 namespace {
+
+using namespace skyt;
 
 constexpr int kBN = 64;       // keys per block
 constexpr int kBQ = 64;       // query rows per step
@@ -131,46 +132,6 @@ constexpr int kHidden = 0;
 constexpr int kFull = 1;
 constexpr int kPartial = 2;
 
-__device__ __forceinline__ uint32_t smem_u32(const void *p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void *p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// Four 8 x 8 b16 matrices from mma fragments to shared memory; lanes
-// 8 i .. 8 i + 7 give the row addresses of matrix i.
-__device__ __forceinline__ void stmatrix_x4(void *p, const uint32_t (&r)[4]) {
-  asm volatile(
-      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
-          "r"(smem_u32(p)),
-      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t *>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 4-byte cp.async (zero-filled when src_bytes is 0).
-__device__ __forceinline__ void cp_async4(void *smem, const void *gmem,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-
 // The tensor maps of one call (host-encoded, passed by value): Q and dO
 // bf16 [B, S, H, D] as 4-d tensors {D, H, S, B} with 64 x 1 x 64 x 1
 // boxes, the f32 dq accumulator {D, Hq, S, B} with 32 x 1 x 64 x 1 boxes;
@@ -178,74 +139,6 @@ __device__ __forceinline__ void cp_async4(void *smem, const void *gmem,
 struct Maps {
   CUtensorMap q, o, dq;
 };
-
-__device__ __forceinline__ void mbar_init(uint64_t *bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t *bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t *bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// TMA: the box of `map` at (c0, c1, c2, c3) into shared memory, counted on
-// `bar`; elements outside the tensor arrive as zeros.
-__device__ __forceinline__ void tma_load(void *smem, const CUtensorMap *map,
-                                         uint64_t *bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_"
-      "tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
-          smem_u32(smem)),
-      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// TMA: add the box in shared memory into `map` at (c0, c1, c2, c3) in f32,
-// asynchronously (elements outside the tensor are dropped); one bulk group
-// per issuing thread.
-__device__ __forceinline__ void tma_reduce_add(const CUtensorMap *map,
-                                               const void *smem, int c0,
-                                               int c1, int c2, int c3) {
-  asm volatile(
-      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
-      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(map),
-      "r"(smem_u32(smem)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until this thread's bulk groups have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Order this thread's global-memory accesses through the async proxy
-// (TMA) with its generic ones.
-__device__ __forceinline__ void fence_async_global() {
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
-}
 
 // Spin until bits lo..hi (0 <= lo <= hi) of the bit row at m are all set
 // (acquire). The blocks it waits on run for milliseconds at most; after
@@ -282,56 +175,6 @@ __device__ __forceinline__ void set_bit_relaxed(unsigned *m, int i) {
                : "memory");
 }
 
-// Make this thread's shared-memory writes (st.shared, stmatrix, cp.async)
-// visible to wgmma and TMA, which read through the async proxy; a barrier
-// follows.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from touching accumulators across wgmma's async
-// window.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// The 32 accumulator registers of 64-column panel np.
-template <int R>
-__device__ __forceinline__ float (&panel(float (&acc)[R], int np))[32] {
-  return *reinterpret_cast<float(*)[32]>(acc + np * 32);
-}
-
-// Descriptor of a 128-byte-swizzled operand in shared memory: 8-row
-// groups 1024 bytes apart (SBO); the leading offset is unused by these
-// single-panel operands. Its address field counts 16-byte units, so a
-// byte offset b adds b >> 4.
-__device__ __forceinline__ uint64_t smem_desc(const void *p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(16 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// Byte offset of 16-byte chunk `chunk` (0-7) of row `row` in a panel of
-// 128-byte rows under the 128-byte swizzle (as TMA writes it).
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
 // Stage `rows` rows of D bf16 (row r at src + r * stride) as D / 64
 // swizzled panels of `rows` x 128 bytes with 16-byte cp.async copies;
 // rows at or past `valid` are zero-filled.
@@ -346,58 +189,6 @@ __device__ __forceinline__ void stage_rows(unsigned char *dst,
     skyt::cp_async16(dst + (c / 8) * rows * 128 + swz(r, c % 8),
                      in ? src + r * stride + c * 8 : src, in ? 16 : 0);
   }
-}
-
-// D[64, 64] (+)= A[64, 16] . B[16, 64], A and B from shared memory
-// (acc 0: D = A . B).
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
-}
-
-// D[64, 64] (+)= A[64, 16] . B[16, 64], A from registers (per warp the
-// mma.sync m16n8k16 A-fragment layout), B from shared memory.
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int acc = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
-        "n"(TB));
 }
 
 template <int D>
@@ -999,51 +790,16 @@ flash_bwd_kernel(const Params p, const __grid_constant__ Maps m) {
   }
 }
 
-// cuTensorMapEncodeTiled, through the runtime (no link against libcuda).
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void *ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                         12000, cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
-// The 4-d map {D, H, S, B} of a [B, S, H, D] tensor (strides in
-// elements) with boxes of box0 x 1 x 64 x 1, 128-byte swizzle.
-bool encode(CUtensorMap *map, CUtensorMapDataType type, int esize,
-            const void *base, int d, int h, int s, int b, long long sh,
-            long long ss, long long sb, int box0) {
-  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(h), cuuint64_t(s),
-                              cuuint64_t(b)};
-  const cuuint64_t strides[3] = {cuuint64_t(sh * esize),
-                                 cuuint64_t(ss * esize),
-                                 cuuint64_t(sb * esize)};
-  const cuuint32_t box[4] = {cuuint32_t(box0), 1, cuuint32_t(kBQ), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, type, 4, const_cast<void *>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, bool kOrdered, bool kWindow>
 int launch(const Params &p, int b, cudaStream_t stream) {
   Maps maps;
   const long long dq_ss = static_cast<long long>(p.hq) * D;
   if (!encode(&maps.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.q, D, p.hq,
-              p.s, b, p.q_sh, p.q_ss, p.q_sb, 64) ||
+              p.s, b, p.q_sh, p.q_ss, p.q_sb, 64, kBQ) ||
       !encode(&maps.o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.dout, D, p.hq,
-              p.s, b, p.o_sh, p.o_ss, p.o_sb, 64) ||
+              p.s, b, p.o_sh, p.o_ss, p.o_sb, 64, kBQ) ||
       !encode(&maps.dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.dq, D, p.hq,
-              p.s, b, D, dq_ss, p.s * dq_ss, 32))
+              p.s, b, D, dq_ss, p.s * dq_ss, 32, kBQ))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = Layout<D>::bytes(p.s);
   const cudaError_t err = cudaFuncSetAttribute(

@@ -19,11 +19,17 @@ O(S).
 
 What bounds it on an H100: tensor-core FLOPs at long packed rows — the
 useful work is 4*Hq*d*sum_j n_j(n_j+1)/2 over the row's segments
-against 989 TFLOP/s bf16; q, k, v and out cross memory once. The design
-(csrc/flash_fwd.cu) therefore stops each q tile's k loop at the causal
-diagonal and skips k tiles that share no segment with the tile, so a
-packed row costs about its segments' own triangles; the products run on
-the tensor cores (WMMA bf16, f32 accumulation).
+against 989 TFLOP/s bf16; q, k, v and out cross memory once. The
+forward (csrc/flash_fwd.cu) is built for Hopper as FA3 is: a block per
+(128-row q tile, head) has a producer warpgroup that keeps Q, K and V
+TMA loads in flight on mbarriers and two consumer warpgroups of 64 rows
+that run both products on wgmma, taking turns (named barriers) so one's
+softmax runs under the other's products, and issuing each key tile's
+QK^T beside the previous tile's PV. Key tiles past the causal diagonal,
+outside the window or sharing no segment with the q tile are skipped
+before their loads, so a packed row costs about its segments' own
+triangles; wholly visible tiles take no per-element mask. Each block
+owns its rows' keys: out and lse are the same bits on every call.
 
 The backward (csrc/flash_bwd.cu) is one kernel that makes one pass
 over key tiles: a block (one warpgroup) per (64-key tile, kv head) walks
@@ -150,15 +156,20 @@ def _check_operand(name: str, x: torch.Tensor) -> None:
                          f'aligned rows, got strides {x.stride()}')
 
 
-def _flash_cuda(q, k, v, segment_ids, causal, window=0):
-    global launches
+def _fwd_operands(q, k, v, segment_ids, causal, window=0):
+    """Check the forward kernel's operands (raise on anything it does
+    not take); returns the C entry point's arguments that come before
+    the output pointers and those after them but the stream, which the
+    launch adds (so the checks run on tensors of any device). The kernel
+    reads q, k and v through TMA tensor maps: their bases and strides
+    must be 16-byte multiples."""
     window = _check_window(window)
-    b, sq, hq, d = q.shape
-    bk, sk, hkv, dk = k.shape
     for name, x in (('q', q), ('k', k), ('v', v)):
         _check_operand(name, x)
         if x.device != q.device:
             raise ValueError(f'{name} is on {x.device}, q on {q.device}')
+    b, sq, hq, d = q.shape
+    bk, sk, hkv, dk = k.shape
     if v.shape != k.shape or bk != b or dk != d:
         raise ValueError(f'shape mismatch: q {tuple(q.shape)}, k '
                          f'{tuple(k.shape)}, v {tuple(v.shape)}')
@@ -178,15 +189,22 @@ def _flash_cuda(q, k, v, segment_ids, causal, window=0):
             raise ValueError('segment_ids must be a contiguous int32 [B, S] '
                              'on the same device, with Sq == Sk')
         seg_ptr = segment_ids.data_ptr()
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr)
+    rest = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], b, sq, sk,
+            hq, hkv, d, int(causal), min(window, sq + 1), d ** -0.5)
+    return ins, rest
+
+
+def _flash_cuda(q, k, v, segment_ids, causal, window=0):
+    global launches
+    ins, rest = _fwd_operands(q, k, v, segment_ids, causal, window)
+    b, sq, hq, d = q.shape
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     lib = _build.load('flash_fwd')
-    rc = lib.skyt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr, out.data_ptr(),
-        lse.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        b, sq, sk, hq, hkv, d, int(causal), min(window, sq + 1), d ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, rc, 'flash_fwd')
+    _build.check(lib, lib.skyt_flash_fwd(
+        *ins, out.data_ptr(), lse.data_ptr(), *rest,
+        torch.cuda.current_stream(q.device).cuda_stream), 'flash_fwd')
     launches += 1
     return out, lse
 
