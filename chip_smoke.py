@@ -55,7 +55,17 @@ Phases (any failure exits non-zero and prints no result line):
      generator of its own): the two training shapes, batch > 1 with
      ragged tails, packed rows whose segments cross the 128-row q tiles,
      a window below one key tile at head_dim 256, Sq > Sk with rows that
-     see no key and Sq < Sk, each also bit-equal across two calls;
+     see no key and Sq < Sk, each also bit-equal across two calls; and
+     the verify kernel (paged_decode_attention_mq and _mq_q, T > 1) as
+     redesigned for Hopper (VERIFY_CASES, check_verify, on a generator of
+     its own; bf16 and int8 pools): query rows a kv head R = 2 (T = 2,
+     G = 1), 24 (T = 3, G = 8), 48 at head_dim 256 and 256 (two row
+     groups), page sizes 16, 32 and 128 beside 64 (128 also at head_dim
+     256 with 32 rows), head_dim 64; each case's slots hold a length-0
+     slot (its other splits see no visible page), T tokens straddling a
+     page boundary, an unreserved gap inside a slot's span, a long slot,
+     a freed slot with a stale length; the kernel's own count of a
+     block's shared memory must equal verify_plan's;
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -804,6 +814,109 @@ def check_family(gen):
                  '(atol=rtol=2e-2)')
             res.setdefault(kname, {})[name] = {'shape': list(a[0].shape),
                                                'max_abs_err': err}
+    return res
+
+
+# The verify kernel's own cases (check_verify, on a generator of its
+# own): (name, T, Hq, Hkv, d, page size). Query rows a kv head R = T*G
+# not a multiple of 16 (2, 24), 48 at head_dim 256 (three m-tiles), 256
+# (two row groups); page sizes 16, 32 and 128 beside 64 (128: two ring
+# tiles a page). Every case's slots (VERIFY_LENGTHS, in pages P): length
+# 0 (its other splits see no visible page), T tokens straddling the
+# first page boundary, a slot with an unreserved gap at page 1 inside
+# its span, a long slot, a freed slot (all-zero row, stale length), a
+# slot one short of a page.
+VERIFY_CASES = (
+    ('r2_t2_g1', 2, 8, 8, 128, 64),
+    ('r24_t3_g8', 3, 16, 2, 128, 64),
+    ('r48_d256', 6, 16, 2, 256, 64),
+    ('p16', 4, 32, 8, 128, 16),
+    ('p128', 4, 32, 8, 128, 128),
+    ('p128_d256_r32', 4, 8, 1, 256, 128),
+    ('d64_p32', 2, 16, 2, 64, 32),
+    ('r256_two_groups', 8, 32, 1, 64, 64),
+)
+
+
+def verify_lengths(page):
+    """VERIFY_CASES' slots: (lengths, freed slot, gap (slot, page))."""
+    return [0, page - 1, 3 * page + 5, 10 * page + 7, 999, page - 1], 4, \
+        (2, 1)
+
+
+def verify_inputs(gen, t, hq, hkv, d, page, quant):
+    """q [6, t, hq, d] and pools for VERIFY_CASES' slots: tables from a
+    seeded numpy permutation, data from gen; int8 pools from quantize_kv
+    with their f32 scales."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import paged_cache
+    lengths, freed, (gs, gj) = verify_lengths(page)
+    slots = len(lengths)
+    need = [0 if s == freed else -(-(n + t) // page)
+            for s, n in enumerate(lengths)]
+    mp = max(need) + 1
+    n_pages = sum(need) + 1
+    perm = np.random.default_rng(SEED + 45).permutation(
+        np.arange(1, n_pages))
+    tables = np.zeros((slots, mp), np.int32)
+    nxt = 0
+    for s, n in enumerate(need):
+        tables[s, :n] = perm[nxt:nxt + n]
+        nxt += n
+    tables[gs, gj] = 0
+    q = torch.randn((slots, t, hq, d), generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    pools = [torch.randn((n_pages, hkv, page, d), generator=gen,
+                         device='cuda', dtype=torch.bfloat16)
+             for _ in range(2)]
+    rest = (torch.as_tensor(tables, device='cuda'),
+            torch.as_tensor(np.asarray(lengths, np.int32), device='cuda'))
+    if not quant:
+        return (q, *pools) + rest
+    (kq, ks), (vq, vs) = (paged_cache.quantize_kv(x) for x in pools)
+    return (q, kq, vq, ks, vs) + rest
+
+
+def check_verify(gen, cases=VERIFY_CASES):
+    """The verify kernel (paged_decode_attention_mq and _mq_q) against
+    its plain versions on VERIFY_CASES, bf16 and int8, within TOL; each
+    call's plan (verify_plan) and the kernel's own shared-memory count
+    agree. gen is their own generator."""
+    import torch
+    from skypilot_tpu_torch.ops import _build
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    lib = _build.load('paged_decode')
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {}
+    for name, t, hq, hkv, d, page in cases:
+        for fn, quant in (('paged_decode_attention_mq', False),
+                          ('paged_decode_attention_mq_q', True)):
+            a = verify_inputs(gen, t, hq, hkv, d, page, quant)
+            plan = pa.verify_plan(a[0].shape[0], t, hq, hkv, d, page,
+                                  a[-2].shape[1], quant, sms)
+            smem = lib.skyt_paged_verify_smem(
+                d, int(quant), plan.tile_rows, plan.stages, plan.m_tiles,
+                plan.key_splits)
+            assert smem == plan.smem_bytes, (name, smem, plan)
+            out = getattr(pa, fn)(*a)
+            ref = getattr(pa, fn + '_reference')(*a)
+            torch.cuda.synchronize()
+            label = f'{name}{"_int8" if quant else ""}'
+            assert torch.isfinite(out.float()).all(), f'{label}: non-finite'
+            torch.testing.assert_close(out.float(), ref.float(), **TOL)
+            err = max_abs(out, ref)
+            _log(f'verify {label} q {list(a[0].shape)} pools '
+                 f'{list(a[1].shape)} (R {plan.rows}, m-tiles '
+                 f'{plan.m_tiles} x {plan.n_mgroups} groups, '
+                 f'{plan.key_splits} key splits, tile {plan.tile_rows}, '
+                 f'{plan.stages} stages, grid {list(plan.grid)}, smem '
+                 f'{plan.smem_bytes}): max|out-ref| {err:.3e} '
+                 '(atol=rtol=2e-2)')
+            res[label] = {'shape': list(a[0].shape), 'pools': list(
+                a[1].shape), 'plan': plan._asdict(), 'max_abs_err': err}
+            del a, out, ref
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1861,9 +1974,11 @@ def time_paged(gen, kname, shape='slice'):
     plain = getattr(pa, fn + '_reference')
     ms = time_ms(lambda: wrapper(*args), 50)
     launch_ms = eager_ms(lambda: wrapper(*args), 50)
-    # The wrapper launches two kernels: the split pass, then the merge.
+    # The wrapper launches two kernels: the split pass (the verify kernel
+    # for T > 1), then the merge.
+    first = 'paged_decode_verify' if t > 1 else 'paged_decode_split'
     parts = device_ms_by_kernel(lambda: wrapper(*args),
-                                ('paged_decode_split', 'paged_decode_merge'))
+                                (first, 'paged_decode_merge'))
     plain_ms = time_ms(lambda: plain(*args), 5)
     q, kp, tables, lengths = args[0], args[1], args[-2], args[-1]
     hq, d = q.shape[-2:]
@@ -1877,7 +1992,7 @@ def time_paged(gen, kname, shape='slice'):
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_flops = flops / BF16_FLOPS_PER_S * 1e3
     return {'shape': list(q.shape), 'ms': ms, 'eager_ms': launch_ms,
-            'split_ms': parts['paged_decode_split'],
+            'split_ms': parts[first],
             'merge_ms': parts['paged_decode_merge'],
             'plain_ms': plain_ms, 'library_ms': None,
             'bound_ms': max(bound_bytes, bound_flops),
@@ -2667,6 +2782,9 @@ def main() -> int:
         gen_fwd = torch.Generator(device='cuda')
         gen_fwd.manual_seed(SEED + 43)
         fwd_res = check_fwd(gen_fwd)
+        gen_verify = torch.Generator(device='cuda')
+        gen_verify.manual_seed(SEED + 44)
+        verify_res = check_verify(gen_verify)
     if args.quick:
         _log(card)
         print(json.dumps({'ok': True, 'device': {
@@ -2827,7 +2945,8 @@ def main() -> int:
                                'flash_window': window_res,
                                'flash_bwd': bwd_res, 'd256': d256_res,
                                'flash_bwd_d256': bwd256_res,
-                               'flash_fwd': fwd_res}})
+                               'flash_fwd': fwd_res,
+                               'paged_verify': verify_res}})
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            'smoke_out')
     os.makedirs(out_dir, exist_ok=True)
