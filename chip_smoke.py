@@ -56,16 +56,21 @@ Phases (any failure exits non-zero and prints no result line):
      ragged tails, packed rows whose segments cross the 128-row q tiles,
      a window below one key tile at head_dim 256, Sq > Sk with rows that
      see no key and Sq < Sk, each also bit-equal across two calls; and
-     the verify kernel (paged_decode_attention_mq and _mq_q, T > 1) as
-     redesigned for Hopper (VERIFY_CASES, check_verify, on a generator of
-     its own; bf16 and int8 pools): query rows a kv head R = 2 (T = 2,
-     G = 1), 24 (T = 3, G = 8), 48 at head_dim 256 and 256 (two row
-     groups), page sizes 16, 32 and 128 beside 64 (128 also at head_dim
-     256 with 32 rows), head_dim 64; each case's slots hold a length-0
-     slot (its other splits see no visible page), T tokens straddling a
-     page boundary, an unreserved gap inside a slot's span, a long slot,
-     a freed slot with a stale length; the kernel's own count of a
-     block's shared memory must equal verify_plan's;
+     the paged kernel (all four wrappers: one kernel for T = 1 and the
+     verify step, its merge inside the launch) on cases of its own
+     (check_verify, on a generator of its own; bf16 and int8 pools):
+     VERIFY_CASES, query rows a kv head R = 2 (T = 2, G = 1), 24 (T = 3,
+     G = 8), 48 at head_dim 256 and 256 (two row groups), page sizes 8,
+     16, 32, 80 and 128 beside 64 (128 also at head_dim 256 with 32 rows;
+     80 at head_dim 256), head_dim 64; DECODE_CASES, T = 1 at pages 8,
+     10, 24, 80, 128 and 64, head dims 64, 128 and 256, G = 1, 4 and 8;
+     each case's slots hold a length-0 slot (its other splits see no
+     visible page), T tokens straddling a page boundary, an unreserved
+     gap inside a slot's span, a long slot, a freed slot with a stale
+     length; the kernel's own count of a block's shared memory must
+     equal verify_plan's. Every paged case here and above is called
+     REPEATS (20) times and must give bit-equal outputs (the merge's
+     fixed order);
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -88,6 +93,13 @@ Phases (any failure exits non-zero and prints no result line):
      a decode step (s = 1 and 4) and a per-token prefill must match
      their plain versions within LOGIT_REL_L2, and the adapters must
      move an adapter slot's step logits (an id-0 slot's not at all).
+     On the same llama3-8b weights, a spec engine at 24-token pages
+     (run_odd_pages: the verify kernel launches, every request returns
+     its tokens) and step checks at pages 24 (verify), 8 and 80 (int8
+     decode), then the greedy-agreement check (check_agreement): decode
+     and verify steps with the output head scaled by 1, 3 and 10, argmax
+     through the kernels, their plain versions and the plain attention
+     in f32, logged with the f32 step's top-2 margins.
      Then mistral-7b (sliding window 4096 on every layer) at full width,
      build_engine('mistral-7b', max_seq_len=8192, num_slots=4): a burst
      of a 6000- and a 2000-token prompt (one sampled) packed into one
@@ -109,8 +121,8 @@ Phases (any failure exits non-zero and prints no result line):
      replayed CUDA graph of many calls (eager_ms: the same with Python's
      launch overhead), for the kernel, its plain version and one PyTorch
      library call where one computes the same function (for the paged
-     kernels also the split pass's and the merge's device ms per call,
-     from torch.profiler's kernel records); and the bound
+     kernel also its device ms per call from torch.profiler's kernel
+     records: one launch a call); and the bound
      (the larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s, counted
      from this run's inputs);
   3'. training, after the serving engines: sft.main on llama3-1b at
@@ -262,17 +274,28 @@ def device_ms_by_kernel(fn, names, iters: int = 20):
 
 
 def parts_text(t) -> str:
-    """The split pass's and the merge's device ms of a paged timing."""
-    if 'split_ms' not in t:
+    """A paged timing's kernel device ms from the profiler."""
+    if 'profiler_ms' not in t:
         return ''
-    return '; ' + ', '.join(
-        f'{part} ' + (f'{t[part + "_ms"]:.4f} ms' if t[part + '_ms']
-                      is not None else 'not measured')
-        for part in ('split', 'merge')) + ' (profiler, per call)'
+    ms = t['profiler_ms']
+    return '; kernel ' + (f'{ms:.4f} ms' if ms is not None else
+                          'not measured') + ' (profiler, per call)'
 
 
 def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+# Calls of a paged kernel on the same inputs that must give bit-equal
+# outputs: its split partials are merged in a fixed order inside the
+# launch, whichever block ends last.
+REPEATS = 20
+
+
+def repeat_equal(fn, args, out, n=REPEATS) -> bool:
+    """Whether n - 1 more fn(*args) calls each equal `out` bit for bit."""
+    import torch
+    return all(torch.equal(fn(*args), out) for _ in range(n - 1))
 
 
 def packed_segments(lengths, page, total):
@@ -739,13 +762,16 @@ def check_paged(gen):
     res = {}
     for name, a in (('slice', args), ('d64_g8_p32', small)):
         out = pa.paged_decode_attention(*a)
+        same = repeat_equal(pa.paged_decode_attention, a, out)
         ref = pa.paged_decode_attention_reference(*a)
         torch.cuda.synchronize()
         assert torch.isfinite(out.float()).all(), f'paged {name}: non-finite'
         torch.testing.assert_close(out.float(), ref.float(), **TOL)
+        assert same, f'paged {name}: calls differ'
         err = max_abs(out, ref)
         _log(f'paged {name} {list(a[0].shape)} pools {list(a[1].shape)}: '
-             f'max|out-ref| {err:.3e} (atol=rtol=2e-2)')
+             f'max|out-ref| {err:.3e} (atol=rtol=2e-2); {REPEATS} calls '
+             'bit-equal')
         res[name] = {'shape': list(a[0].shape), 'max_abs_err': err}
     return res
 
@@ -803,29 +829,35 @@ def check_family(gen):
                         ('d64_g8_p32', small_family_inputs(
                             gen, min(t, 2), quant))):
             out = wrapper(*a)
+            same = repeat_equal(wrapper, a, out)
             ref = plain(*a)
             torch.cuda.synchronize()
             assert torch.isfinite(out.float()).all(), \
                 f'{kname} {name}: non-finite'
             torch.testing.assert_close(out.float(), ref.float(), **TOL)
+            assert same, f'{kname} {name}: calls differ'
             err = max_abs(out, ref)
             _log(f'{kname} {name} q {list(a[0].shape)} pools '
                  f'{list(a[1].shape)} {a[1].dtype}: max|out-ref| {err:.3e} '
-                 '(atol=rtol=2e-2)')
+                 f'(atol=rtol=2e-2); {REPEATS} calls bit-equal')
             res.setdefault(kname, {})[name] = {'shape': list(a[0].shape),
                                                'max_abs_err': err}
     return res
 
 
-# The verify kernel's own cases (check_verify, on a generator of its
-# own): (name, T, Hq, Hkv, d, page size). Query rows a kv head R = T*G
-# not a multiple of 16 (2, 24), 48 at head_dim 256 (three m-tiles), 256
-# (two row groups); page sizes 16, 32 and 128 beside 64 (128: two ring
-# tiles a page). Every case's slots (VERIFY_LENGTHS, in pages P): length
-# 0 (its other splits see no visible page), T tokens straddling the
-# first page boundary, a slot with an unreserved gap at page 1 inside
-# its span, a long slot, a freed slot (all-zero row, stale length), a
-# slot one short of a page.
+# The paged kernel's own cases (check_verify, on a generator of its
+# own): (name, T, Hq, Hkv, d, page size). Verify steps (VERIFY_CASES):
+# query rows a kv head R = T*G not a multiple of 16 (2, 24), 48 at
+# head_dim 256 (three m-tiles), 256 (two row groups); page sizes 16, 32
+# and 128 beside 64 (128: two ring tiles a page), 8 (a 16-row box, 8 rows
+# past the page) and 80 (a 64-row tile and a 16-row last box). Decode
+# steps (DECODE_CASES, T = 1): pages 8, 24, 80, 128 and 10 (P % 4 != 0:
+# the int8 scales read where used, not copied into the ring) beside 64,
+# head dims 64, 128 and 256, G = 1, 4 and 8 query rows a kv head. Every
+# case's slots (verify_lengths, in pages P): length 0 (its other splits
+# see no visible page), T tokens straddling the first page boundary, a
+# slot with an unreserved gap at page 1 inside its span, a long slot, a
+# freed slot (all-zero row, stale length), a slot one short of a page.
 VERIFY_CASES = (
     ('r2_t2_g1', 2, 8, 8, 128, 64),
     ('r24_t3_g8', 3, 16, 2, 128, 64),
@@ -835,6 +867,18 @@ VERIFY_CASES = (
     ('p128_d256_r32', 4, 8, 1, 256, 128),
     ('d64_p32', 2, 16, 2, 64, 32),
     ('r256_two_groups', 8, 32, 1, 64, 64),
+    ('p8', 4, 32, 8, 128, 8),
+    ('p80_d256', 4, 16, 2, 256, 80),
+)
+DECODE_CASES = (
+    ('t1_p8_g4_d128', 1, 32, 8, 128, 8),
+    ('t1_p24_g1_d256', 1, 16, 16, 256, 24),
+    ('t1_p80_g8_d64', 1, 16, 2, 64, 80),
+    ('t1_p128_g4_d256', 1, 16, 4, 256, 128),
+    ('t1_p24_g8_d128', 1, 8, 1, 128, 24),
+    ('t1_p80_g1_d128', 1, 8, 8, 128, 80),
+    ('t1_p10_g4_d64', 1, 16, 4, 64, 10),
+    ('t1_p64_g8_d256', 1, 8, 1, 256, 64),
 )
 
 
@@ -878,11 +922,12 @@ def verify_inputs(gen, t, hq, hkv, d, page, quant):
     return (q, kq, vq, ks, vs) + rest
 
 
-def check_verify(gen, cases=VERIFY_CASES):
-    """The verify kernel (paged_decode_attention_mq and _mq_q) against
-    its plain versions on VERIFY_CASES, bf16 and int8, within TOL; each
-    call's plan (verify_plan) and the kernel's own shared-memory count
-    agree. gen is their own generator."""
+def check_verify(gen, cases=VERIFY_CASES + DECODE_CASES):
+    """The paged kernel (paged_decode_attention_mq and _mq_q, or at T = 1
+    paged_decode_attention and _q) against its plain versions on
+    VERIFY_CASES and DECODE_CASES, bf16 and int8, within TOL, REPEATS
+    calls bit-equal; each call's plan (verify_plan) and the kernel's own
+    shared-memory count agree. gen is their own generator."""
     import torch
     from skypilot_tpu_torch.ops import _build
     from skypilot_tpu_torch.ops import paged_attention as pa
@@ -890,9 +935,12 @@ def check_verify(gen, cases=VERIFY_CASES):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     res = {}
     for name, t, hq, hkv, d, page in cases:
-        for fn, quant in (('paged_decode_attention_mq', False),
-                          ('paged_decode_attention_mq_q', True)):
+        for quant in (False, True):
+            fn = 'paged_decode_attention' + ('_mq' if t > 1 else '') + \
+                ('_q' if quant else '')
             a = verify_inputs(gen, t, hq, hkv, d, page, quant)
+            if t == 1:
+                a = (a[0][:, 0],) + a[1:]
             plan = pa.verify_plan(a[0].shape[0], t, hq, hkv, d, page,
                                   a[-2].shape[1], quant, sms)
             smem = lib.skyt_paged_verify_smem(
@@ -900,19 +948,21 @@ def check_verify(gen, cases=VERIFY_CASES):
                 plan.key_splits)
             assert smem == plan.smem_bytes, (name, smem, plan)
             out = getattr(pa, fn)(*a)
+            same = repeat_equal(getattr(pa, fn), a, out)
             ref = getattr(pa, fn + '_reference')(*a)
             torch.cuda.synchronize()
             label = f'{name}{"_int8" if quant else ""}'
             assert torch.isfinite(out.float()).all(), f'{label}: non-finite'
             torch.testing.assert_close(out.float(), ref.float(), **TOL)
+            assert same, f'{label}: calls differ'
             err = max_abs(out, ref)
-            _log(f'verify {label} q {list(a[0].shape)} pools '
+            _log(f'paged {label} q {list(a[0].shape)} pools '
                  f'{list(a[1].shape)} (R {plan.rows}, m-tiles '
                  f'{plan.m_tiles} x {plan.n_mgroups} groups, '
-                 f'{plan.key_splits} key splits, tile {plan.tile_rows}, '
-                 f'{plan.stages} stages, grid {list(plan.grid)}, smem '
-                 f'{plan.smem_bytes}): max|out-ref| {err:.3e} '
-                 '(atol=rtol=2e-2)')
+                 f'{plan.key_splits} key splits, tile {plan.tile_rows} '
+                 f'(last {plan.tail_rows}), {plan.stages} stages, grid '
+                 f'{list(plan.grid)}, smem {plan.smem_bytes}): max|out-ref| '
+                 f'{err:.3e} (atol=rtol=2e-2); {REPEATS} calls bit-equal')
             res[label] = {'shape': list(a[0].shape), 'pools': list(
                 a[1].shape), 'plan': plan._asdict(), 'max_abs_err': err}
             del a, out, ref
@@ -950,17 +1000,19 @@ def check_d256(gen):
         for shape in ('gemma7b', 'gemma2b'):
             a = paged_inputs(gen, t, quant, shape)
             out = getattr(pa, fn)(*a)
+            same = repeat_equal(getattr(pa, fn), a, out)
             ref = getattr(pa, fn + '_reference')(*a)
             torch.cuda.synchronize()
             assert torch.isfinite(out.float()).all(), \
                 f'{kname} {shape}: non-finite'
             torch.testing.assert_close(out.float(), ref.float(), **TOL)
+            assert same, f'{kname} {shape}: calls differ'
             err = max_abs(out, ref)
             hq, hkv, _ = PAGED_SHAPES[shape]
             _log(f'{kname} {shape} q {list(a[0].shape)} pools '
                  f'{list(a[1].shape)} {a[1].dtype} ({t * hq // hkv} query '
                  f'rows a kv head): max|out-ref| {err:.3e} '
-                 '(atol=rtol=2e-2)')
+                 f'(atol=rtol=2e-2); {REPEATS} calls bit-equal')
             res.setdefault(kname, {})[shape] = {
                 'shape': list(a[0].shape), 'rows': t * hq // hkv,
                 'max_abs_err': err}
@@ -1507,6 +1559,84 @@ def run_paths(model, card, bf16_ms_per_token):
     return out
 
 
+# A spec engine on pages that the kernel's 16-row TMA boxes do not
+# divide: 24 tokens (one 32-row box, its last 8 rows past the page).
+ODD_PAGE = 24
+# Output-head scales for the greedy-agreement check (not powers of two,
+# which would scale every logit exactly).
+HEAD_SCALES = (1.0, 3.0, 10.0)
+
+
+def run_odd_pages(model, card):
+    """A spec_decode=3 engine at ODD_PAGE-token pages on the same model
+    serves the spec traffic (every request returns its tokens, the verify
+    kernel launches), then step checks at pages the tiles do not divide:
+    a verify step at 24, a decode step at 8 (bf16) and at 80 (int8: a
+    64-row tile and a 16-row last box)."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    eng = engine_lib.InferenceEngine(
+        model, num_slots=8, max_seq_len=2048, decode_chunk=16,
+        page_size=ODD_PAGE, spec_decode=3)
+    burst, params, lone = traffic(model.cfg.vocab_size, repeat=True)
+    warm_up(eng, np.random.default_rng(SEED + 2))
+    outs, launches, _, _ = serve(eng, burst, params, lone)
+    perf = eng.perf_stats()
+    assert launches['paged_decode_mq'] > 0, launches
+    assert perf['spec_verify_steps'] > 0, 'no verify step'
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {'launches': launches, 'verify_steps': perf['spec_verify_steps'],
+           'spec_accept_per_step': perf.get('spec_accept_per_step'),
+           'step_rel_kernel_plain': {
+               'verify_p24': check_step(model, False, 4, page=24)['rel'],
+               'decode_p8': check_step(model, False, 1, page=8)['rel'],
+               'decode_int8_p80': check_step(model, True, 1,
+                                             page=80)['rel']}}
+    _log(f'engine spec at {ODD_PAGE}-token pages [{card}]: {len(outs)} '
+         f'requests x {MAX_NEW} tokens; launches {launches}; '
+         f'{perf["spec_verify_steps"]} verify steps; step logits kernel vs '
+         f'plain (rel L2) {res["step_rel_kernel_plain"]}')
+    return res
+
+
+def check_agreement(model):
+    """Greedy agreement of the decode (s = 1) and verify (s = 4) steps
+    with the output head scaled by each of HEAD_SCALES: argmax through
+    the kernels, through their plain versions and through the plain
+    attention in f32 (check_step, exact=True), and the f32 step's top-2
+    margins where the others differ from it. Logged and returned, not
+    asserted. The model's head is restored after."""
+    import torch
+    w = model.lm_head.weight
+    keep = w.detach().clone()
+    res = {}
+    try:
+        for scale in HEAD_SCALES:
+            with torch.no_grad():
+                w.copy_((keep.float() * scale).to(w.dtype))
+            for s in (1, 4):
+                r = check_step(model, False, s, exact=True)
+                r.pop('logits')
+                res[f'x{scale:g}_s{s}'] = r
+                _log(f'agreement, head x{scale:g}, s={s}: argmax kernel = '
+                     f'plain {r["agree"]:.3f}, kernel = f32 '
+                     f'{r["agree_kernel_f32"]:.3f}, plain = f32 '
+                     f'{r["agree_plain_f32"]:.3f} over {r["positions"]} '
+                     f'positions; rel L2 kernel vs f32 '
+                     f'{r["rel_kernel_f32"]:.3e}, plain vs f32 '
+                     f'{r["rel_plain_f32"]:.3e}; f32 top-2 margin (logit '
+                     f'std units) median {r["margin_median"]:.3f}, where '
+                     f'the kernel differs {r["margins_kernel_differs"]}, '
+                     f'where plain differs {r["margins_plain_differs"]}')
+    finally:
+        with torch.no_grad():
+            w.copy_(keep)
+    return res
+
+
 # ----------------------------------------------------------- phase 3: Gemma
 # gemma-7b at full width (28 layers, dim 3072, 16 q / 16 kv heads,
 # head_dim 256, GeGLU mlp 24576, vocab 256000, tied embeddings; the JAX
@@ -1738,10 +1868,13 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def plain_step_logits(model, toks, positions, cache, lora=None):
+def plain_step_logits(model, toks, positions, cache, lora=None,
+                      exact=False):
     """The model's paged step (s tokens per slot) with each paged kernel's
     plain version in its place (and the LoRA plain versions, lora: None or
-    (stack, ids [B])); the same appends, in place on `cache`."""
+    (stack, ids [B])); the same appends, in place on `cache`. exact: the
+    plain attention computed from f32 copies of q and the pools, its
+    output rounded to the model dtype."""
     import torch
     from skypilot_tpu_torch.ops import rope
     cfg = model.cfg
@@ -1752,18 +1885,21 @@ def plain_step_logits(model, toks, positions, cache, lora=None):
     tables = cache['tables']
     for i in range(len(model.layers)):
         def attend(q, k, v, i=i):
-            return paged_plain(cache, i, q, k, v, tables, pos)
+            return paged_plain(cache, i, q, k, v, tables, pos, exact)
         x = plain_block(model, i, x, cos, sin, attend, lora)
     return head(model, model.final_norm(x)).float()
 
 
-def paged_plain(cache, i, q, k, v, tables, pos):
+def paged_plain(cache, i, q, k, v, tables, pos, exact=False):
     """Layer i's appends (in place on `cache`) and the paged kernels'
-    plain versions: [B, S, Hq, d]."""
+    plain versions: [B, S, Hq, d] (exact: from f32 copies of q and the
+    pools)."""
     from skypilot_tpu_torch.infer.paged_cache import PagePool
     from skypilot_tpu_torch.ops import paged_attention as pa
     s = q.shape[1]
     kp, vp = cache['k'][i], cache['v'][i]
+    if exact:
+        q = q.float()
     if 'k_scale' in cache:
         ks, vs = cache['k_scale'][i], cache['v_scale'][i]
         PagePool.append_tokens_layer_q(kp, ks, k, tables, pos)
@@ -1775,6 +1911,8 @@ def paged_plain(cache, i, q, k, v, tables, pos):
             q, kp, vp, ks, vs, tables, pos)
     PagePool.append_tokens_layer(kp, k, tables, pos)
     PagePool.append_tokens_layer(vp, v, tables, pos)
+    if exact:
+        kp, vp = kp.float(), vp.float()
     if s == 1:
         return pa.paged_decode_attention_reference(
             q[:, 0], kp, vp, tables, pos)[:, None]
@@ -1787,21 +1925,23 @@ STEP_LIVE = (600, 64, 590, 300)
 STEP_FREED = (1000, 5, 2040, 77)
 
 
-def check_step(model, quant, s, lora=None):
+def check_step(model, quant, s, lora=None, page=64, exact=False):
     """One paged step of s tokens per slot (s = 1: decode; s = 4: verify)
-    on a fixed prefilled cache (bf16 or int8 pools), through the kernels
-    (the model's forward) and through their plain versions (the same
-    layers by hand): rel L2 of the live slots' logits <= LOGIT_REL_L2.
-    With a LoRA stack the slots take SLOT_LORA's adapters (the gather
-    kernel) and the step also runs without the stack: an adapter slot's
-    logits must move by more than LOGIT_REL_L2, an id-0 slot's not at all
-    (its rows add nothing)."""
+    on a fixed prefilled cache (bf16 or int8 pools of `page`-token
+    pages), through the kernels (the model's forward) and through their
+    plain versions (the same layers by hand): rel L2 of the live slots'
+    logits <= LOGIT_REL_L2. With a LoRA stack the slots take SLOT_LORA's
+    adapters (the gather kernel) and the step also runs without the
+    stack: an adapter slot's logits must move by more than LOGIT_REL_L2,
+    an id-0 slot's not at all (its rows add nothing). exact: the step also
+    runs with the plain attention in f32 (plain_step_logits), and the
+    argmax agreements and top-2 margins of the three are returned."""
     import numpy as np
     import torch
     from skypilot_tpu_torch.infer.paged_cache import PagePool
     cfg = model.cfg
     dev = next(model.parameters()).device
-    page, mp = 64, 32
+    mp = max(32, -(-(max(STEP_LIVE) + s) // page))
     rng = np.random.default_rng(SEED + 7)
     spans = [-(-(n + s) // page) for n in STEP_LIVE]
     n_pages = sum(spans) + 1
@@ -1847,8 +1987,13 @@ def check_step(model, quant, s, lora=None):
             ids = torch.tensor(SLOT_LORA, dtype=torch.int32, device=dev)
             kw, plain_lora = {'lora': lora, 'lora_ids': ids}, (lora, ids)
             base_cache = {k: v.clone() for k, v in cache.items()}
+        exact_cache = {k: v.clone() for k, v in cache.items()} \
+            if exact else None
         got, _ = model(toks, positions=positions, cache=cache, **kw)
         ref = plain_step_logits(model, toks, positions, copy, plain_lora)
+        if exact:
+            f32 = plain_step_logits(model, toks, positions, exact_cache,
+                                    exact=True)
         if lora is not None:
             base, _ = model(toks, positions=positions, cache=base_cache)
         torch.cuda.synchronize()
@@ -1856,12 +2001,30 @@ def check_step(model, quant, s, lora=None):
     got, ref = got[:live].float(), ref[:live]
     assert torch.isfinite(got).all(), 'non-finite step logits'
     r = rel_l2(got, ref)
-    label = ('int8' if quant else 'bf16') + (' + LoRA' if lora else '')
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    label = ('int8' if quant else 'bf16') + (' + LoRA' if lora else '') + \
+        (f', {page}-token pages' if page != 64 else '')
     _log(f'{label} paged step s={s}: logits kernel vs '
          f'plain rel L2 {r:.3e} (limit {LOGIT_REL_L2}), argmax equal '
-         f'{float((got.argmax(-1) == ref.argmax(-1)).float().mean()):.3f}')
+         f'{agree:.3f}')
     assert r <= LOGIT_REL_L2, r
-    res = {'rel': r, 'logits': got}
+    res = {'rel': r, 'logits': got, 'agree': agree}
+    if exact:
+        f32 = f32[:live]
+        top = f32.topk(2, dim=-1).values
+        # The f32-attention step's top-1 - top-2 gap at each position,
+        # in units of its logits' std.
+        margin = (top[..., 0] - top[..., 1]) / f32.std(dim=-1)
+        am, ar, ae = got.argmax(-1), ref.argmax(-1), f32.argmax(-1)
+        res.update({
+            'positions': am.numel(),
+            'agree_kernel_f32': float((am == ae).float().mean()),
+            'agree_plain_f32': float((ar == ae).float().mean()),
+            'rel_kernel_f32': rel_l2(got, f32),
+            'rel_plain_f32': rel_l2(ref, f32),
+            'margins_kernel_differs': margin[am != ae].tolist(),
+            'margins_plain_differs': margin[ar != ae].tolist(),
+            'margin_median': float(margin.median())})
     if lora is not None:
         base = base[:live].float()
         moved = [rel_l2(got[i], base[i]) for i in range(live)
@@ -1974,11 +2137,9 @@ def time_paged(gen, kname, shape='slice'):
     plain = getattr(pa, fn + '_reference')
     ms = time_ms(lambda: wrapper(*args), 50)
     launch_ms = eager_ms(lambda: wrapper(*args), 50)
-    # The wrapper launches two kernels: the split pass (the verify kernel
-    # for T > 1), then the merge.
-    first = 'paged_decode_verify' if t > 1 else 'paged_decode_split'
+    # One launch a call, the merge folded in.
     parts = device_ms_by_kernel(lambda: wrapper(*args),
-                                (first, 'paged_decode_merge'))
+                                ('paged_decode_verify',))
     plain_ms = time_ms(lambda: plain(*args), 5)
     q, kp, tables, lengths = args[0], args[1], args[-2], args[-1]
     hq, d = q.shape[-2:]
@@ -1992,8 +2153,7 @@ def time_paged(gen, kname, shape='slice'):
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_flops = flops / BF16_FLOPS_PER_S * 1e3
     return {'shape': list(q.shape), 'ms': ms, 'eager_ms': launch_ms,
-            'split_ms': parts[first],
-            'merge_ms': parts['paged_decode_merge'],
+            'profiler_ms': parts['paged_decode_verify'],
             'plain_ms': plain_ms, 'library_ms': None,
             'bound_ms': max(bound_bytes, bound_flops),
             'bound_by': 'bytes' if bound_bytes >= bound_flops
@@ -3012,8 +3172,7 @@ def gemma_kernels(card, gemma_res, td, d256_res):
                               'lone_plain_ms': lone['plain_ms'],
                               'lone_library_ms': lone['library_ms']})
             if not flash:
-                entry.update({'split_ms': t['split_ms'],
-                              'merge_ms': t['merge_ms'],
+                entry.update({'profiler_ms': t['profiler_ms'],
                               'query_rows': check['rows']})
                 entry['launches_by_rows'] = {
                     r: n for r, n in run['launches_by_rows'].items()
@@ -3036,6 +3195,8 @@ def run_serving(args, card, gen, checks):
     gc.collect()
     torch.cuda.empty_cache()
     paths_res = run_paths(model, card, eng_res['lone_ms_per_token'])
+    paths_res['odd_pages'] = run_odd_pages(model, card)
+    paths_res['agreement'] = check_agreement(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3093,7 +3254,7 @@ def run_serving(args, card, gen, checks):
             'replaces': PAGED_KERNELS[k][3],
             'launches': launches, 'max_abs_err': err, 'ms': t['ms'],
             'kernel_ms': t['ms'], 'eager_ms': t['eager_ms'],
-            'split_ms': t['split_ms'], 'merge_ms': t['merge_ms'],
+            'profiler_ms': t['profiler_ms'],
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': t['bound_by'], 'library_ms': None,
             'shape': t['shape']})

@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
-"""Serve the PyTorch port's speculative-verify engines on one CUDA card
-and print their greedy token streams, for the skypilot_tpu_torch package
-of a given checkout, so that two checkouts' streams can be compared:
+"""Serve the PyTorch port's paged engines on one CUDA card and print
+their greedy token streams, for the skypilot_tpu_torch package of a
+given checkout, so that two checkouts' streams can be compared:
 
     python3 paged_streams.py                          # this checkout
     python3 paged_streams.py --root <checkout> --label parent
+    python3 paged_streams.py --only llama3-8b llama3-8b_spec --head-scale 10
 
 Engines, at full width with random bf16 weights from seed 0 and
 chip_smoke.py's engine settings (8 slots, max_seq_len 2048, 64-token
-pages): llama3-8b with spec_decode=3, and with kv_dtype='int8' as well
+pages): llama3-8b plain and with kv_dtype='int8' (their decode steps run
+paged_decode_attention and _q), with spec_decode=3, and with both
 (their verify steps run paged_decode_attention_mq and _mq_q); gemma-7b
-the same; gemma-2b with spec_decode=3 (32 query rows a kv head). Each
-serves chip_smoke.py's traffic (the burst, its first prompt a repeated
-sequence for the n-gram proposer, then the lone prompt) with every
-request greedy, 32 new tokens each. Prints one JSON line per engine
-(its streams, verify steps and launch counts) and a last line with all
-of them. Imports nothing of JAX.
+with spec_decode=3, and with int8 KV as well; gemma-2b with
+spec_decode=3 (32 query rows a kv head). --only picks engines by label.
+--head-scale multiplies the output head's weights (llama3-8b's untied
+lm_head) after the seeded build, which scales every logit. --agreement
+also runs chip_smoke.py's check_agreement on llama3-8b (decode and
+verify steps' argmax through the kernels, their plain versions and f32
+attention, head scaled by 1, 3 and 10) with this checkout's kernels,
+before its engines. Each serves
+chip_smoke.py's traffic (the burst, its first prompt a repeated sequence
+for the n-gram proposer on the spec engines, then the lone prompt) with
+every request greedy, 32 new tokens each. Prints one JSON line per
+engine (its streams, verify steps and launch counts) and a last line
+with all of them. Imports nothing of JAX.
 
     python3 paged_streams.py --compare <another run's output>
 
@@ -34,7 +43,9 @@ import os
 import sys
 
 # (label, preset, engine options)
-ENGINES = (('llama3-8b_spec', 'llama3-8b', dict(spec_decode=3)),
+ENGINES = (('llama3-8b', 'llama3-8b', {}),
+           ('llama3-8b_int8', 'llama3-8b', dict(kv_dtype='int8')),
+           ('llama3-8b_spec', 'llama3-8b', dict(spec_decode=3)),
            ('llama3-8b_int8_spec', 'llama3-8b',
             dict(spec_decode=3, kv_dtype='int8')),
            ('gemma-7b_spec', 'gemma-7b', dict(spec_decode=3)),
@@ -75,6 +86,13 @@ def main() -> int:
     ap.add_argument('--compare', help="another run's output: where its "
                     'streams differ, score both tokens by the f32 plain '
                     'model')
+    ap.add_argument('--only', nargs='+', metavar='LABEL',
+                    help='serve these engines only')
+    ap.add_argument('--head-scale', type=float, default=1.0,
+                    help="scale the output head's weights (untied heads)")
+    ap.add_argument('--agreement', action='store_true',
+                    help="run chip_smoke.py's check_agreement on "
+                    'llama3-8b first')
     args = ap.parse_args()
     other = {}
     if args.compare:
@@ -102,22 +120,35 @@ def main() -> int:
     res = {}
     model, name = None, None
     for label, preset, opts in ENGINES:
+        if args.only and label not in args.only:
+            continue
         if preset != name:
             model = name = None
             gc.collect()
             torch.cuda.empty_cache()
             model = server.build_engine(preset, seed=smoke.SEED).model
             name = preset
+            if args.agreement and preset == 'llama3-8b':
+                agree = smoke.check_agreement(model)
+                print(json.dumps({'label': args.label,
+                                  'agreement': agree}), flush=True)
+            if args.head_scale != 1.0:
+                with torch.no_grad():
+                    w = model.lm_head.weight
+                    w.copy_((w.float() * args.head_scale).to(w.dtype))
         eng = engine_lib.InferenceEngine(
             model, num_slots=8, max_seq_len=2048, decode_chunk=16,
             page_size=64, **opts)
-        burst, _, lone = smoke.traffic(model.cfg.vocab_size, repeat=True)
+        burst, _, lone = smoke.traffic(model.cfg.vocab_size,
+                                       repeat='spec_decode' in opts)
         greedy = [engine_lib.SamplingParams(max_new_tokens=smoke.MAX_NEW)
                   for _ in burst]
         smoke.warm_up(eng, np.random.default_rng(smoke.SEED + 2))
         outs, launches, _, _ = smoke.serve(eng, burst, greedy, lone)
         res[label] = {'streams': outs, 'launches': launches,
-                      'verify_steps': eng.perf_stats()['spec_verify_steps']}
+                      'verify_steps': eng.perf_stats().get(
+                          'spec_verify_steps', 0),
+                      'head_scale': args.head_scale}
         del eng
         gc.collect()
         torch.cuda.empty_cache()

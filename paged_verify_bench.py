@@ -1,18 +1,16 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's speculative-verify paged-decode kernels on one
-CUDA card at the serving paths' shapes, for the skypilot_tpu_torch
-package of a given checkout, so two checkouts can be compared on the
-same card:
+"""Time the PyTorch port's paged-decode kernels on one CUDA card at the
+serving paths' shapes, for the skypilot_tpu_torch package of a given
+checkout, so two checkouts can be compared on the same card:
 
     python3 paged_verify_bench.py                       # this checkout
     python3 paged_verify_bench.py --root <checkout> --label parent
 
 It times paged_decode_attention_mq (bf16 pools) and
 paged_decode_attention_mq_q (int8 pools with f32 scales) with T = 4 (the
-spec engines' verify step, spec_decode=3), and beside them the
-single-query kernels paged_decode_attention and paged_decode_attention_q
-(T = 1, which the verify kernel's redesign leaves as they were), on
-chip_smoke.py's decode inputs (8 slots of lengths 0, 63, 64, 600, 1500,
+spec engines' verify step, spec_decode=3), and the single-query wrappers
+paged_decode_attention and paged_decode_attention_q (T = 1, a decode
+step), on chip_smoke.py's decode inputs (8 slots of lengths 0, 63, 64, 600, 1500,
 2048 - T, 130 and 777 tokens, the last one freed, 64-token pages, 32
 pages a table row):
 
@@ -24,11 +22,14 @@ pages a table row):
 (q [8, 32, 128], [8, 16, 256] and [8, 8, 256] for T = 1).
 
 For each: device ms per call from CUDA events around a replayed CUDA
-graph of 50 calls (three replays, after a warm-up); the first pass's and
-the merge's device ms per call from torch.profiler's kernel records; the
-plain version's ms; the bound, the larger of the bytes read and written
-once over 3.35 TB/s and 4*d flops per query head and visible (token,
-key) pair over 989 TFLOP/s. Inputs come from a seed. Prints the card
+graph of 50 calls (three replays, after a warm-up); eager ms per call
+(the least of five runs of 50 calls on the stream, Python's launch
+overhead included); the first kernel's and the merge's device ms per
+call from torch.profiler's kernel records (a checkout whose kernel
+merges inside its one launch has no merge kernel: merge_ms is null);
+the plain version's ms; the bound, the larger of the bytes read and
+written once over 3.35 TB/s and 4*d flops per query head and visible
+(token, key) pair over 989 TFLOP/s. Inputs come from a seed. Prints the card
 (nvidia-smi name, power.limit), one JSON line per case and a last JSON
 line with all of them. Imports nothing of JAX.
 """
@@ -52,8 +53,13 @@ def run_case(smoke, pa, gen, fn, quant, t, shape):
     wrapper = getattr(pa, fn)
     plain = getattr(pa, fn + '_reference')
     ms = smoke.time_ms(lambda: wrapper(*args), 50)
-    # The first pass is paged_decode_verify since the verify kernel's
-    # redesign, paged_decode_split before it.
+    # Host time varies from call to call: the least of five runs of 50.
+    eager = min(smoke.eager_ms(lambda: wrapper(*args), 50)
+                for _ in range(5))
+    # The first kernel is paged_decode_verify at every T since the single-
+    # query kernels' redesign (T > 1 since the verify kernel's), and
+    # paged_decode_split before it; a separate paged_decode_merge
+    # followed it until the merge was folded in.
     parts = smoke.device_ms_by_kernel(
         lambda: wrapper(*args),
         ('paged_decode_verify', 'paged_decode_split', 'paged_decode_merge'))
@@ -70,7 +76,8 @@ def run_case(smoke, pa, gen, fn, quant, t, shape):
     bound_bytes = nbytes / smoke.HBM_BYTES_PER_S * 1e3
     bound_flops = 4.0 * hq * d * pairs / smoke.BF16_FLOPS_PER_S * 1e3
     return {'shape': list(q.shape), 'pools': list(kp.shape),
-            'kv_dtype': str(kp.dtype), 'ms': ms, 'split_ms': first,
+            'kv_dtype': str(kp.dtype), 'ms': ms, 'eager_ms': eager,
+            'split_ms': first,
             'merge_ms': parts['paged_decode_merge'], 'plain_ms': plain_ms,
             'bound_ms': max(bound_bytes, bound_flops),
             'bound_by': 'bytes' if bound_bytes >= bound_flops

@@ -1,36 +1,30 @@
 // Paged decode attention for Hopper (sm_90a): bf16 queries, bf16 or int8
 // KV pages, f32 accumulate.
 //
-// Two kernels replace the four TPU kernels of
-// skypilot_tpu/ops/paged_attention.py:
-//   paged_decode_split (T = 1, one query a slot):
+// One kernel, paged_decode_verify<D, KV>, replaces the four TPU kernels of
+// skypilot_tpu/ops/paged_attention.py, whatever the number T of query
+// tokens a slot:
+//   T = 1 (a decode step):
 //     bf16 pages      :50  _kernel      (paged_decode_attention)
 //     int8 pages      :150 _kernel_q    (paged_decode_attention_q)
-//   paged_decode_verify (T > 1, the speculative verify step):
+//   T > 1 (the speculative verify step):
 //     bf16 pages      :98  _kernel_mq   (paged_decode_attention_mq)
 //     int8 pages      :210 _kernel_mq_q (paged_decode_attention_mq_q)
-// and one merge pass (paged_decode_merge) serves both.
 // Each slot has T consecutive query tokens, token t at position
 // lengths[s] + t, and attends that slot's KV pages, found through the
 // block table, with an online softmax over the pages. Token t sees the
 // keys at positions <= lengths[s] + t. Row r = t*G + g of a kv head's
 // R = T*G query rows is token t, query head hk*G + g.
 //
-// What bounds them on this card: memory bandwidth. Each layer call must
+// What bounds it on this card: memory bandwidth. Each layer call must
 // read every visible K and V row once, 2*Hkv*d*2 B*sum_s(lengths[s]+T)
 // bytes from bf16 pages or (2*Hkv*d*1 B + 2*Hkv*4 B)*sum_s(lengths[s]+T)
 // from int8 pages with their f32 scales, against 3.35 TB/s; a (kv head,
 // page) pair does 2*R*P*d flops a product for its 2*P*d*2 bytes, R
-// flops a byte (16 at llama3-8b's verify step), far below the
-// tensor-core ridge.
+// flops a byte (4 at llama3-8b's decode step, 16 at its verify step),
+// far below the tensor-core ridge.
 //
-// Both kernels split each (slot, kv head) walk over several blocks and
-// write per-block softmax partials (m, l, acc); paged_decode_merge, one
-// block per (slot, kv head, query row), merges them:
-// m = max m_i, l = sum l_i e^(m_i - m), acc = sum acc_i e^(m_i - m),
-// out = acc / l, and l == 0 gives 0.
-//
-// Shared rules, exactly the TPU kernels':
+// Rules, exactly the TPU kernels':
 //   * skip rule: page j is walked iff j*P <= lengths[s] + T-1 and
 //     (tables[s, j] != 0 or j == 0). A released slot (all-zero row,
 //     stale length) reads only dummy page 0, and page indices never
@@ -40,55 +34,49 @@
 //     junk (m = -1e30), which the next visible key (alpha = 0) or the
 //     merge (weight e^(-1e30 - m) = 0) drops: position 0 is visible to
 //     every row;
-//   * int8 pages: the codes convert to bf16 (or f32) exactly, as the TPU
-//     kernel's cast to the query dtype; the key scale multiplies the
-//     score, and the value scale multiplies p before PV, where
-//     p * v_scale is rounded to bf16 (the TPU kernel's pd). The running
-//     sum l takes the unscaled p.
+//   * int8 pages: the codes convert to bf16 exactly, as the TPU kernel's
+//     cast to the query dtype; the key scale multiplies the score, and
+//     the value scale multiplies p before PV, where p * v_scale is
+//     rounded to bf16 (the TPU kernel's pd). The running sum l takes the
+//     unscaled p.
 //
-// paged_decode_split (T = 1) runs on the CUDA cores: one block of 4
-// warps per (slot, kv head, group of at most kGroupRows query rows, run
-// of `pages_per_split` pages); warp w takes pages w, w+4, ... of the run
-// and reads its page's K and V rows straight from the page-major pool
-// into registers with 16-byte loads (K) and 2-16 byte loads (V), several
-// rows in flight per lane:
-//   - scores: d/16 lanes per token, 16 elements each, a 2-3 step
-//     shuffle reduction per row; q comes from shared memory;
-//   - softmax update per row over the page (warp reductions);
-//   - PV: lane owns d/32 output columns for every row.
-// The 4 warps' states are merged in shared memory. A group holds at most
-// 4 rows, fewer when the grid would not give each SM two blocks
-// (choose_group); with one query a slot the G rows of a kv head are
-// 1-8, so the walk per row stays short.
-//
-// paged_decode_verify (T > 1) puts a kv head's rows on the tensor cores.
-// The walk per row of the CUDA-core design made the verify step's
-// R = 16-32 rows 16-48x the bound, and its 4-row groups read each page
-// again per group. Here:
+// The design puts a kv head's query rows on the tensor cores, so that no
+// row walks the pages on the CUDA cores and no page is read again per
+// group of rows:
 //   * one block per (slot, kv head, split) holds all R rows of the kv
-//     group, padded to 16-row m-tiles (R = 4 -> 16, 32 -> two tiles)
-//     with zero rows that are never written, so each visible K/V byte
-//     comes from HBM once a call. R above 128 rows (8 m-tiles) takes
-//     several row groups (grid y), each reading the pages again;
+//     group, padded to 16-row m-tiles (R = 1-8 at T = 1 -> one tile,
+//     R = 32 -> two) with zero rows that are never written, so each
+//     visible K/V byte comes from HBM once a call. At T = 1 most of the
+//     m-tile is padding; the call is bound by bytes, not products, so
+//     the padding's products cost little. R above 128 rows (8 m-tiles)
+//     takes several row groups (grid y), each reading the pages again;
 //   * the block's pages are j = split, split + n_split, ... (strided,
 //     so a short slot's pages spread over its splits); the host picks
 //     n_split from mp, slots * Hkv and the SM count (ops/
 //     paged_attention.py verify_plan: about 4 pages a block, at least a
-//     block an SM), and the tile rows (64, or 32 for a block of one
-//     m-tile over bf16 pages at d = 256, so two such blocks fit an SM);
+//     block an SM), and the tile rows (the page's rows rounded up to 16,
+//     at most 64; 32 for a block of one m-tile over bf16 pages at
+//     d = 256, so two such blocks fit an SM);
 //   * async loads (issue_tile): pages arrive by TMA into a ring of
-//     `stages` (2) tiles of K and V (and the int8 scales, by 1-d bulk
-//     copies) on mbarriers. Thread 0 issues the first `stages` tiles
-//     before any product and refills a stage as soon as the block is
-//     done with it, so the next tile's bytes are in flight during the
-//     current tile's products. A (page, kv head) block of the pool is
-//     one contiguous run of P*d elements: a tile is a box of up to
-//     kTileRows rows of the pool viewed as [n_pages*Hkv*P, d], at row
-//     (tables[s, j]*Hkv + hk)*P (+ 64 per tile of a longer page). Pages
-//     of 16-64 rows in steps of 16, or a multiple of 64 rows, are taken
-//     (a TMA box holds at most 256 rows; the wrapper refuses other page
-//     sizes). The block's query rows are loaded (16 bytes a thread)
-//     before the tiles are issued, into shared memory;
+//     `stages` (2) tiles of K and V (and the int8 scales) on mbarriers.
+//     Thread 0 issues the first `stages` tiles before any product and
+//     refills a stage as soon as the block is done with it, so the next
+//     tile's bytes are in flight during the current tile's products. A
+//     (page, kv head) block of the pool is one contiguous run of P*d
+//     elements: a tile is a box of tile_rows rows of the pool viewed as
+//     [n_pages*Hkv*P, d], at row (tables[s, j]*Hkv + hk)*P (+ tile_rows
+//     per tile of a longer page);
+//   * every page size: a page of up to 64 rows is one box of its rows
+//     rounded up to 16; a longer page takes boxes of tile_rows and, where
+//     tile_rows does not divide it, a last box of tail_rows (its last
+//     rows rounded up to 16) through a second pair of maps. A box's rows
+//     past the page's end hold the pool's next rows (TMA zero-fills past
+//     the pool's last row) and are masked like invisible positions. The
+//     int8 scales come by 1-d bulk copies of the page's rows where a
+//     page's run of scales is 16-byte aligned (P % 4 == 0; the ring's
+//     slots past a short last tile hold 0 or an earlier tile's scales);
+//     other pages' scales are loaded into the ring by the block's threads
+//     with plain loads;
 //   * the tile lands as 128-byte rows under the 128-byte swizzle (bf16:
 //     64-column panels; int8: 128-column panels, or at d = 64 64-byte
 //     rows under the 64-byte swizzle), so the fragment loads below are
@@ -114,13 +102,41 @@
 //   * epilogue: each warp writes its O, rescaled to the block's m, into
 //     its own slice of shared memory (the ring's bytes, rows padded so
 //     the stores are free of bank conflicts); the key splits' slices are
-//     summed into the block's partial, 16 bytes a thread (m in natural
-//     log units, as the merge reads it). A block with no visible tile
-//     writes m = -1e30, l = 0 and a zero acc and exits.
+//     summed, 16 bytes a thread. With one split that sum, divided by l,
+//     is the output. Otherwise it is the block's partial (m, l, acc)
+//     in global memory;
+//   * the merge, folded in (merge_last), with a counter set a (slot, kv
+//     head, row group): each block draws a ticket (atomicAdd) as it
+//     starts, and once its partial is written counts it done (a barrier,
+//     then a release add by thread 0). The blocks that drew the last
+//     `mergers` tickets (1, or more on a grid of at most two blocks an
+//     SM: 16 at gemma-2b's verify step) wait until all n_split partials
+//     are done (an acquire load) and each folds them, for its share of
+//     the rows, in split order (0, 1, ..., n_split-1) as an online
+//     softmax does: m' = max(m, m_i), l = l 2^(m - m') + l_i 2^(m_i - m'),
+//     acc likewise, out = acc / l (l == 0 gives 0). The fixed order makes
+//     two calls on the same inputs bit-equal whichever block ends last.
+//     The waits end: the last ticket goes to a running block that waits
+//     only for blocks that drew theirs (and so run), and the plan keeps
+//     the other mergers, which may wait for a block not yet started,
+//     fewer than the SMs. The last merger resets the counters to 0, which
+//     keeps them valid under CUDA-graph replay. The counters belong to
+//     the caller's stream: the engine issues these calls on one stream,
+//     one after another, so no two calls share a counter at once. A block
+//     with no visible tile writes m = -1e30, l = 0 and a zero acc, which
+//     weighs nothing.
+//
+// Host work per call: the two (four with a tail box) tensor maps are
+// encoded once per (pool, rows, box rows) and the kernel's shared-memory
+// attribute set once per size and device, then both are looked up; one
+// launch a call.
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
+#include <mutex>
 #include <type_traits>
+#include <unordered_map>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -132,367 +148,13 @@ namespace {
 // Shared memory a block can use on Hopper.
 constexpr size_t kSmemLimit = 227 * 1024;
 
-// ------------------------------------------------------------ T = 1
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-// Query rows one block keeps state for, at most (a group of the R = G
-// rows): the register state's row bound.
-constexpr int kGroupRows = 4;
-// V rows with loads in flight in PV: 16 rows of D/32 columns a lane, 8
-// at D = 256 (the same 64 registers).
-__host__ __device__ constexpr int pv_unroll(int d) {
-  return d == 256 ? 8 : 16;
-}
-
-// Shared memory of pass 1 for a group of R rows: q [R, D], per-warp
-// scores [4, R, P], and the per-warp states for the final merge: m, l
-// [4, R], acc [4, R, D].
-inline size_t pass1_smem(int rows, int d, int page_size) {
-  return sizeof(float) *
-         (size_t(rows) * d + size_t(kWarps) * rows * page_size +
-          2 * size_t(kWarps) * rows + size_t(kWarps) * rows * d);
-}
-
-// 16 consecutive elements of a K row: the raw 16-byte words a lane
-// loads, and their conversion to f32.
-template <typename KV>
-struct KRow;
-
-template <>
-struct KRow<bf16> {
-  static constexpr int kWords = 2;
-  static constexpr int kUnroll = 4;    // token passes with loads in flight
-  __device__ static void load(const bf16 *src, uint4 (&w)[kWords]) {
-    const uint4 *row = reinterpret_cast<const uint4 *>(src);
-    w[0] = row[0];
-    w[1] = row[1];
-  }
-  __device__ static void convert(const uint4 (&w)[kWords], float (&out)[16]) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const __nv_bfloat162 *pr =
-          reinterpret_cast<const __nv_bfloat162 *>(&w[h]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(pr[e]);
-        out[h * 8 + 2 * e] = f.x;
-        out[h * 8 + 2 * e + 1] = f.y;
-      }
-    }
-  }
-};
-
-template <>
-struct KRow<int8_t> {
-  static constexpr int kWords = 1;
-  static constexpr int kUnroll = 8;
-  __device__ static void load(const int8_t *src, uint4 (&w)[kWords]) {
-    w[0] = *reinterpret_cast<const uint4 *>(src);
-  }
-  __device__ static void convert(const uint4 (&w)[kWords], float (&out)[16]) {
-    const char4 *c = reinterpret_cast<const char4 *>(&w[0]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      out[4 * e] = static_cast<float>(c[e].x);
-      out[4 * e + 1] = static_cast<float>(c[e].y);
-      out[4 * e + 2] = static_cast<float>(c[e].z);
-      out[4 * e + 3] = static_cast<float>(c[e].w);
-    }
-  }
-};
-
-// The D/32 columns of a V row that one lane owns.
-template <int D>
-__device__ __forceinline__ void load_row_cols(const bf16 *src,
-                                              float (&out)[D / 32]) {
-  if constexpr (D == 256) {
-    const uint4 w = *reinterpret_cast<const uint4 *>(src);
-    const __nv_bfloat162 *pr = reinterpret_cast<const __nv_bfloat162 *>(&w);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(pr[e]);
-      out[2 * e] = f.x;
-      out[2 * e + 1] = f.y;
-    }
-  } else if constexpr (D == 128) {
-    const uint2 w = *reinterpret_cast<const uint2 *>(src);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162 *>(&w.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162 *>(&w.y));
-    out[0] = a.x;
-    out[1] = a.y;
-    out[2] = b.x;
-    out[3] = b.y;
-  } else {
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162 *>(src));
-    out[0] = a.x;
-    out[1] = a.y;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_row_cols(const int8_t *src,
-                                              float (&out)[D / 32]) {
-  if constexpr (D == 256) {
-    const uint2 w = *reinterpret_cast<const uint2 *>(src);
-    const char4 *c = reinterpret_cast<const char4 *>(&w);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      out[4 * e] = static_cast<float>(c[e].x);
-      out[4 * e + 1] = static_cast<float>(c[e].y);
-      out[4 * e + 2] = static_cast<float>(c[e].z);
-      out[4 * e + 3] = static_cast<float>(c[e].w);
-    }
-  } else if constexpr (D == 128) {
-    const char4 c = *reinterpret_cast<const char4 *>(src);
-    out[0] = static_cast<float>(c.x);
-    out[1] = static_cast<float>(c.y);
-    out[2] = static_cast<float>(c.z);
-    out[3] = static_cast<float>(c.w);
-  } else {
-    const char2 c = *reinterpret_cast<const char2 *>(src);
-    out[0] = static_cast<float>(c.x);
-    out[1] = static_cast<float>(c.y);
-  }
-}
-
-struct Args {
-  const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *tables, *lengths;
-  void *out, *part_acc, *part_ml;
-  int slots, hq, hkv, page_size, mp, pages_per_split;
-  float scale;
-};
-
-inline int n_splits(const Args &a) {
-  return (a.mp + a.pages_per_split - 1) / a.pages_per_split;
-}
-
-template <int D, typename KV>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_split(const bf16 *__restrict__ q,
-                   const KV *__restrict__ k_pool,
-                   const KV *__restrict__ v_pool,
-                   const float *__restrict__ k_scale,  // int8 pages only
-                   const float *__restrict__ v_scale,
-                   const int *__restrict__ tables,
-                   const int *__restrict__ lengths,
-                   float *__restrict__ part_acc,   // [S, Hkv, n_split, G, D]
-                   float *__restrict__ part_ml,    // [S, Hkv, n_split, G, 2]
-                   int hq, int hkv, int page_size, int mp,
-                   int pages_per_split, int group, float scale) {
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  using Row = KRow<KV>;
-  constexpr int kScoreUnroll = Row::kUnroll;
-  constexpr int kLanesPerTok = D / 16;       // 16 elements per lane
-  constexpr int kTokPerPass = 32 / kLanesPerTok;
-  constexpr int kCols = D / 32;              // PV columns per lane
-  constexpr int kPvUnroll = pv_unroll(D);
-  extern __shared__ __align__(16) float smem[];
-  const int rows_all = hq / hkv;
-  const int n_groups = (rows_all + group - 1) / group;
-  // This block's rows r0 .. r0 + rows of the kv group's G.
-  const int r0 = blockIdx.y % n_groups * group;
-  const int rows = min(group, rows_all - r0);
-  float *qs = smem;                                       // [R, D]
-  float *sc_all = qs + rows * D;                          // [4, R, P]
-  float *wm = sc_all + kWarps * rows * page_size;         // [4, R]
-  float *wl = wm + kWarps * rows;                         // [4, R]
-  float *wacc = wl + kWarps * rows;                       // [4, R, D]
-
-  const int s = blockIdx.x;
-  const int hk = blockIdx.y / n_groups;
-  const int split = blockIdx.z;
-  const int n_split = gridDim.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  float *sc = sc_all + warp * rows * page_size;           // this warp's
-
-  // Row r = g: head hk*G + g (heads h // G == hk share kv head hk).
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = r0 + i / D;
-    qs[i] = __bfloat162float(
-        q[(static_cast<long long>(s) * hq + hk * rows_all + r) * D + i % D]);
-  }
-  __syncthreads();
-
-  const int pos = lengths[s];   // the query's position (attendable)
-  float m_run[kGroupRows], l_run[kGroupRows], acc[kGroupRows][kCols];
-#pragma unroll
-  for (int r = 0; r < kGroupRows; ++r) {
-    m_run[r] = skyt::kNegInf;
-    l_run[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
-
-  const int *trow = tables + static_cast<long long>(s) * mp;
-  const int n_visit = pos < 0 ? 0 : min(mp, pos / page_size + 1);
-  const int j_end = min(n_visit, (split + 1) * pages_per_split);
-  const long long page_elems = static_cast<long long>(page_size) * D;
-  const int sub = lane % kLanesPerTok;
-
-  for (int j = split * pages_per_split + warp; j < j_end; j += kWarps) {
-    const int page = trow[j];
-    if (page == 0 && j != 0) continue;   // unreserved entry
-    const long long ph = static_cast<long long>(page) * hkv + hk;
-    const KV *kp = k_pool + ph * page_elems;
-    const KV *vp = v_pool + ph * page_elems;
-    const float *ksp = nullptr, *vsp = nullptr;
-    if constexpr (kQuant) {
-      ksp = k_scale + ph * page_size;
-      vsp = v_scale + ph * page_size;
-    }
-
-    // Scores: kScoreUnroll token passes of loads in flight at a time.
-    for (int t0 = 0; t0 < page_size; t0 += kTokPerPass * kScoreUnroll) {
-      uint4 kr[kScoreUnroll][Row::kWords];
-      float ks[kScoreUnroll];
-#pragma unroll
-      for (int u = 0; u < kScoreUnroll; ++u) {
-        const int t = t0 + u * kTokPerPass + lane / kLanesPerTok;
-        const int tc = t < page_size ? t : 0;
-        Row::load(kp + static_cast<long long>(tc) * D + sub * 16, kr[u]);
-        ks[u] = 1.f;
-        if constexpr (kQuant) ks[u] = ksp[tc];
-      }
-#pragma unroll
-      for (int u = 0; u < kScoreUnroll; ++u) {
-        const int t = t0 + u * kTokPerPass + lane / kLanesPerTok;
-        float kv[16];
-        Row::convert(kr[u], kv);
-        const bool in_page = t < page_size;
-        const int idx = j * page_size + t;
-#pragma unroll
-        for (int r = 0; r < kGroupRows; ++r) {
-          if (r < rows) {
-            const float4 *qv =
-                reinterpret_cast<const float4 *>(qs + r * D + sub * 16);
-            float dot = 0.f;
-#pragma unroll
-            for (int w = 0; w < 4; ++w) {
-              const float4 qq = qv[w];
-              dot += kv[4 * w] * qq.x + kv[4 * w + 1] * qq.y +
-                     kv[4 * w + 2] * qq.z + kv[4 * w + 3] * qq.w;
-            }
-#pragma unroll
-            for (int off = kLanesPerTok / 2; off > 0; off >>= 1)
-              dot += __shfl_xor_sync(0xffffffffu, dot, off);
-            if (sub == 0 && in_page) {
-              float st = dot * scale;
-              if constexpr (kQuant) st *= ks[u];
-              sc[r * page_size + t] = idx <= pos ? st : skyt::kNegInf;
-            }
-          }
-        }
-      }
-    }
-    __syncwarp();
-
-    // Online-softmax update per row: p (times the value scale for int8
-    // pages, rounded to bf16) replaces the scores, and this page's
-    // rescale multiplies the running sums.
-#pragma unroll
-    for (int r = 0; r < kGroupRows; ++r) {
-      if (r < rows) {
-        float mx = skyt::kNegInf;
-        for (int t = lane; t < page_size; t += 32)
-          mx = fmaxf(mx, sc[r * page_size + t]);
-        mx = skyt::warp_max(mx);
-        const float m_new = fmaxf(m_run[r], mx);
-        float sum = 0.f;
-        for (int t = lane; t < page_size; t += 32) {
-          const float p = __expf(sc[r * page_size + t] - m_new);
-          float w = p;
-          if constexpr (kQuant) w *= vsp[t];
-          sc[r * page_size + t] = skyt::round_bf16(w);
-          sum += p;
-        }
-        sum = skyt::warp_sum(sum);
-        const float alpha = __expf(m_run[r] - m_new);
-        m_run[r] = m_new;
-        l_run[r] = alpha * l_run[r] + sum;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-      }
-    }
-    __syncwarp();
-
-    // PV: lane owns columns lane*kCols .. +kCols of every row.
-    for (int t0 = 0; t0 < page_size; t0 += kPvUnroll) {
-      float vr[kPvUnroll][kCols];
-#pragma unroll
-      for (int u = 0; u < kPvUnroll; ++u) {
-        const int t = t0 + u < page_size ? t0 + u : 0;
-        load_row_cols<D>(vp + static_cast<long long>(t) * D + lane * kCols,
-                         vr[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < kPvUnroll; ++u) {
-        if (t0 + u < page_size) {
-#pragma unroll
-          for (int r = 0; r < kGroupRows; ++r) {
-            if (r < rows) {
-              const float p = sc[r * page_size + t0 + u];
-#pragma unroll
-              for (int c = 0; c < kCols; ++c) acc[r][c] += p * vr[u][c];
-            }
-          }
-        }
-      }
-    }
-    __syncwarp();   // the next page overwrites this warp's scores
-  }
-
-  // Merge the 4 warps' states in shared memory.
-#pragma unroll
-  for (int r = 0; r < kGroupRows; ++r) {
-    if (r < rows) {
-      if (lane == 0) {
-        wm[warp * rows + r] = m_run[r];
-        wl[warp * rows + r] = l_run[r];
-      }
-#pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        wacc[(warp * rows + r) * D + lane * kCols + c] = acc[r][c];
-    }
-  }
-  __syncthreads();
-  const long long part =
-      ((static_cast<long long>(s) * hkv + hk) * n_split + split) * rows_all +
-      r0;
-  for (int i = tid; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    float m = skyt::kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, wm[w * rows + r]);
-    float l = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float e = __expf(wm[w * rows + r] - m);
-      l += wl[w * rows + r] * e;
-      a += wacc[(w * rows + r) * D + c] * e;
-    }
-    part_acc[(part + r) * D + c] = a;
-    if (c == 0) {
-      part_ml[(part + r) * 2] = m;
-      part_ml[(part + r) * 2 + 1] = l;
-    }
-  }
-}
-
-// ------------------------------------------------------------ T > 1
 namespace verify {
 
 // Page rows a ring stage holds at most: a page of up to 64 rows is one
-// tile, a longer one (a multiple of 64 rows) several.
+// tile, a longer one several.
 constexpr int kTileRows = 64;
 constexpr int kMaxWarps = 8;
 constexpr int kMaxThreads = kMaxWarps * 32;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // A [rows, D] tile of KV in shared memory: D / kCols panels of
 // rows x kRowBytes, as TMA writes them: 128-byte rows under the 128-byte
@@ -535,15 +197,15 @@ __host__ __device__ inline size_t slice_bytes(int d, bool quant,
 
 // A block's dynamic shared memory (ops/paged_attention.py verify_plan
 // computes the same): 1024 bytes to align the ring, the larger of
-// walk_bytes and slice_bytes, the warps' (m, l) for 16 rows each, and one
-// mbarrier a stage.
+// walk_bytes and slice_bytes, the warps' (m, l) for 16 rows each, one
+// mbarrier a stage, and 16 bytes for the block's ticket.
 __host__ __device__ inline size_t smem_bytes(int d, bool quant, int rows,
                                              int stages, int m_tiles,
                                              int warps) {
   const size_t walk = walk_bytes(d, quant, rows, stages, m_tiles);
   const size_t slices = slice_bytes(d, quant, warps);
   return 1024 + (walk > slices ? walk : slices) +
-         2 * size_t(warps) * 16 * 4 + size_t(stages) * 8;
+         2 * size_t(warps) * 16 * 4 + size_t(stages) * 8 + 16;
 }
 
 // Byte offset of (row, byte) in one panel of kRowBytes-byte rows under
@@ -612,14 +274,19 @@ struct Params {
   const bf16 *q;
   const float *k_scale, *v_scale;
   const int *tables, *lengths;
+  bf16 *out;                   // [S, T, Hq, D]
   float *part_acc, *part_ml;   // [S, Hkv, n_split, R, D], [..., R, 2]
+  int *tickets;                // [3, S, Hkv, n_mgroups], 0 between calls
   int t_count, hq, hkv, page_size, mp, n_split, m_tiles, n_mgroups,
-      key_splits, tile_rows, stages;
+      key_splits, tile_rows, tail_rows, stages, mergers;
   float scale_log2;   // d^-0.5 * log2(e)
 };
 
+// The pools' maps: boxes of tile_rows rows, and of tail_rows rows for the
+// last tile of a page that tile_rows does not divide (the same maps
+// otherwise).
 struct Maps {
-  CUtensorMap k, v;
+  CUtensorMap k, v, k_tail, v_tail;
 };
 
 // The tiles one block walks, in order: pages j = split, split + n_split,
@@ -651,17 +318,148 @@ __device__ __forceinline__ void issue_tile(const Params &p, const Maps &maps,
   const int tr = p.tile_rows;
   const int kv_tile = tr * D * static_cast<int>(sizeof(KV));
   const int row0 = (trow[w.j] * p.hkv + hk) * p.page_size + w.st * tr;
-  skyt::mbar_expect_tx(bar, 2 * kv_tile + (L::kQuant ? 2 * tr * 4 : 0));
+  const int valid = min(tr, p.page_size - w.st * tr);   // the page's rows
+  const bool tail = valid < tr && p.tail_rows != tr;
+  const int box = tail ? p.tail_rows : tr;
+  const bool bulk = L::kQuant && p.page_size % 4 == 0;
+  skyt::mbar_expect_tx(bar, 2 * box * D * static_cast<int>(sizeof(KV)) +
+                                (bulk ? 2 * valid * 4 : 0));
+  const CUtensorMap *km = tail ? &maps.k_tail : &maps.k;
+  const CUtensorMap *vm = tail ? &maps.v_tail : &maps.v;
 #pragma unroll
   for (int pn = 0; pn < L::kPanels; ++pn) {
-    tma_load_2d(dst + pn * tr * L::kRowBytes, &maps.k, bar, pn * L::kCols,
-                row0);
-    tma_load_2d(dst + kv_tile + pn * tr * L::kRowBytes, &maps.v, bar,
+    tma_load_2d(dst + pn * tr * L::kRowBytes, km, bar, pn * L::kCols, row0);
+    tma_load_2d(dst + kv_tile + pn * tr * L::kRowBytes, vm, bar,
                 pn * L::kCols, row0);
   }
-  if constexpr (L::kQuant) {
-    bulk_load(dst + 2 * kv_tile, p.k_scale + row0, tr * 4, bar);
-    bulk_load(dst + 2 * kv_tile + tr * 4, p.v_scale + row0, tr * 4, bar);
+  if (bulk) {
+    bulk_load(dst + 2 * kv_tile, p.k_scale + row0, valid * 4, bar);
+    bulk_load(dst + 2 * kv_tile + tr * 4, p.v_scale + row0, valid * 4, bar);
+  }
+}
+
+// Four output columns c .. c+3 of the block's row rr (token rr / G) as
+// bf16.
+template <int D>
+__device__ __forceinline__ void store_out(const Params &p, int s, int hk,
+                                          int rr, int c, float4 v) {
+  const int g_count = p.hq / p.hkv;
+  const int t = rr / g_count;
+  uint2 w;
+  w.x = skyt::pack_bf16(v.x, v.y);
+  w.y = skyt::pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2 *>(
+      p.out + ((static_cast<long long>(s) * p.t_count + t) * p.hq +
+               hk * g_count + rr - t * g_count) * D + c) = w;
+}
+
+// Output items (four columns of a row) a merging thread takes at once.
+constexpr int kMergeItems = 4;
+
+// Counter `which` of this block's (slot, kv head, row group), the groups'
+// counters one after another: 0, the tickets, drawn as blocks start; 1,
+// the partials written; 2, the mergers done waiting.
+__device__ __forceinline__ int *counter(const Params &p, int which) {
+  return p.tickets + (which * gridDim.x + blockIdx.x) * gridDim.y +
+         blockIdx.y;
+}
+
+// After this block's partial of rows r0 .. r0 + rows is in global memory:
+// the block counts its partial done (a release add). The blocks that drew
+// the group's last `mergers` tickets (ticket >= n_split - mergers) then
+// wait until all n_split partials are done (an acquire load) and each
+// merges its share of the rows into the output; the others exit. The
+// waits end: a block holds a ticket once it runs, so the last ticket's
+// holder waits only for running blocks, and the plan keeps the mergers
+// that could wait for a block not yet started below the SMs (mergers *
+// groups < SMs), so that block always finds a place to run.
+template <int D>
+__device__ __forceinline__ void merge_last(const Params &p, int s, int hk,
+                                           int r0, int rows, int ticket) {
+  const int tid = threadIdx.x;
+  __syncthreads();   // the block's partial is written
+  // Release, cumulative over the barrier: the partial before the count.
+  if (tid == 0)
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(
+                     counter(p, 1))
+                 : "memory");
+  const int merger = ticket - (p.n_split - p.mergers);
+  if (merger < 0) return;
+  if (tid == 0) {
+    int n = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                   : "=r"(n)
+                   : "l"(counter(p, 1))
+                   : "memory");
+    } while (n < p.n_split);
+  }
+  __syncthreads();   // every partial is visible
+  const int ra = merger * rows / p.mergers;
+  r0 += ra;
+  rows = (merger + 1) * rows / p.mergers - ra;
+  // Each item folds the n_split partials in split order, as an online
+  // softmax does: m' = max(m, m_i), l = l 2^(m - m') + l_i 2^(m_i - m'),
+  // acc the same; out = acc / l (l == 0 gives 0). A block with no
+  // visible tile left l_i = 0 and a zero acc. The loads (L2: other SMs
+  // wrote them) wait on nothing, so a thread's kMergeItems items x 4
+  // splits issue together; an item past the end repeats the last.
+  constexpr int kCols4 = D / 4;
+  const int rows_all = p.t_count * (p.hq / p.hkv);
+  const long long base =
+      (static_cast<long long>(s) * p.hkv + hk) * p.n_split * rows_all + r0;
+  const float2 *ml = reinterpret_cast<const float2 *>(p.part_ml) + base;
+  const float4 *acc =
+      reinterpret_cast<const float4 *>(p.part_acc + base * D);
+  const int n_items = rows * kCols4;
+  const int step = static_cast<int>(blockDim.x);
+  for (int i0 = tid; i0 < n_items; i0 += kMergeItems * step) {
+    int row[kMergeItems], item[kMergeItems];
+    float m[kMergeItems], l[kMergeItems];
+    float4 a[kMergeItems];
+#pragma unroll
+    for (int u = 0; u < kMergeItems; ++u) {
+      item[u] = min(i0 + u * step, n_items - 1);
+      row[u] = item[u] / kCols4;
+      m[u] = skyt::kNegInf;
+      l[u] = 0.f;
+      a[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll 4
+    for (int k = 0; k < p.n_split; ++k) {
+#pragma unroll
+      for (int u = 0; u < kMergeItems; ++u) {
+        const float2 v = __ldcg(ml + k * rows_all + row[u]);
+        const float4 x = __ldcg(
+            acc + static_cast<long long>(k) * rows_all * kCols4 + item[u]);
+        const float m_new = fmaxf(m[u], v.x);
+        const float c_old = skyt::ex2(m[u] - m_new);
+        const float c_new = skyt::ex2(v.x - m_new);
+        m[u] = m_new;
+        l[u] = l[u] * c_old + v.y * c_new;
+        a[u].x = a[u].x * c_old + x.x * c_new;
+        a[u].y = a[u].y * c_old + x.y * c_new;
+        a[u].z = a[u].z * c_old + x.z * c_new;
+        a[u].w = a[u].w * c_old + x.w * c_new;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMergeItems; ++u) {
+      const int i = i0 + u * step;
+      const float il = l[u] > 0.f ? 1.f / l[u] : 0.f;
+      if (i < n_items)
+        store_out<D>(p, s, hk, r0 + i / kCols4, i % kCols4 * 4,
+                     make_float4(a[u].x * il, a[u].y * il, a[u].z * il,
+                                 a[u].w * il));
+    }
+  }
+  // The last merger to get here leaves the counters at 0 for the next
+  // call: every block has drawn its ticket and counted its partial, and
+  // every merger is past its wait.
+  if (tid == 0 && atomicAdd(counter(p, 2), 1) == p.mergers - 1) {
+    *counter(p, 0) = 0;
+    *counter(p, 1) = 0;
+    *counter(p, 2) = 0;
   }
 }
 
@@ -687,10 +485,12 @@ paged_decode_verify(const Params p, const __grid_constant__ Maps maps) {
       smem + (walk_b > slice_b ? walk_b : slice_b));         // [warps, 16]
   float *wl = wm + warps * 16;                              // [warps, 16]
   uint64_t *full = reinterpret_cast<uint64_t *>(wl + warps * 16);
+  int *ticket_at = reinterpret_cast<int *>(full + p.stages);
 
   const int s = blockIdx.x;
   const int hk = blockIdx.y / p.n_mgroups;
-  const int r0 = blockIdx.y % p.n_mgroups * p.m_tiles * 16;
+  const int mgroup = blockIdx.y % p.n_mgroups;
+  const int r0 = mgroup * p.m_tiles * 16;
   const int split = blockIdx.z;
   const int g_count = p.hq / p.hkv;
   const int rows_all = p.t_count * g_count;
@@ -698,6 +498,7 @@ paged_decode_verify(const Params p, const __grid_constant__ Maps maps) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int mt = warp / p.key_splits, kslice = warp % p.key_splits;
   const int g = lane / 4, qd = lane % 4;
+  const bool single = p.n_split == 1;   // the block's sum is the output
 
   const int pos = p.lengths[s];   // the first token's position
   const int last = pos + p.t_count - 1;
@@ -707,15 +508,28 @@ paged_decode_verify(const Params p, const __grid_constant__ Maps maps) {
       ((static_cast<long long>(s) * p.hkv + hk) * p.n_split + split) *
           rows_all + r0;
 
+  // The block's ticket, drawn as it starts by its last thread (thread 0
+  // issues the tiles), read after the walk's barriers.
+  if (!single && tid == blockDim.x - 1)
+    *ticket_at = atomicAdd(counter(p, 0), 1);
+
   Walk walk{split, -1};
   if (!walk.next(trow, n_visit, p.n_split, p.page_size, tr, last)) {
-    // No visible tile: a partial the merge weighs 0.
-    for (int i = tid; i < rows * D; i += blockDim.x)
-      p.part_acc[part * D + i] = 0.f;
-    for (int r = tid; r < rows; r += blockDim.x) {
-      p.part_ml[(part + r) * 2] = skyt::kNegInf;
-      p.part_ml[(part + r) * 2 + 1] = 0.f;
+    // No visible tile: zeros, or a partial the merge weighs 0.
+    if (single) {
+      for (int i = tid; i < rows * (D / 4); i += blockDim.x)
+        store_out<D>(p, s, hk, r0 + i / (D / 4), i % (D / 4) * 4,
+                     make_float4(0.f, 0.f, 0.f, 0.f));
+      return;
     }
+    for (int r = tid; r < rows; r += blockDim.x)
+      reinterpret_cast<float2 *>(p.part_ml)[part + r] =
+          make_float2(skyt::kNegInf, 0.f);
+    for (int i = tid; i < rows * (D / 4); i += blockDim.x)
+      reinterpret_cast<float4 *>(p.part_acc + part * D)[i] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+    merge_last<D>(p, s, hk, r0, rows, *ticket_at);
     return;
   }
 
@@ -739,9 +553,22 @@ paged_decode_verify(const Params p, const __grid_constant__ Maps maps) {
     }
   }
 
-  // The ring: thread 0 issues the first `stages` tiles at once.
+  // The ring: thread 0 issues the first `stages` tiles at once. Over int8
+  // pages whose scales come by bulk copies and whose last tile is short,
+  // it first zeroes, in every stage, the scale slots that tile's copies
+  // leave as they were (so no stage's first use reads unset bytes).
+  const bool scale_bulk = kQuant && p.page_size % 4 == 0;
   Walk ahead = walk;   // the last tile issued
   if (tid == 0) {
+    const int last_rows = p.page_size - (p.page_size - 1) / tr * tr;
+    if (scale_bulk && last_rows < tr) {
+      for (int st = 0; st < p.stages; ++st) {
+        float *sc =
+            reinterpret_cast<float *>(smem + st * sbytes + 2 * kv_tile);
+        for (int i = last_rows; i < tr; ++i) sc[i] = sc[tr + i] = 0.f;
+      }
+      skyt::fence_async_smem();   // before the copies into the same bytes
+    }
     for (int i = 0; i < p.stages; ++i) skyt::mbar_init(&full[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     issue_tile<D, KV>(p, maps, trow, ahead, hk, smem, &full[0]);
@@ -799,7 +626,6 @@ paged_decode_verify(const Params p, const __grid_constant__ Maps maps) {
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
   float m_run[2] = {skyt::kNegInf, skyt::kNegInf}, l_run[2] = {0.f, 0.f};
 
-  const int chunks = tr / 16;
   const int mi = lane >> 3, r8 = lane & 7;   // ldmatrix: matrix, its row
   int n = 0;
   do {
@@ -807,10 +633,32 @@ paged_decode_verify(const Params p, const __grid_constant__ Maps maps) {
     skyt::mbar_wait(&full[stage], (n / p.stages) & 1);
     const uint8_t *kt = smem + stage * sbytes;
     const uint8_t *vt = kt + kv_tile;
-    const float *ksc = reinterpret_cast<const float *>(vt + kv_tile);
-    const float *vsc = ksc + tr;
     const int k0 = walk.j * p.page_size + walk.st * tr;
-    const bool masked = k0 + tr - 1 > pos;   // some key past a row's limit
+    // Keys >= valid lie past the page's end: masked like the positions a
+    // row cannot see (their int8 scales are finite: 0, or an earlier
+    // tile's).
+    const int valid = min(tr, p.page_size - walk.st * tr);
+    const bool ragged = valid < tr;
+    const int chunks = (ragged ? p.tail_rows : tr) / 16;
+    const bool masked = ragged || k0 + tr - 1 > pos;   // some key masked
+    const int lim_t[2] = {min(lim[0], k0 + valid - 1),
+                          min(lim[1], k0 + valid - 1)};
+    [[maybe_unused]] float *ksc =
+        reinterpret_cast<float *>(smem + stage * sbytes + 2 * kv_tile);
+    [[maybe_unused]] float *vsc = ksc + tr;
+    if constexpr (kQuant) {
+      if (!scale_bulk) {   // this tile's scales, by plain loads
+        const long long row0 =
+            static_cast<long long>(trow[walk.j] * p.hkv + hk) *
+                p.page_size + walk.st * tr;
+        for (int i = tid; i < 2 * tr; i += blockDim.x) {
+          const int k = i % tr;
+          (i < tr ? ksc : vsc)[k] =
+              k < valid ? (i < tr ? p.k_scale : p.v_scale)[row0 + k] : 0.f;
+        }
+        __syncthreads();
+      }
+    }
 
     for (int c = kslice; c < chunks; c += p.key_splits) {
       // S [16 rows, 16 keys] = Q K^T: two n-tiles of 8 keys, each summed
@@ -871,7 +719,7 @@ paged_decode_verify(const Params p, const __grid_constant__ Maps maps) {
           const int key = c * 16 + nt * 8 + 2 * qd + (e & 1);
           float v = sc[nt][e] * p.scale_log2;
           if constexpr (kQuant) v *= ksc[key];
-          if (masked && k0 + key > lim[e >> 1]) v = skyt::kNegInf;
+          if (masked && k0 + key > lim_t[e >> 1]) v = skyt::kNegInf;
           sc[nt][e] = v;
           mx[e >> 1] = fmaxf(mx[e >> 1], v);
         }
@@ -982,10 +830,11 @@ paged_decode_verify(const Params p, const __grid_constant__ Maps maps) {
     m_blk[h] = mm;
     l_blk[h] = ll;
     f[h] = skyt::ex2(m_run[h] - mm);
+    if (single) f[h] = ll > 0.f ? f[h] / ll : 0.f;
   }
-  // Each warp's O, rescaled to the block's m, into its own slice; then
-  // the key splits' slices are summed into the partial, 16 bytes a
-  // thread.
+  // Each warp's O, rescaled to the block's m (and divided by l with one
+  // split), into its own slice; then the key splits' slices are summed
+  // into the partial or the output, 16 bytes a thread.
   float *slices = reinterpret_cast<float *>(smem);   // [warps, 16, pitch]
   constexpr int kPitch = L::kOPitch;
 #pragma unroll
@@ -1012,14 +861,13 @@ paged_decode_verify(const Params p, const __grid_constant__ Maps maps) {
       }
     }
   }
-  if (kslice == 0 && qd == 0) {
+  if (!single && kslice == 0 && qd == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = mt * 16 + g + 8 * h;
-      if (r < rows) {
-        p.part_ml[(part + r) * 2] = m_blk[h] * kLn2;
-        p.part_ml[(part + r) * 2 + 1] = l_blk[h];
-      }
+      if (r < rows)   // m in log2 units, as merge_last reads it
+        reinterpret_cast<float2 *>(p.part_ml)[part + r] =
+            make_float2(m_blk[h], l_blk[h]);
     }
   }
   __syncthreads();
@@ -1036,29 +884,33 @@ paged_decode_verify(const Params p, const __grid_constant__ Maps maps) {
       sum.z += v.z;
       sum.w += v.w;
     }
-    *reinterpret_cast<float4 *>(p.part_acc + (part + r) * D + c) = sum;
+    if (single)
+      store_out<D>(p, s, hk, r0 + r, c, sum);
+    else
+      *reinterpret_cast<float4 *>(p.part_acc + (part + r) * D + c) = sum;
   }
+  if (!single) merge_last<D>(p, s, hk, r0, rows, *ticket_at);
 }
 
 struct Args {
   const void *q, *k_pool, *v_pool, *k_scale, *v_scale, *tables, *lengths;
-  void *out, *part_acc, *part_ml;
+  void *out, *part_acc, *part_ml, *tickets;
   int slots, t_count, hq, hkv, page_size, n_pages, mp, n_split, m_tiles,
-      n_mgroups, key_splits, tile_rows, stages;
+      n_mgroups, key_splits, tile_rows, tail_rows, stages, mergers;
   float scale;
 };
 
 // The 2-d map of a pool viewed as [rows, D] with boxes of kCols x
-// tile_rows, swizzled as Tile says.
+// box_rows, swizzled as Tile says.
 template <typename KV, int D>
 bool encode_pool(CUtensorMap *map, const void *base, long long rows,
-                 int tile_rows) {
+                 int box_rows) {
   using L = Tile<KV, D>;
   const PFN_cuTensorMapEncodeTiled_v12000 fn = skyt::encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {cuuint64_t(D), cuuint64_t(rows)};
   const cuuint64_t strides[1] = {cuuint64_t(D) * sizeof(KV)};
-  const cuuint32_t box[2] = {cuuint32_t(L::kCols), cuuint32_t(tile_rows)};
+  const cuuint32_t box[2] = {cuuint32_t(L::kCols), cuuint32_t(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   return fn(map,
             L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8
@@ -1071,106 +923,63 @@ bool encode_pool(CUtensorMap *map, const void *base, long long rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace verify
-
-template <int D>
-__global__ void __launch_bounds__(D)
-paged_decode_merge(const float *__restrict__ part_acc,
-                   const float *__restrict__ part_ml,
-                   bf16 *__restrict__ out, int t_count, int hq, int hkv,
-                   int n_split) {
-  const int s = blockIdx.x;
-  const int hk = blockIdx.y;
-  const int r = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int g_count = hq / hkv;
-  const int rows = t_count * g_count;
-  const long long base =
-      (static_cast<long long>(s) * hkv + hk) * n_split * rows + r;
-  float m = skyt::kNegInf;
-  for (int i = 0; i < n_split; ++i)
-    m = fmaxf(m, part_ml[(base + i * rows) * 2]);
-  float l = 0.f, a = 0.f;
-  for (int i = 0; i < n_split; ++i) {
-    const long long idx = base + i * rows;
-    const float w = __expf(part_ml[idx * 2] - m);
-    l += part_ml[idx * 2 + 1] * w;
-    a += part_acc[idx * D + tid] * w;
+struct MapKey {
+  const void *base;
+  long long rows;
+  int box_rows;
+  bool operator==(const MapKey &o) const {
+    return base == o.base && rows == o.rows && box_rows == o.box_rows;
   }
-  // Row r = t*G + g goes to out[s, t, hk*G + g]: token t's G rows are
-  // contiguous there too.
-  const int t = r / g_count;
-  out[((static_cast<long long>(s) * t_count + t) * hq + hk * g_count +
-       r - t * g_count) * D + tid] = __float2bfloat16(l == 0.f ? 0.f :
-                                                       a / l);
-}
+};
 
-template <int D, typename KV>
-int launch(const Args &a, int group, cudaStream_t stream) {
-  const int rows = a.hq / a.hkv;
-  const int n_groups = (rows + group - 1) / group;
-  const size_t bytes = pass1_smem(group, D, a.page_size);
-  if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_split<D, KV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
+struct MapKeyHash {
+  size_t operator()(const MapKey &k) const {
+    return std::hash<const void *>()(k.base) ^
+           (std::hash<long long>()(k.rows) * 31) ^
+           (static_cast<size_t>(k.box_rows) << 20);
   }
-  const int n_split = n_splits(a);
-  paged_decode_split<D, KV>
-      <<<dim3(a.slots, a.hkv * n_groups, n_split), kThreads, bytes,
-         stream>>>(
-          static_cast<const bf16 *>(a.q), static_cast<const KV *>(a.k_pool),
-          static_cast<const KV *>(a.v_pool),
-          static_cast<const float *>(a.k_scale),
-          static_cast<const float *>(a.v_scale),
-          static_cast<const int *>(a.tables),
-          static_cast<const int *>(a.lengths),
-          static_cast<float *>(a.part_acc), static_cast<float *>(a.part_ml),
-          a.hq, a.hkv, a.page_size, a.mp, a.pages_per_split, group, a.scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  paged_decode_merge<D><<<dim3(a.slots, a.hkv, rows), D, 0, stream>>>(
-      static_cast<const float *>(a.part_acc),
-      static_cast<const float *>(a.part_ml), static_cast<bf16 *>(a.out),
-      1, a.hq, a.hkv, n_split);
-  return static_cast<int>(cudaGetLastError());
+};
+
+// encode_pool, once per (pool, rows, box rows) of each (KV, D): a layer
+// call looks its maps up instead of encoding them.
+template <typename KV, int D>
+bool pool_map(CUtensorMap *map, const void *base, long long rows,
+              int box_rows) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  const MapKey key{base, rows, box_rows};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (!encode_pool<KV, D>(map, base, rows, box_rows)) return false;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return true;
 }
 
-// Rows a block keeps state for: up to kGroupRows, fewer while the grid
-// would leave the card's SMs without two blocks each (MQA decode:
-// gemma-2b's one kv head gives 8 slots x 8 splits = 64 blocks a group).
-int choose_group(const Args &a, int sms) {
-  const int rows = a.hq / a.hkv;
-  int group = std::min(rows, kGroupRows);
-  const long long pairs = static_cast<long long>(a.slots) * a.hkv *
-                          n_splits(a);
-  while (group > 1 && pairs * ((rows + group - 1) / group) < 2LL * sms)
-    group = (group + 1) / 2;
-  return group;
-}
-
+// The kernel's dynamic shared-memory limit, raised once per device to the
+// largest size asked for.
 template <int D, typename KV>
-int launch_t(const Args &a, cudaStream_t stream) {
-  int dev = 0, sms = 0;
+cudaError_t allow_smem(int bytes) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> allowed[kDevices];
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch<D, KV>(a, choose_group(a, sms), stream);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && allowed[dev].load() >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(paged_decode_verify<D, KV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < kDevices) {
+    int cur = allowed[dev].load();
+    while (cur < bytes && !allowed[dev].compare_exchange_weak(cur, bytes)) {
+    }
+  }
+  return err;
 }
-
-template <typename KV>
-int launch_d(const Args &a, int d, cudaStream_t stream) {
-  if (d == 64) return launch_t<64, KV>(a, stream);
-  if (d == 128) return launch_t<128, KV>(a, stream);
-  if (d == 256) return launch_t<256, KV>(a, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-namespace verify {
 
 template <int D, typename KV>
 int launch(const Args &a, cudaStream_t stream) {
@@ -1179,37 +988,40 @@ int launch(const Args &a, cudaStream_t stream) {
       static_cast<long long>(a.n_pages) * a.hkv * a.page_size;
   Maps maps;
   if (pool_rows >= (1LL << 31) ||
-      !encode_pool<KV, D>(&maps.k, a.k_pool, pool_rows, a.tile_rows) ||
-      !encode_pool<KV, D>(&maps.v, a.v_pool, pool_rows, a.tile_rows))
+      !pool_map<KV, D>(&maps.k, a.k_pool, pool_rows, a.tile_rows) ||
+      !pool_map<KV, D>(&maps.v, a.v_pool, pool_rows, a.tile_rows))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a.tail_rows == a.tile_rows) {
+    maps.k_tail = maps.k;
+    maps.v_tail = maps.v;
+  } else if (!pool_map<KV, D>(&maps.k_tail, a.k_pool, pool_rows,
+                              a.tail_rows) ||
+             !pool_map<KV, D>(&maps.v_tail, a.v_pool, pool_rows,
+                              a.tail_rows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int warps = a.m_tiles * a.key_splits;
   const size_t bytes = smem_bytes(D, L::kQuant, a.tile_rows, a.stages,
                                   a.m_tiles, warps);
   if (bytes > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_verify<D, KV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  cudaError_t err = allow_smem<D, KV>(static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const Params p{static_cast<const bf16 *>(a.q),
                  static_cast<const float *>(a.k_scale),
                  static_cast<const float *>(a.v_scale),
                  static_cast<const int *>(a.tables),
                  static_cast<const int *>(a.lengths),
+                 static_cast<bf16 *>(a.out),
                  static_cast<float *>(a.part_acc),
                  static_cast<float *>(a.part_ml),
+                 static_cast<int *>(a.tickets),
                  a.t_count, a.hq, a.hkv, a.page_size, a.mp, a.n_split,
-                 a.m_tiles, a.n_mgroups, a.key_splits, a.tile_rows, a.stages,
+                 a.m_tiles, a.n_mgroups, a.key_splits, a.tile_rows,
+                 a.tail_rows, a.stages, a.mergers,
                  a.scale * 1.4426950408889634f};
   paged_decode_verify<D, KV>
       <<<dim3(a.slots, a.hkv * a.n_mgroups, a.n_split), warps * 32, bytes,
          stream>>>(p, maps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = a.t_count * (a.hq / a.hkv);
-  paged_decode_merge<D><<<dim3(a.slots, a.hkv, rows), D, 0, stream>>>(
-      static_cast<const float *>(a.part_acc),
-      static_cast<const float *>(a.part_ml), static_cast<bf16 *>(a.out),
-      a.t_count, a.hq, a.hkv, a.n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1227,36 +1039,8 @@ int launch_d(const Args &a, int d, cudaStream_t stream) {
 
 SKYT_DEFINE_ERROR_STRING
 
-// One query a slot. q [S, Hq, D] bf16 contiguous; k_pool/v_pool
-// [n_pages, Hkv, P, D] contiguous (one layer), bf16, or int8 when
-// kv_int8 != 0 with k_scale/v_scale [n_pages, Hkv, P] f32 contiguous
-// (else ignored); tables [S, mp] int32; lengths [S] int32 (the query
-// sits at lengths[s]); part_acc f32 [S, Hkv, n_split, G, D] and part_ml
-// f32 [S, Hkv, n_split, G, 2] scratch with n_split = ceil(mp /
-// pages_per_split); out [S, Hq, D] bf16 contiguous; D is 64, 128 or
-// 256. A page size whose pass-1 shared memory passes kSmemLimit returns
-// cudaErrorInvalidValue.
-extern "C" int skyt_paged_decode(const void *q, const void *k_pool,
-                                 const void *v_pool, const void *k_scale,
-                                 const void *v_scale, const void *tables,
-                                 const void *lengths, void *out,
-                                 void *part_acc, void *part_ml, int slots,
-                                 int hq, int hkv, int d, int page_size,
-                                 int mp, int pages_per_split, int kv_int8,
-                                 float scale, void *stream) {
-  if (hkv <= 0 || hq % hkv != 0 || pages_per_split <= 0 ||
-      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q,       k_pool,  v_pool, k_scale,  v_scale,
-               tables,  lengths, out,    part_acc, part_ml,
-               slots,   hq,      hkv,    page_size, mp,
-               pages_per_split,  scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return kv_int8 ? launch_d<int8_t>(a, d, st) : launch_d<bf16>(a, d, st);
-}
-
-// Dynamic shared memory of a verify block (ops/paged_attention.py
-// verify_plan holds the same number).
+// Dynamic shared memory of a block (ops/paged_attention.py verify_plan
+// holds the same number).
 extern "C" int skyt_paged_verify_smem(int d, int kv_int8, int tile_rows,
                                       int stages, int m_tiles,
                                       int key_splits) {
@@ -1265,40 +1049,56 @@ extern "C" int skyt_paged_verify_smem(int d, int kv_int8, int tile_rows,
                                              m_tiles * key_splits));
 }
 
-// T query tokens a slot (the verify step). q [S, T, Hq, D] bf16
-// contiguous, token t at position lengths[s] + t; pools, scales, tables
-// and lengths as skyt_paged_decode's, n_pages pages; out [S, T, Hq, D];
+// T query tokens a slot (T = 1: a decode step; T > 1: the verify step).
+// q [S, T, Hq, D] bf16 contiguous, token t at position lengths[s] + t;
+// k_pool/v_pool [n_pages, Hkv, P, D] contiguous (one layer), bf16, or
+// int8 when kv_int8 != 0 with k_scale/v_scale [n_pages, Hkv, P] f32
+// contiguous (else ignored); tables [S, mp] int32; lengths [S] int32;
+// out [S, T, Hq, D] bf16; D is 64, 128 or 256. With n_split > 1:
 // part_acc f32 [S, Hkv, n_split, R, D] and part_ml f32
-// [S, Hkv, n_split, R, 2] with R = T*Hq/Hkv. The plan (ops/
+// [S, Hkv, n_split, R, 2] scratch (R = T*Hq/Hkv) and tickets int32
+// [3, S, Hkv, n_mgroups], 0 before the first call and left 0 by each;
+// with n_split == 1 these three are not touched. The plan (ops/
 // paged_attention.py verify_plan): n_split blocks a (slot, kv head, row
 // group), n_mgroups row groups of m_tiles 16-row tiles, key_splits warps
-// an m-tile, pages cut into tiles of tile_rows rows, a ring of `stages`.
-// Returns cudaErrorInvalidValue on a plan the kernel cannot run.
+// an m-tile, pages cut into tiles of tile_rows rows, the last tile of a
+// page tail_rows rows (its page rows rounded up to 16), a ring of
+// `stages`, `mergers` blocks a group sharing the merge. Returns
+// cudaErrorInvalidValue on a plan the kernel cannot run.
 extern "C" int skyt_paged_verify(
     const void *q, const void *k_pool, const void *v_pool,
     const void *k_scale, const void *v_scale, const void *tables,
     const void *lengths, void *out, void *part_acc, void *part_ml,
-    int slots, int t_count, int hq, int hkv, int d, int page_size,
-    int n_pages, int mp, int n_split, int m_tiles, int n_mgroups,
-    int key_splits, int tile_rows, int stages, int kv_int8, float scale,
-    void *stream) {
+    void *tickets, int slots, int t_count, int hq, int hkv, int d,
+    int page_size, int n_pages, int mp, int n_split, int m_tiles,
+    int n_mgroups, int key_splits, int tile_rows, int tail_rows, int stages,
+    int mergers, int kv_int8, float scale, void *stream) {
   const int rows = hkv > 0 ? t_count * (hq / hkv) : 0;
+  const int tiles = tile_rows > 0 ? (page_size + tile_rows - 1) / tile_rows
+                                  : 0;
+  const int last_rows = page_size - (tiles - 1) * tile_rows;
   if (hkv <= 0 || hq % hkv != 0 || t_count < 1 || slots < 1 || mp < 1 ||
       n_split < 1 || n_split > 65535 || m_tiles < 1 || n_mgroups < 1 ||
       key_splits < 1 || m_tiles * key_splits > verify::kMaxWarps ||
       m_tiles * n_mgroups * 16 < rows ||
       (n_mgroups - 1) * m_tiles * 16 >= rows ||
-      static_cast<long long>(hkv) * n_mgroups > 65535 || tile_rows < 16 ||
-      tile_rows % 16 != 0 || tile_rows > verify::kTileRows ||
-      page_size % tile_rows != 0 || stages < 1 ||
+      static_cast<long long>(hkv) * n_mgroups > 65535 || page_size < 1 ||
+      tile_rows < 16 || tile_rows % 16 != 0 ||
+      tile_rows > verify::kTileRows ||
+      tail_rows != (last_rows + 15) / 16 * 16 || tail_rows > tile_rows ||
+      stages < 1 || mergers < 1 || mergers > n_split ||
+      mergers > rows - (n_mgroups - 1) * m_tiles * 16 || out == nullptr ||
+      (n_split > 1 &&
+       (part_acc == nullptr || part_ml == nullptr || tickets == nullptr)) ||
       (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const verify::Args a{q,         k_pool,    v_pool,     k_scale,
-                       v_scale,   tables,    lengths,    out,
-                       part_acc,  part_ml,   slots,      t_count,
-                       hq,        hkv,       page_size,  n_pages,
-                       mp,        n_split,   m_tiles,    n_mgroups,
-                       key_splits, tile_rows, stages,    scale};
+  const verify::Args a{q,          k_pool,    v_pool,    k_scale,
+                       v_scale,    tables,    lengths,   out,
+                       part_acc,   part_ml,   tickets,   slots,
+                       t_count,    hq,        hkv,       page_size,
+                       n_pages,    mp,        n_split,   m_tiles,
+                       n_mgroups,  key_splits, tile_rows, tail_rows,
+                       stages,     mergers,   scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return kv_int8 ? verify::launch_d<int8_t>(a, d, st)
                  : verify::launch_d<bf16>(a, d, st);

@@ -51,10 +51,8 @@ _SIGNATURES = {
                    [_I] * 8 + [_F, _P])],
     'flash_bwd': [('skyt_flash_bwd',
                    [_P] * 11 + [_LL] * 12 + [_I] * 7 + [_F, _P])],
-    'paged_decode': [('skyt_paged_decode',
-                      [_P] * 10 + [_I] * 8 + [_F, _P]),
-                     ('skyt_paged_verify',
-                      [_P] * 10 + [_I] * 15 + [_F, _P]),
+    'paged_decode': [('skyt_paged_verify',
+                      [_P] * 11 + [_I] * 17 + [_F, _P]),
                      ('skyt_paged_verify_smem', [_I] * 6)],
     'lora': [('skyt_lora', [_P] * 7 + [_I] * 10 + [_P])],
 }

@@ -1,5 +1,5 @@
-"""Paged decode attention: the CUDA kernels of csrc/paged_decode.cu and
-their plain versions (counterpart of skypilot_tpu/ops/paged_attention.py).
+"""Paged decode attention: the CUDA kernel of csrc/paged_decode.cu and
+its plain versions (counterpart of skypilot_tpu/ops/paged_attention.py).
 
 Four wrappers, replacing the four TPU kernels of that module:
 
@@ -21,32 +21,35 @@ What bounds them on an H100: memory bandwidth. A call reads every
 visible K and V row once: 2*Hkv*d*2 B*sum_s(lengths[s]+T) bytes for bf16
 pools, (2*Hkv*d*1 B + 2*Hkv*4 B)*sum_s(lengths[s]+T) for int8, against
 3.35 TB/s, at ~2*T*G flops per byte (16 at T*G = 16) — far below the
-tensor-core ridge. Two kernels (csrc/paged_decode.cu), each splitting a
-(slot, kv head) walk over several blocks whose softmax partials a second
-small pass merges:
+tensor-core ridge. One kernel (csrc/paged_decode.cu paged_decode_verify)
+serves every T, the single-query decode step (T = 1) as the verify step:
+one block per (slot, kv head, split) holds all R = T*G query rows of the
+kv group on the tensor cores (mma.sync, R padded to 16-row tiles), its
+pages (every n_split-th of the slot's row) arriving by TMA into a ring of
+stages ahead of use. The splits' softmax partials are merged inside the
+same launch: the last blocks of a (slot, kv head, row group) to start,
+by a ticket counter, wait for its other blocks and merge the partials in
+split order, so two calls on the same inputs give bit-equal outputs.
+verify_plan picks the splits, warps, tiles, stages, mergers and shared
+memory from the shapes and the card's SM count.
 
-  * T = 1: runs of PAGES_PER_SPLIT pages, one block each and one page
-    per warp on the CUDA cores, a group of at most 4 of the G query rows
-    a block;
-  * T > 1 (the verify step): one block per (slot, kv head, split) holds
-    all R = T*G rows on the tensor cores (mma.sync, R padded to 16-row
-    tiles), its pages (every n_split-th of the slot's row) arriving by
-    TMA into a ring of stages ahead of use. verify_plan picks the
-    splits, warps, stages and shared memory from the shapes and the
-    card's SM count.
-
-Head dims 64, 128 and 256 are built. The verify kernel takes page sizes
-of 16-64 rows in steps of 16 or multiples of 64 (VERIFY_TILE_ROWS rows a
-TMA box), and raises on others.
+Head dims 64, 128 and 256 are built; every page size is taken (a TMA box
+is at most VERIFY_TILE_ROWS rows; a page that its tiles do not divide
+ends in a smaller box of its last rows rounded up to 16, and the box's
+rows past the page are masked).
 
 Skip rule, the TPU kernels': page j is walked iff
 j*P <= lengths[s] + T-1 and (tables[s, j] != 0 or j == 0). A released
 slot (all-zero table row, stale length) reads only dummy page 0.
 
-On a CUDA tensor each wrapper launches its kernel or raises; the plain
-versions (*_reference) run only for CPU tensors.
+On a CUDA tensor each wrapper launches the kernel or raises; the plain
+versions (*_reference) run only for CPU tensors. The kernel's merge
+counters (three int32 per (slot, kv head, row group), zeroed once per
+device and left at 0 by every call) assume the calls on a device are
+issued on one stream, as the engine issues them.
 """
 import collections
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -63,17 +66,15 @@ launches = dict.fromkeys(KERNELS, 0)
 # The same launches by (kernel, query rows a kv head: T*G).
 launches_by_rows: Dict[Tuple[str, int], int] = collections.Counter()
 
-# Pages per block in the T = 1 split pass, one per warp: 8 slots x 8 kv
-# heads at 2048 tokens (32 pages of 64) make 512 blocks.
-PAGES_PER_SPLIT = 4
-# Head dims the kernels are instantiated for.
+# Head dims the kernel is instantiated for.
 HEAD_DIMS = (64, 128, 256)
 
-# The verify kernel (T > 1). Page rows a ring stage (one TMA box) holds:
-# a page of up to 64 rows is one tile, a longer page several. A block of
-# one m-tile over bf16 pages at head_dim 256 takes 32-row tiles: a
-# 64-row ring (2 x 64 KB) would leave it alone on its SM, where a block
-# of two or more m-tiles (8 warps) is alone by its registers anyway.
+# The kernel's plan (every T). Page rows a ring stage (one TMA box)
+# holds: a page of up to 64 rows is one tile (its rows rounded up to 16),
+# a longer page several. A block of one m-tile over bf16 pages at
+# head_dim 256 takes 32-row tiles: a 64-row ring (2 x 64 KB) would leave
+# it alone on its SM, where a block of two or more m-tiles (8 warps) is
+# alone by its registers anyway.
 VERIFY_TILE_ROWS = 64
 VERIFY_TILE_ROWS_D256 = 32
 # Warps a block at most; 16-row m-tiles a block at most (more rows take
@@ -82,24 +83,30 @@ VERIFY_MAX_WARPS = 8
 VERIFY_MAX_M_TILES = 8
 # Ring stages: the next tile lands while the current one is used.
 VERIFY_STAGES = 2
-# Pages a verify block aims to walk: enough to spread its fixed cost
-# (the first loads' latency, the merge of its warps) over several pages,
-# few enough to split a long slot over many SMs.
+# Pages a block aims to walk: enough to spread its fixed cost (the first
+# loads' latency, the merge of its warps, its partial) over several
+# pages, few enough to split a long slot over many SMs.
 VERIFY_PAGES_PER_BLOCK = 4
 SMEM_LIMIT = 227 * 1024
+# int32 merge counters allocated at once per device (grown if a call
+# needs more): three per (slot, kv head, row group).
+TICKETS = 1 << 16
 
 
 class VerifyPlan(NamedTuple):
-    """How the verify kernel runs one call (csrc/paged_decode.cu
+    """How the kernel runs one call, at any T (csrc/paged_decode.cu
     skyt_paged_verify takes these fields)."""
     rows: int             # R = T*G query rows a kv head
     m_tiles: int          # 16-row m-tiles a block holds
     n_mgroups: int        # row groups (blocks) a (slot, kv head, split)
     key_splits: int       # warps an m-tile, each a share of a tile's keys
     tile_rows: int        # page rows a ring stage holds
+    tail_rows: int        # box rows of a page's last tile (= tile_rows
+                          # unless tile_rows does not divide the page)
     stages: int           # ring stages
     n_split: int          # blocks a (slot, kv head, row group): block i
     pages_per_block: int  # walks pages i, i + n_split, ... (at most this)
+    mergers: int          # blocks a group that share the merge
     threads: int
     smem_bytes: int
     grid: Tuple[int, int, int]
@@ -109,26 +116,28 @@ class VerifyPlan(NamedTuple):
 
 def verify_smem_bytes(d: int, quant: bool, tile_rows: int, stages: int,
                       m_tiles: int, warps: int) -> int:
-    """A verify block's dynamic shared memory (csrc/paged_decode.cu
+    """A block's dynamic shared memory (csrc/paged_decode.cu
     smem_bytes): 1024 bytes to align the ring; the ring (a stage: K and
     V tiles and, int8, their f32 scales, rounded up to 1024 bytes, the
     128-byte swizzle's period) and the staged queries [m_tiles*16, d+8]
     bf16, or, after the walk, the warps' O slices [warps, 16, d+8 (int8:
     d+4)] f32 in the same bytes, whichever is larger; the warps' (m, l);
-    an mbarrier a stage."""
+    an mbarrier a stage; 16 bytes for the block's ticket."""
     stage = 2 * tile_rows * d * (1 if quant else 2) + \
         (2 * tile_rows * 4 if quant else 0)
     walk = stages * (-(-stage // 1024) * 1024) + \
         m_tiles * 16 * (d + 8) * 2
     slices = warps * 16 * (d + (4 if quant else 8)) * 4
-    return 1024 + max(walk, slices) + 2 * warps * 16 * 4 + 8 * stages
+    return 1024 + max(walk, slices) + 2 * warps * 16 * 4 + 8 * stages + 16
 
 
+@functools.lru_cache(maxsize=1024)
 def verify_plan(slots: int, t: int, hq: int, hkv: int, d: int,
                 page_size: int, mp: int, quant: bool,
                 sms: int) -> VerifyPlan:
-    """The verify kernel's launch for q [slots, t, hq, d] over pages of
-    page_size rows, tables [slots, mp], on a card with `sms` SMs.
+    """The kernel's launch for q [slots, t, hq, d] (t = 1: a decode
+    step) over pages of page_size rows, tables [slots, mp], on a card
+    with `sms` SMs (cached: a layer call looks it up).
 
     All R = t*hq/hkv rows of a kv head share a block (up to
     VERIFY_MAX_M_TILES 16-row tiles). An m-tile takes up to 4 warps, one
@@ -138,37 +147,48 @@ def verify_plan(slots: int, t: int, hq: int, hkv: int, d: int,
     VERIFY_PAGES_PER_BLOCK pages a block, and more while the grid would
     leave an SM without a block (at most mp). The lengths are on the
     card, so the plan cannot see them: a split past a slot's last page
-    exits at once. Its TMA tiles take pages of 16-64 rows in steps of 16
-    (one tile a page) or a multiple of 64 rows (several)."""
-    if page_size <= 0 or page_size % 16 or \
-            page_size > VERIFY_TILE_ROWS and page_size % VERIFY_TILE_ROWS:
-        raise ValueError(
-            f'the verify kernel takes page sizes of 16-{VERIFY_TILE_ROWS} '
-            f'rows in steps of 16 or multiples of {VERIFY_TILE_ROWS} (a '
-            f'TMA box of at most {VERIFY_TILE_ROWS} of the 256 rows it '
-            f'may hold), got {page_size}')
+    writes an empty partial at once. Any page size: a page of up to
+    VERIFY_TILE_ROWS rows is one tile of its rows rounded up to 16, a
+    longer one tiles of tile_rows and, where they do not divide it, a
+    last box of tail_rows (its last rows rounded up to 16)."""
+    if page_size <= 0:
+        raise ValueError(f'page_size must be positive, got {page_size}')
     rows = t * (hq // hkv)
     tiles_all = -(-rows // 16)
     n_mgroups = -(-tiles_all // VERIFY_MAX_M_TILES)
     m_tiles = -(-tiles_all // n_mgroups)
-    tile_rows = min(page_size, VERIFY_TILE_ROWS)
+    tile_rows = min(-(-page_size // 16) * 16, VERIFY_TILE_ROWS)
     if d == 256 and not quant and m_tiles == 1 and \
             page_size % VERIFY_TILE_ROWS_D256 == 0:
         tile_rows = VERIFY_TILE_ROWS_D256
+    last_rows = page_size - (-(-page_size // tile_rows) - 1) * tile_rows
+    tail_rows = -(-last_rows // 16) * 16
     key_splits = max(1, min(tile_rows // 16, VERIFY_MAX_WARPS // m_tiles))
     warps = m_tiles * key_splits
     stages = VERIFY_STAGES
     pairs = slots * hkv * n_mgroups
     n_split = min(mp, max(-(-mp // VERIFY_PAGES_PER_BLOCK),
                           -(-sms // pairs)))
+    # On a grid of at most two blocks an SM, the merge is shared by the
+    # group's last `mergers` blocks to start, a share of the rows each (on
+    # a larger grid, blocks queue behind the mergers' waits). All but the
+    # last may wait on a block not yet started: while mergers * groups
+    # stays below the SM count, such a block always finds an SM.
+    groups = pairs
+    rows_last_group = rows - (n_mgroups - 1) * m_tiles * 16
+    mergers = 1
+    if groups * n_split <= 2 * sms:
+        mergers = max(1, min(n_split, rows_last_group, (sms - 1) // groups))
     smem = verify_smem_bytes(d, quant, tile_rows, stages, m_tiles, warps)
     if smem > SMEM_LIMIT:
         raise ValueError(f'verify block needs {smem} bytes of shared '
                          f'memory, the card gives {SMEM_LIMIT}')
     return VerifyPlan(
         rows=rows, m_tiles=m_tiles, n_mgroups=n_mgroups,
-        key_splits=key_splits, tile_rows=tile_rows, stages=stages,
+        key_splits=key_splits, tile_rows=tile_rows, tail_rows=tail_rows,
+        stages=stages,
         n_split=n_split, pages_per_block=-(-mp // n_split),
+        mergers=mergers,
         threads=32 * warps, smem_bytes=smem,
         grid=(slots, hkv * n_mgroups, n_split),
         part_acc_shape=(slots, hkv, n_split, rows, d),
@@ -266,11 +286,11 @@ def paged_decode_attention_q_reference(q: torch.Tensor,
 
 # ------------------------------------------------------------- kernels
 def _paged_operands(name: str, q, k_pool, v_pool, k_scale, v_scale, tables,
-                    lengths, sms: int = 132) -> Optional[VerifyPlan]:
-    """The kernels' checks on q [S, T, Hq, d] and its operands (int8
+                    lengths, sms: int = 132) -> VerifyPlan:
+    """The kernel's checks on q [S, T, Hq, d] and its operands (int8
     pools when k_scale is given), on tensors of any device, before any
-    launch. Returns the verify kernel's plan for T > 1 on a card with
-    `sms` SMs (an H100 SXM's 132 by default), None for T = 1."""
+    launch. Returns the kernel's plan on a card with `sms` SMs (an H100
+    SXM's 132 by default)."""
     s_slots, t, hq, d = q.shape
     n_pages, hkv, page_size, dp = k_pool.shape
     if k_pool.dim() != 4 or v_pool.shape != k_pool.shape or dp != d:
@@ -303,13 +323,12 @@ def _paged_operands(name: str, q, k_pool, v_pool, k_scale, v_scale, tables,
                          '(other head dims wait in ROADMAP.md queue 2 A)')
     if hq % hkv:
         raise ValueError(f'{name} needs Hq % Hkv == 0 (Hq={hq}, Hkv={hkv})')
-    if t == 1:
-        return None
-    # The verify kernel's TMA maps and bulk copies: 16-byte aligned bases,
-    # row coordinates below 2^31.
-    bases = [k_pool, v_pool] + ([k_scale, v_scale] if quant else [])
+    # The queries' 16-byte loads, the TMA maps and bulk copies: 16-byte
+    # aligned bases, row coordinates below 2^31.
+    bases = [q, k_pool, v_pool] + ([k_scale, v_scale] if quant else [])
     if any(x.data_ptr() % 16 for x in bases):
-        raise ValueError(f'{name} needs 16-byte aligned pools and scales')
+        raise ValueError(f'{name} needs 16-byte aligned q, pools and '
+                         'scales')
     if n_pages * hkv * page_size >= 2 ** 31:
         raise ValueError(f'{name}: pools of {n_pages * hkv * page_size} '
                          'rows pass the TMA coordinates (2^31)')
@@ -317,10 +336,23 @@ def _paged_operands(name: str, q, k_pool, v_pool, k_scale, v_scale, tables,
                        quant, sms)
 
 
+# Per device: the kernel's merge counters (int32, zeroed once; each call
+# leaves its counters at 0).
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, TICKETS), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
+
+
 def _paged_cuda(name: str, q, k_pool, v_pool, k_scale, v_scale, tables,
                 lengths):
-    """Launch csrc/paged_decode.cu on q [S, T, Hq, d]: the T = 1 kernel,
-    or the verify kernel for T > 1; int8 pools when k_scale is given."""
+    """Launch csrc/paged_decode.cu on q [S, T, Hq, d] (T = 1: a decode
+    step); int8 pools when k_scale is given."""
     plan = _paged_operands(
         name, q, k_pool, v_pool, k_scale, v_scale, tables, lengths,
         torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -328,39 +360,30 @@ def _paged_cuda(name: str, q, k_pool, v_pool, k_scale, v_scale, tables,
     s_slots, t, hq, d = q.shape
     n_pages, hkv, page_size, _ = k_pool.shape
     quant = k_scale is not None
-    mp = tables.shape[1]
-    if plan is None:
-        rows, n_split = hq // hkv, -(-mp // PAGES_PER_SPLIT)
-        part_acc_shape = (s_slots, hkv, n_split, rows, d)
-        part_ml_shape = (s_slots, hkv, n_split, rows, 2)
-    else:
-        rows = plan.rows
-        part_acc_shape, part_ml_shape = plan.part_acc_shape, \
-            plan.part_ml_shape
     out = torch.empty_like(q)
-    part_acc = torch.empty(part_acc_shape, dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty(part_ml_shape, dtype=torch.float32,
-                          device=q.device)
+    scratch = (None, None, None)
+    if plan.n_split > 1:   # one split writes the output itself
+        part_acc = torch.empty(plan.part_acc_shape, dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty(plan.part_ml_shape, dtype=torch.float32,
+                              device=q.device)
+        tickets = _ticket_buffer(q.device, 3 * plan.grid[0] * plan.grid[1])
+        scratch = (part_acc.data_ptr(), part_ml.data_ptr(),
+                   tickets.data_ptr())
     lib = _build.load('paged_decode')
-    ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None,
-            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr())
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if plan is None:
-        rc = lib.skyt_paged_decode(
-            *ptrs, s_slots, hq, hkv, d, page_size, mp, PAGES_PER_SPLIT,
-            int(quant), d ** -0.5, stream)
-    else:
-        rc = lib.skyt_paged_verify(
-            *ptrs, s_slots, t, hq, hkv, d, page_size, n_pages, mp,
-            plan.n_split, plan.m_tiles, plan.n_mgroups, plan.key_splits,
-            plan.tile_rows, plan.stages, int(quant), d ** -0.5, stream)
+    rc = lib.skyt_paged_verify(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), *scratch,
+        s_slots, t, hq, hkv, d, page_size, n_pages, tables.shape[1],
+        plan.n_split, plan.m_tiles, plan.n_mgroups, plan.key_splits,
+        plan.tile_rows, plan.tail_rows, plan.stages, plan.mergers,
+        int(quant), d ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, name)
     launches[name] += 1
-    launches_by_rows[name, rows] += 1
+    launches_by_rows[name, plan.rows] += 1
     return out
 
 

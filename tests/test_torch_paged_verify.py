@@ -1,25 +1,31 @@
-"""The PyTorch port's speculative-verify paged-decode kernel on the CPU:
-its launch plan, the checks its wrapper makes before any launch, and its
-plain versions against the JAX package's Pallas kernels.
+"""The PyTorch port's paged-decode kernel on the CPU: its launch plan,
+the checks its wrapper makes before any launch, and its plain versions
+against the JAX package's Pallas kernels.
 
-csrc/paged_decode.cu's verify kernel (paged_decode_attention_mq and
-paged_decode_attention_mq_q for T > 1) runs only on the card. What
-surrounds it is Python and is held here:
+csrc/paged_decode.cu's kernel (all four wrappers, the single-query
+decode step T = 1 and the speculative verify step T > 1) runs only on
+the card. What surrounds it is Python and is held here:
 
   * verify_plan, the launch the wrapper passes to the kernel: one block
     holds all R = T*G query rows of a kv head (16-row m-tiles, R padded),
     warps split a tile's keys, the grid fills a 132-SM card at
-    llama3-8b's, gemma-7b's and gemma-2b's verify shapes, the scratch
-    shapes, and a block's shared memory under 227 KB at head_dim 256;
+    llama3-8b's, gemma-7b's and gemma-2b's decode (T = 1) and verify
+    (T = 4) shapes, the scratch shapes, a block's shared memory under
+    227 KB at head_dim 256, and the tiles of every page size (a last box
+    of a page's last rows rounded up to 16 where the tiles do not divide
+    the page);
+  * the split assignment: a mirror of the kernel's walk (Walk::next)
+    over the plan's splits visits each visible tile of each visible page
+    exactly once, all tiles of a page in one block;
   * _paged_operands / _paged_cuda's refusals on CPU tensors: head dims
-    no instantiation builds, page sizes the kernel's TMA tiles do not
-    take, dtypes, shapes and contiguity;
+    no instantiation builds, dtypes, shapes and contiguity;
   * the plain versions (what the kernel is held against on the card)
-    against skypilot_tpu/ops/paged_attention.py's _kernel_mq and
-    _kernel_mq_q in interpret mode (as tests/test_torch_ops.py and
-    tests/test_torch_gemma.py take them), at the kernel's edge cases:
-    R = 2 (T = 2, G = 1), R = 24 (T = 3, G = 8), 16-token pages; each
-    with a length-0 slot, T tokens straddling a page boundary, an
+    against skypilot_tpu/ops/paged_attention.py's _kernel, _kernel_q,
+    _kernel_mq and _kernel_mq_q in interpret mode (as
+    tests/test_torch_ops.py and tests/test_torch_gemma.py take them), at
+    the kernel's edge cases: R = 2 (T = 2, G = 1), R = 24 (T = 3, G = 8),
+    16-token pages, and pages of 8, 24 and 80 tokens at T = 1 and T = 4;
+    each with a length-0 slot, T tokens straddling a page boundary, an
     unreserved gap inside a slot's span and a freed slot (all-zero row,
     stale length). Float32, tolerance 2e-5 (atol and rtol), as
     tests/test_torch_ops.py's.
@@ -103,6 +109,69 @@ def test_plan_gemma_2b(quant):
     assert plan.part_ml_shape == (8, 1, 17, 32, 2)
 
 
+# (model, quant): a decode step's plan (T = 1): rows a kv head, tile rows,
+# key splits, grid, mergers.
+T1_PLANS = {
+    ('llama3-8b', False): (4, 64, 4, (8, 8, 8), 1),
+    ('llama3-8b', True): (4, 64, 4, (8, 8, 8), 1),
+    ('gemma-7b', False): (1, 32, 2, (8, 16, 8), 1),
+    ('gemma-7b', True): (1, 64, 4, (8, 16, 8), 1),
+    ('gemma-2b', False): (8, 32, 2, (8, 1, 17), 8),
+    ('gemma-2b', True): (8, 64, 4, (8, 1, 17), 8),
+}
+
+
+@pytest.mark.parametrize('model', sorted(SHAPES))
+@pytest.mark.parametrize('quant', [False, True])
+def test_plan_decode_step(model, quant):
+    """T = 1 (a decode step) takes the same kernel: the kv group's G rows
+    (4, 1 and 8) pad one 16-row m-tile; llama3-8b's plan is its verify
+    step's (512 blocks of four warps), gemma-7b's 1024 blocks take 32-row
+    tiles over bf16 pages (two blocks an SM), gemma-2b's one kv head 17
+    splits; every grid gives each SM a block, and a block's shared
+    memory stays under 227 KB (under half of it at gemma-7b's bf16). The
+    merge is shared by 8 blocks a group (one row each) on gemma-2b's grid
+    of 136 blocks, and left to one block on llama3-8b's 512 and gemma-7b's
+    1024."""
+    rows, tile_rows, key_splits, grid, mergers = T1_PLANS[model, quant]
+    plan = _plan(model, quant, t=1)
+    assert plan.mergers == mergers
+    assert (plan.rows, plan.m_tiles, plan.n_mgroups) == (rows, 1, 1)
+    assert (plan.tile_rows, plan.tail_rows) == (tile_rows, tile_rows)
+    assert plan.key_splits == key_splits
+    assert plan.threads == 32 * key_splits
+    assert plan.grid == grid and plan.n_split == grid[2]
+    assert grid[0] * grid[1] * grid[2] >= SMS
+    assert plan.stages == 2
+    assert plan.smem_bytes <= KIB_227
+    if model == 'gemma-7b' and not quant:
+        assert plan.smem_bytes <= KIB_227 // 2
+    assert plan.part_acc_shape == (8, grid[1], grid[2], rows,
+                                   SHAPES[model][2])
+    assert plan.part_ml_shape == (8, grid[1], grid[2], rows, 2)
+
+
+@pytest.mark.parametrize('slots,t,hq,hkv', [(8, 4, 8, 1), (8, 1, 32, 8),
+                                            (8, 4, 16, 16), (1, 1, 8, 1),
+                                            (2, 8, 32, 1), (64, 1, 32, 8)])
+def test_plan_mergers_leave_an_sm(slots, t, hq, hkv):
+    """The blocks that share a group's merge wait for its other blocks;
+    all but one per group may wait for a block not yet started. Their
+    count over all groups stays below the SMs (so such a block always
+    finds one), at most one a row of the smallest row group and one a
+    split, and only on a grid of at most two blocks an SM: 16 at
+    gemma-2b's verify step, one where the groups alone reach the SM
+    count."""
+    plan = pa.verify_plan(slots, t, hq, hkv, 128, 64, 32, False, SMS)
+    groups = plan.grid[0] * plan.grid[1]
+    last_rows = plan.rows - (plan.n_mgroups - 1) * plan.m_tiles * 16
+    assert 1 <= plan.mergers <= min(plan.n_split, last_rows)
+    assert plan.mergers == 1 or (plan.mergers * groups < SMS and
+                                 groups * plan.n_split <= 2 * SMS)
+    assert plan.mergers == {(8, 4, 8, 1): 16, (64, 1, 32, 8): 1}.get(
+        (slots, t, hq, hkv), plan.mergers)
+
+
 @pytest.mark.parametrize('model', sorted(SHAPES))
 @pytest.mark.parametrize('quant', [False, True])
 def test_plan_fills_the_card(model, quant):
@@ -161,10 +230,86 @@ def test_plan_long_tables_take_four_pages_a_block():
     assert plan.n_split == 128 and plan.pages_per_block == 4
 
 
+# (page size, tile rows, box rows of a page's last tile) at llama3-8b's
+# verify shape: pages up to 64 rows are one tile of their rows rounded up
+# to 16; longer ones 64-row tiles and a smaller last box.
+PAGE_TILES = {8: (16, 16), 24: (32, 32), 40: (48, 48), 80: (64, 16),
+              96: (64, 32), 200: (64, 16)}
+
+
 @pytest.mark.parametrize('page', [8, 24, 40, 80, 96, 200])
-def test_plan_refuses_page_sizes(page):
-    with pytest.raises(ValueError, match='page sizes'):
-        pa.verify_plan(8, 4, 32, 8, 128, page, 8, False, SMS)
+def test_plan_takes_page_sizes(page):
+    """Page sizes the TMA tiles do not divide are taken: a box of at
+    most 64 rows, a multiple of 16, and a last box that covers the
+    page's last rows."""
+    plan = pa.verify_plan(8, 4, 32, 8, 128, page, 8, False, SMS)
+    assert (plan.tile_rows, plan.tail_rows) == PAGE_TILES[page]
+    tiles = -(-page // plan.tile_rows)
+    assert (tiles - 1) * plan.tile_rows + plan.tail_rows >= page
+    assert plan.tail_rows - 16 < page - (tiles - 1) * plan.tile_rows
+    assert plan.key_splits == plan.tile_rows // 16
+    assert plan.smem_bytes <= KIB_227
+
+
+def _walk(plan, page, length, t, row):
+    """The kernel's walk (csrc/paged_decode.cu Walk::next) for one slot
+    of one (kv head, row group): {split: [(page j, tile st), ...]}."""
+    last = length + t - 1
+    n_visit = 0 if length < 0 else min(len(row), last // page + 1)
+    tr = plan.tile_rows
+    walked = {}
+    for split in range(plan.n_split):
+        j, st, tiles = split, -1, []
+        while True:
+            st += 1
+            while j < n_visit and not (
+                    (j == 0 or row[j] != 0) and st * tr < page and
+                    j * page + st * tr <= last):
+                j, st = j + plan.n_split, 0
+            if j >= n_visit:
+                break
+            tiles.append((j, st))
+        walked[split] = tiles
+    return walked
+
+
+@pytest.mark.parametrize('page', [8, 16, 24, 40, 64, 80, 96, 128, 200])
+@pytest.mark.parametrize('t', [1, 4])
+def test_walk_visits_each_visible_tile_once(page, t):
+    """Over the plan's splits, lengths 0, P-1, P and a long slot (with
+    an unreserved gap at page 1) and a freed slot: each visible page's
+    tiles that start at a position some token sees are walked exactly
+    once, all by one block; their boxes (tile_rows, or tail_rows for a
+    page's short last tile) cover every visible position; no block walks
+    anything else."""
+    mp = 12
+    plan = pa.verify_plan(4, t, 32, 8, 128, page, mp, False, SMS)
+    tr = plan.tile_rows
+    for length, row in ((0, [5] + [0] * (mp - 1)),
+                        (page - 1, [5, 6] + [0] * (mp - 2)),
+                        (page, [5, 6] + [0] * (mp - 2)),
+                        (9 * page + 3, [5, 0] + list(range(7, 7 + mp - 2))),
+                        (999, [0] * mp)):
+        last = length + t - 1
+        walked = _walk(plan, page, length, t, row)
+        seen = [(j, st) for tiles in walked.values() for j, st in tiles]
+        assert len(seen) == len(set(seen))
+        want = {(j, st) for j in range(min(mp, last // page + 1))
+                if j == 0 or row[j] != 0
+                for st in range(-(-page // tr))
+                if j * page + st * tr <= last}
+        assert set(seen) == want
+        for split, tiles in walked.items():
+            assert all(j % plan.n_split == split for j, _ in tiles)
+        covered = set()
+        for j, st in seen:
+            valid = min(tr, page - st * tr)
+            box = plan.tail_rows if valid < tr else tr
+            assert valid <= box <= tr and box % 16 == 0
+            covered |= {j * page + st * tr + k for k in range(valid)}
+        visible = {p for p in range(min(mp * page, last + 1))
+                   if p // page == 0 or row[p // page] != 0}
+        assert visible <= covered
 
 
 # ------------------------------------------------------ the wrapper's checks
@@ -185,14 +330,15 @@ def _operands(t=4, hq=8, hkv=2, d=128, page=64, n_pages=5, mp=4,
 
 @pytest.mark.parametrize('quant', [False, True])
 def test_operands_give_the_plan(quant):
-    """A valid verify call: the plan is verify_plan's for its shapes; a
-    T = 1 call has none (the single-query kernel), whatever its page
-    size."""
+    """A valid call gives verify_plan's plan for its shapes: a verify
+    call, and a T = 1 call (the same kernel) at any page size."""
     ops = _operands(quant=quant)
     plan = pa._paged_operands('paged_decode_mq', *ops)
     assert plan == pa.verify_plan(3, 4, 8, 2, 128, 64, 4, quant, SMS)
     ops = _operands(t=1, page=24, quant=quant)
-    assert pa._paged_operands('paged_decode', *ops) is None
+    plan = pa._paged_operands('paged_decode', *ops)
+    assert plan == pa.verify_plan(3, 1, 8, 2, 128, 24, 4, quant, SMS)
+    assert (plan.rows, plan.tile_rows, plan.tail_rows) == (4, 32, 32)
 
 
 @pytest.mark.parametrize('d', [32, 192, 320])
@@ -204,10 +350,12 @@ def test_wrapper_refuses_unbuilt_head_dims(d):
 
 @pytest.mark.parametrize('page', [8, 24, 80])
 @pytest.mark.parametrize('quant', [False, True])
-def test_wrapper_refuses_page_sizes(page, quant):
+def test_wrapper_takes_page_sizes(page, quant):
+    """The wrapper's checks pass pages the tiles do not divide (a spec
+    engine's verify call at page 8, 24 or 80), with the plan's tiles."""
     ops = _operands(page=page, quant=quant)
-    with pytest.raises(ValueError, match='page sizes'):
-        pa._paged_cuda('paged_decode_mq', *ops)
+    plan = pa._paged_operands('paged_decode_mq', *ops)
+    assert (plan.tile_rows, plan.tail_rows) == PAGE_TILES[page]
 
 
 def test_wrapper_refuses_dtypes():
@@ -281,11 +429,20 @@ def _case(seed, t, hq, hkv, d, page, quant):
     return [q] + pools + [tables, np.asarray(lengths, np.int32)]
 
 
-# (name, T, Hq, Hkv, d, page): R = 2, R = 24, 16-token pages (R = 8).
+# (name, T, Hq, Hkv, d, page): R = 2, R = 24, 16-token pages (R = 8);
+# pages of 8, 24 and 80 tokens (one 16-row box with 8 rows past the page,
+# one 32-row box with 8, a 64-row tile and a 16-row last box) at T = 1
+# (the single-query kernels) and T = 4.
 EDGE_CASES = [
     ('r2', 2, 4, 4, 64, 64),
     ('r24', 3, 16, 2, 64, 64),
     ('p16', 4, 4, 2, 64, 16),
+    ('p8_t1', 1, 8, 2, 64, 8),
+    ('p24_t1', 1, 4, 4, 64, 24),
+    ('p80_t1', 1, 8, 2, 64, 80),
+    ('p8', 4, 4, 2, 64, 8),
+    ('p24', 4, 8, 2, 64, 24),
+    ('p80', 4, 4, 4, 64, 80),
 ]
 
 
@@ -293,9 +450,11 @@ EDGE_CASES = [
 @pytest.mark.parametrize('name,t,hq,hkv,d,page', EDGE_CASES)
 def test_plain_verify_matches_pallas_interpret(name, t, hq, hkv, d, page,
                                                quant):
-    fn = 'paged_decode_attention_mq_q' if quant else \
-        'paged_decode_attention_mq'
+    fn = 'paged_decode_attention' + ('_mq' if t > 1 else '') + \
+        ('_q' if quant else '')
     args = _case(len(name) * 7 + t, t, hq, hkv, d, page, quant)
+    if t == 1:
+        args[0] = args[0][:, 0]
     ref = getattr(jax_paged, fn)(*(jnp.asarray(a) for a in args))
     out = getattr(pa, fn)(*(torch.from_numpy(a) for a in args))
     assert out.shape == args[0].shape
