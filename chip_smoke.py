@@ -22,8 +22,12 @@ Phases (any failure exits non-zero and prints no result line):
      verify step ([8, 4, 4096]) and a lone admission ([1, 512, 4096]),
      the grouped kernel on the burst's packed row ([1, 2048, 4096],
      segment ids and 0 padding) and on random per-token ids, and small
-     widths that are not multiples of 8 or of the tiles; id-0 rows must
-     be exact zeros (or exactly y); and the flash backward kernel (dq,
+     widths that are not multiples of 8 or of the tiles; ranks above
+     128 (decode at ranks 256, 16, 8; [2, 23, 100] -> 37 at ranks 200,
+     5, 12 with random per-token ids); id-0 rows must be exact zeros (or
+     exactly y), REPEATS calls bit-equal, and the kernel's count of a
+     block's shared memory (skyt_lora_smem) equal to lora_plan's; and
+     the flash backward kernel (dq,
      dk and dv in one pass) against the plain backward (BWD_CASES: the
      sft shape [1, 2048, 32, 64] with 8 kv heads causal, a packed row,
      head_dim 128, non-causal rows, ragged tails, MHA, segment
@@ -1061,7 +1065,9 @@ def burst_lora_row(total):
 # 'burst' or 'random' per-token). Ranks 16 / 8 / 16 are the slice's
 # (rank 8 padded to 16); the small cases cover rank 4 and ranks that are
 # not multiples of 8, widths that are not multiples of 8 or of the
-# kernel's tiles, and ragged token tails.
+# kernel's tiles, and ragged token tails; two ranks above 128 (two rank
+# tiles: 256 at decode, 200 with a part-filled second tile); and decode on
+# a stack of eight adapters of which the batch uses two.
 LORA_CASES = (
     ('gather_decode', 8, 1, 4096, 14336, (16, 8, 16), SLOT_LORA),
     ('gather_decode_down', 8, 1, 14336, 4096, (16, 8, 16), SLOT_LORA),
@@ -1073,6 +1079,10 @@ LORA_CASES = (
     ('grouped_odd', 2, 9, 64, 32, (4, 2, 4), 'random'),
     ('gather_ragged', 3, 21, 100, 37, (12, 5, 12), (3, 1, 0)),
     ('grouped_ragged', 2, 23, 100, 37, (12, 5, 12), 'random'),
+    ('gather_decode_r256', 8, 1, 4096, 14336, (256, 16, 8), SLOT_LORA),
+    ('grouped_ragged_r200', 2, 23, 100, 37, (200, 5, 12), 'random'),
+    ('gather_decode_sparse', 8, 1, 4096, 14336, (16,) * 8,
+     (1, 0, 2, 1, 0, 2, 1, 0)),
 )
 
 
@@ -1098,9 +1108,14 @@ def lora_case_inputs(gen, case):
 def check_lora(gen):
     """Kernels 6-7 against their plain versions (LORA_CASES), as the delta
     and added in place into a projection output y. Rows with id 0 must be
-    exact zeros (delta) or exactly y (in place)."""
+    exact zeros (delta) or exactly y (in place), and REPEATS calls of each
+    bit-equal (the shrink's partials are summed in a fixed order); the
+    kernel's count of a block's shared memory (skyt_lora_smem) must equal
+    lora_plan's."""
     import torch
+    from skypilot_tpu_torch.ops import _build
     from skypilot_tpu_torch.ops import lora as lora_ops
+    lib = _build.load('lora')
     res = {}
     for case in LORA_CASES:
         name = case[0]
@@ -1123,13 +1138,31 @@ def check_lora(gen):
             f'lora {name}: in-place id-0 rows changed'
         torch.testing.assert_close(out.float(), ref.float(), **TOL)
         torch.testing.assert_close(fused.float(), fused_ref.float(), **TOL)
+        for in_place in (False, True):
+            plan = lora_ops.lora_plan(
+                x.shape[0] * x.shape[1], x.shape[2], a.shape[-1],
+                b.shape[-1], a.shape[0], in_place,
+                torch.cuda.get_device_properties(0).multi_processor_count)
+            got = lib.skyt_lora_smem(
+                plan.tile_rows, plan.rank_width, plan.items_per_pass,
+                plan.t_cols, plan.chunk_rows, plan.s_stages, plan.e_stages,
+                int(in_place))
+            assert got == plan.smem_bytes, \
+                f'lora {name}: kernel smem {got} != plan {plan.smem_bytes}'
+        assert repeat_equal(lora_ops.grouped_lora_delta,
+                            (x, a, b, ids, scale), out), \
+            f'lora {name}: delta calls differ'
+        assert repeat_equal(
+            lambda: lora_ops.add_lora_delta_(y.clone(), x, a, b, ids, scale),
+            (), fused), f'lora {name}: in-place calls differ'
         d_err, f_err = max_abs(out, ref), max_abs(fused, fused_ref)
         ref_max = float(ref.float().abs().max())
         kname = 'lora_grouped' if per_token else 'lora_gather'
         _log(f'{kname} {name} x {list(x.shape)} -> {b.shape[-1]}, rank '
              f'{a.shape[-1]}: delta max|out-ref| {d_err:.3e} (max|ref| '
              f'{ref_max:.3e}), in place max|out-(y+ref)| {f_err:.3e} '
-             f'(atol=rtol=2e-2); {int(zero.sum())} id-0 rows exact')
+             f'(atol=rtol=2e-2); {int(zero.sum())} id-0 rows exact; '
+             f'{REPEATS} calls bit-equal')
         res[name] = {'kernel': kname, 'shape': list(x.shape),
                      'out': b.shape[-1], 'max_abs_err': max(d_err, f_err),
                      'delta_err': d_err, 'fused_err': f_err,
@@ -2198,6 +2231,9 @@ def time_lora(gen, case):
         return torch.bmm(torch.bmm(xs, ga), gb) * sc[:, None, None].to(
             x.dtype)
     lib_ms = time_ms(library, 5)
+    plan = lora_ops.lora_plan(bsz * s, din, r, dout, a.shape[0], False,
+                              torch.cuda.get_device_properties(
+                                  0).multi_processor_count)
     tok_ids = ids if per_token else ids[:, None].expand(bsz, s)
     adapted = int((tok_ids != 0).sum())
     distinct = int(torch.unique(tok_ids[tok_ids != 0]).numel())
@@ -2214,13 +2250,15 @@ def time_lora(gen, case):
             'bound_ms': max(bound_bytes, bound_flops),
             'bound_by': 'bytes' if bound_bytes >= bound_flops
             else 'operations', 'flops': flops, 'bytes': nbytes,
-            'adapted_tokens': adapted, 'distinct_adapters': distinct}
+            'adapted_tokens': adapted, 'distinct_adapters': distinct,
+            'plan': plan._asdict()}
 
 
 # Kernels 6-7 timed at these LORA_CASES shapes; the first of each kernel
 # goes into the {"kernels": [...]} line.
 LORA_TIMED = ('gather_decode', 'gather_decode_down', 'gather_verify',
-              'gather_lone', 'grouped_burst')
+              'gather_lone', 'grouped_burst', 'gather_decode_r256',
+              'gather_decode_sparse')
 
 
 # ----------------------------------------------------------- phase 3: train
@@ -3217,8 +3255,9 @@ def run_serving(args, card, gen, checks):
         for c, t in tl.items()]
     for label, t in timed:
         lib = f'{t["library_ms"]:.4f}' if t['library_ms'] else 'none'
-        extra = (f'; in place into y {t["fused_ms"]:.4f} ms; index_select + '
-                 f'2 bmm {t["index_bmm_ms"]:.4f} ms'
+        extra = (f'; in place into y (fused_ms) {t["fused_ms"]:.4f} ms; '
+                 f'index_select + 2 bmm {t["index_bmm_ms"]:.4f} ms; plan '
+                 f'{t["plan"]}'
                  if 'fused_ms' in t else parts_text(t))
         _log(f'{label} [{card}]: {t["ms"]:.4f} ms (eager '
              f'{t["eager_ms"]:.4f}), plain {t["plain_ms"]:.4f} ms, '

@@ -54,7 +54,8 @@ _SIGNATURES = {
     'paged_decode': [('skyt_paged_verify',
                       [_P] * 11 + [_I] * 17 + [_F, _P]),
                      ('skyt_paged_verify_smem', [_I] * 6)],
-    'lora': [('skyt_lora', [_P] * 7 + [_I] * 10 + [_P])],
+    'lora': [('skyt_lora', [_P] * 7 + [_I] * 7 + [_P, _P]),
+             ('skyt_lora_smem', [_I] * 8)],
 }
 
 

@@ -8,13 +8,20 @@ max_seq_len 128. Adapters are random trees in the training layout
     against the JAX floors _xla_gather / _xla_grouped and the Pallas
     kernels _pallas_gather / _pallas_grouped in interpret mode
     (atol/rtol 1e-5), with id-0 rows exactly 0, random per-token ids and a
-    mixed-rank padded stack; the wrappers' CPU dispatch;
+    mixed-rank padded stack (ranks 4 and 2, and 160 and 4: above one
+    128-column rank tile); the wrappers' CPU dispatch;
+  * the kernel's plan (lora_plan, pure Python, at 132 and at 8 SMs) for
+    chip_smoke.py's LoRA shapes and odd ones: every token in exactly one
+    tile, the column chunks cover `out` once, the rank tiles cover r, the
+    cluster divides the column tiles and splits all of `in`, T holds a
+    group's passes, shared memory within the card's 232,448 bytes;
   * stacks: build_stack, build_stack_assigned, graft_adapter and zero_slot
     equal the JAX functions' output after lora_stack_from_jax, for
     scanned and unscanned trees; validate_stack rejects another model's
     stack; parse_lora_flag as JAX's;
   * model: logits with a stack and ids [B] and [B, S] within 1e-4 of JAX
-    LlamaModel.apply with the 'lora' and 'lora_ids' collections;
+    LlamaModel.apply with the 'lora' and 'lora_ids' collections, also for
+    a stack of a rank-256 and a rank-4 adapter;
   * engine: a burst with ids [1, 2, 0] (ragged admission, then decode) and
     a lone adapter request give greedy streams EQUAL to the JAX engine's
     on the same stack; spec_decode=3 with adapters equals the port's plain
@@ -125,14 +132,16 @@ def _assert_stacks_equal(got, want):
 
 
 # ------------------------------------------------------------------ ops
-def op_case(per_token, seed=0, bsz=3, seq=8, din=32, dout=24):
+def op_case(per_token, seed=0, bsz=3, seq=8, din=32, dout=24,
+            ranks=(4, 2)):
     """x [3, 8, 32] f32, a stack of 3 (id 0 zeros, ranks 4 and 2 padded
-    to 4); ids [1, 2, 0] per sequence, or random 0..2 per token."""
+    to 4, or the given ranks padded to the largest); ids [1, 2, 0] per
+    sequence, or random 0..2 per token."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(bsz, seq, din)).astype(np.float32)
-    a = np.zeros((3, din, 4), np.float32)
-    b = np.zeros((3, 4, dout), np.float32)
-    for i, r in ((1, 4), (2, 2)):
+    a = np.zeros((3, din, max(ranks)), np.float32)
+    b = np.zeros((3, max(ranks), dout), np.float32)
+    for i, r in enumerate(ranks, 1):
         a[i, :, :r] = rng.normal(size=(din, r))
         b[i, :r] = rng.normal(size=(r, dout))
     scaling = np.array([0.0, 2.0, 2.0], np.float32)
@@ -147,11 +156,16 @@ def _torch(*arrs):
 
 @pytest.mark.parametrize('per_token', [False, True],
                          ids=['gather', 'grouped'])
-@pytest.mark.parametrize('against', ['xla_floor', 'pallas_interpret'])
+@pytest.mark.parametrize('against', ['xla_floor', 'pallas_interpret',
+                                     'xla_floor_r160',
+                                     'pallas_interpret_r160'])
 def test_plain_versions_match_jax(per_token, against):
-    args = op_case(per_token, seed=1 + per_token)
+    """The _r160 cases: ranks 160 and 4 (padded to 160), more than one
+    128-column rank tile of the kernel."""
+    ranks = (160, 4) if against.endswith('_r160') else (4, 2)
+    args = op_case(per_token, seed=1 + per_token, ranks=ranks)
     jargs = [jnp.asarray(v) for v in args]
-    if against == 'xla_floor':
+    if against.startswith('xla_floor'):
         fn = jax_ops._xla_grouped if per_token else jax_ops._xla_gather
         want = fn(*jargs)
     elif per_token:
@@ -186,6 +200,103 @@ def test_wrappers_dispatch_on_cpu(per_token):
     assert out is y
     torch.testing.assert_close(out, want, rtol=0, atol=0)
     assert lora_ops.launches == dict.fromkeys(lora_ops.KERNELS, 0)
+
+
+# ----------------------------------------------------------------- plan
+# (name, tokens, in, r, out, N): chip_smoke.py's LORA_CASES shapes (ids
+# [B] or [B, S] alike: tiles follow tokens) and odd ones.
+PLAN_CASES = (
+    ('gather_decode', 8, 4096, 16, 14336, 4),
+    ('gather_decode_down', 8, 14336, 16, 4096, 4),
+    ('gather_verify', 32, 4096, 16, 14336, 4),
+    ('gather_lone', 512, 4096, 16, 14336, 4),
+    ('grouped_burst', 2048, 4096, 16, 14336, 4),
+    ('grouped_random', 398, 4096, 16, 1024, 4),
+    ('gather_decode_r256', 8, 4096, 256, 14336, 4),
+    ('gather_decode_sparse', 8, 4096, 16, 14336, 9),
+    ('odd', 15, 64, 4, 32, 4),
+    ('ragged', 63, 100, 12, 37, 4),
+    ('ragged_r200', 46, 100, 200, 37, 4),
+    ('many_adapters', 64, 4096, 16, 14336, 17),
+    ('rank_48', 100, 4096, 48, 14336, 9),
+    ('rank_512', 2048, 4096, 512, 14336, 4),
+    ('one_token', 1, 16, 8, 8, 2),
+)
+
+
+def _plan_cases():
+    for case in PLAN_CASES:
+        for sms in (132, 8):
+            for in_place in (False, True):
+                yield pytest.param(case, sms, in_place,
+                                   id=f'{case[0]}-{sms}sm-'
+                                   f'{"inplace" if in_place else "delta"}')
+
+
+@pytest.mark.parametrize('case,sms,in_place', list(_plan_cases()))
+def test_lora_plan_covers_the_call(case, sms, in_place):
+    _, tokens, din, r, dout, n = case
+    plan = lora_ops.lora_plan(tokens, din, r, dout, n, in_place, sms)
+    tm = plan.tile_rows
+    assert tm in (16, 32, 64)
+    # Every token lies in exactly one tile: tile i holds [i * tm, ...).
+    assert plan.row_tiles == -(-tokens // tm)
+    owner = np.repeat(np.arange(plan.row_tiles), tm)[:tokens]
+    assert np.array_equal(np.bincount(owner, minlength=plan.row_tiles),
+                          [min(tm, tokens - i * tm)
+                           for i in range(plan.row_tiles)])
+    if tokens <= 64:
+        assert plan.row_tiles == 1     # decode and verify: one tile
+    # The column chunks cover `out` once.
+    covered = np.zeros(dout, np.int64)
+    for blk in range(plan.col_tiles):
+        for c in range(plan.col_passes):
+            lo = (blk * plan.col_passes + c) * lora_ops.PASS_COLS
+            covered[lo:lo + lora_ops.PASS_COLS] += 1
+    assert (covered == 1).all()
+    # The rank tiles cover r, each a multiple of 16 and at most 128.
+    wr = plan.rank_width
+    assert wr % 16 == 0 and 16 <= wr <= 128
+    assert (plan.rank_tiles - 1) * wr < r <= plan.rank_tiles * wr
+    assert plan.items_per_pass * wr <= 128
+    # The cluster divides the column tiles, and its spans cover `in`.
+    assert plan.cluster in (1, 2, 4, 8, 16)
+    assert plan.col_tiles % plan.cluster == 0
+    assert plan.span % 16 == 0 and plan.span * plan.cluster >= din
+    assert (plan.cluster - 1) * plan.span < din or plan.cluster == 1
+    # T holds the passes of a group of whole ids.
+    wp = plan.items_per_pass * wr
+    passes = -(-plan.ids_per_group * plan.rank_tiles // plan.items_per_pass)
+    assert plan.ids_per_group >= 1 and passes * wp <= plan.t_cols
+    assert plan.t_cols % 64 == 0
+    # A chunk is one TMA box of up to 256 rows, or two of 256.
+    assert plan.chunk_rows % 16 == 0 and (16 <= plan.chunk_rows <= 256 or
+                                          plan.chunk_rows == 512)
+    assert plan.s_stages >= 1 and plan.e_stages >= 1
+    # Shared memory within the card's limit (and the count the kernel
+    # makes, lora_smem_bytes).
+    assert plan.smem_bytes == lora_ops.lora_smem_bytes(
+        tm, wr, plan.items_per_pass, plan.t_cols, plan.chunk_rows,
+        plan.s_stages, plan.e_stages, in_place)
+    assert plan.smem_bytes <= 232448
+    assert plan.grid == (plan.row_tiles, plan.col_tiles)
+
+
+def test_lora_plan_is_cached_and_refuses_nonsense():
+    args = (8, 4096, 16, 14336, 4, False, 132)
+    assert lora_ops.lora_plan(*args) is lora_ops.lora_plan(*args)
+    with pytest.raises(ValueError, match='positive'):
+        lora_ops.lora_plan(8, 4096, 0, 14336, 4, False, 132)
+
+
+def test_lora_plan_takes_ranks_above_128():
+    """No rank refusal: ranks above 128 go in 128-column rank tiles (the
+    kernel held r <= 128 before)."""
+    assert not hasattr(lora_ops, 'MAX_RANK')
+    for r in (129, 200, 256, 1024):
+        plan = lora_ops.lora_plan(8, 4096, r, 14336, 4, True, 132)
+        assert plan.rank_width == 128
+        assert plan.rank_tiles == -(-r // 128)
 
 
 # --------------------------------------------------------------- stacks
@@ -307,6 +418,30 @@ def test_model_logits_match_jax(base, per_token):
     assert not np.allclose(got.numpy()[0], plain.numpy()[0], atol=1e-3)
     if not per_token:
         np.testing.assert_array_equal(got.numpy()[2], plain.numpy()[2])
+
+
+@pytest.mark.parametrize('per_token', [False, True],
+                         ids=['ids_B', 'ids_BS'])
+def test_model_logits_match_jax_rank256_stack(base, per_token):
+    """A stack of a rank-256 and a rank-4 adapter (padded to 256: two of
+    the kernel's rank tiles) through the model, against JAX."""
+    adapters = [_adapter(base['params'], 256, 512.0, 5),
+                _adapter(base['params'], 4, 8.0, 6)]
+    jstack = jax_lora.build_stack(adapters, dtype='float32')
+    stack = torch_lora.build_stack(adapters, dtype='float32')
+    assert stack['layers.0.attn.wq'][0].shape[-1] == 256
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(1, 256, (3, 12)).astype(np.int32)
+    ids = (rng.integers(0, 3, (3, 12)) if per_token
+           else np.array([1, 2, 0])).astype(np.int32)
+    want = base['jm'].apply(
+        {'params': nn.meta.unbox(base['jp'])['params'], 'lora': jstack,
+         'lora_ids': {'ids': jnp.asarray(ids)}}, jnp.asarray(tokens))
+    model = base['port_model']()
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens).long(), lora=stack,
+                    lora_ids=torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
 
 
 # --------------------------------------------------------------- engine
