@@ -82,7 +82,10 @@ Phases (any failure exits non-zero and prints no result line):
      prefill). Every request must return its tokens, the path's kernels'
      launch counters (set to 0 just before, read just after) must rise,
      and one prefill's last-token logits must match the same model run
-     with the plain attention (check_logits). Then the same model object
+     with the plain attention (check_logits). Every engine here runs
+     with prefix caching on (the default) and distinct random prompts:
+     no request hits a published page (asserted in serve), so each phase
+     keeps the uncached path it drove. Then the same model object
      serves three more engines, each freed before the next: (a)
      kv_dtype='int8', (b) spec_decode=3, (c) both — spec runs with a
      repeated prompt in the burst and at least one verify step; each
@@ -104,6 +107,22 @@ Phases (any failure exits non-zero and prints no result line):
      and verify steps with the output head scaled by 1, 3 and 10, argmax
      through the kernels, their plain versions and the plain attention
      in f32, logged with the f32 step's top-2 margins.
+     Then the prefix paths on the same weights (run_prefix; page 64, 8
+     slots of 2048): a 1536-token shared prefix (24 pages) + 128 tokens
+     is a miss (one flash prefill, 32 launches), then a burst of 3
+     requests with the prefix and 64/180/300-token suffixes: 72 hit
+     pages, the paged kernel launched, each hit's first-token logits (as
+     the engine computed them over the shared pages) within
+     LOGIT_REL_L2 of the plain full forward; TTFT of the miss and the
+     hits; the same on int8 pools (paged_decode_q). prefill_chunk=512
+     on a 1900-token prompt while a 256-token request decodes: >= 3
+     chunks, the other request's tokens arriving between chunks, the
+     final chunk's logits within LOGIT_REL_L2. SKYT_KV_TIER=host on a
+     20-page pool: a 1040-token prompt's 16 pages evicted by a request
+     that reserves the pool (cancelled after its first token), spilled,
+     promoted on the rerun (a prefix hit), every page bit-equal to the
+     bytes the prefill wrote and to the bytes spilled; spill and
+     promotion times.
      Then mistral-7b (sliding window 4096 on every layer) at full width,
      build_engine('mistral-7b', max_seq_len=8192, num_slots=4): a burst
      of a 6000- and a 2000-token prompt (one sampled) packed into one
@@ -121,7 +140,9 @@ Phases (any failure exits non-zero and prints no result line):
      counter by rows shows it); every request returns its tokens, each
      path's kernels launch, and prefill and step logits match the plain
      path within LOGIT_REL_L2; then the head_dim-256 timings (time_d256);
-  4. kernel timings: device time per call from CUDA events around a
+  4. kernel timings (the kernels line's flash_fwd, paged_decode and
+     paged_decode_q entries also carry prefix_launches, the prefix
+     phase's launches by part): device time per call from CUDA events around a
      replayed CUDA graph of many calls (eager_ms: the same with Python's
      launch overhead), for the kernel, its plain version and one PyTorch
      library call where one computes the same function (for the paged
@@ -1317,6 +1338,9 @@ def serve(eng, burst, params, lone, lone_params=None):
     """Drive one engine as a user would: the burst submitted before
     start() (packed ragged prefill), drained, then the lone request. The
     launch counters are set to 0 just before and read just after.
+    Prefix caching is on (the engines' default), and every prompt is a
+    distinct random draw, so no request hits a published page and each
+    phase keeps the uncached path it drove (asserted: 0 hit pages).
     Returns (token lists, launches, burst TTFT max s, lone wall s)."""
     from skypilot_tpu_torch.infer import engine as engine_lib
     from skypilot_tpu_torch.ops import flash_attention as fa
@@ -1343,6 +1367,7 @@ def serve(eng, burst, params, lone, lone_params=None):
     for i, toks in enumerate(outs):
         assert len(toks) == MAX_NEW, f'request {i}: {len(toks)} tokens'
         assert all(0 <= t < vocab for t in toks), f'request {i}: bad id'
+    assert eng.pool.prefix_stats['hit_pages'] == 0, eng.pool.prefix_stats
     return outs, launches, burst_ttft, lone_s
 
 
@@ -1590,6 +1615,348 @@ def run_paths(model, card, bf16_ms_per_token):
                 f'{perf["spec_verify_steps"]} verify steps' if spec else ''))
         out[label] = res
     return out
+
+
+# ------------------------------------------------- phase 3: prefix caching
+# llama3-8b's prefix paths on the same model object, page 64, 8 slots of
+# 2048 tokens (the JAX engine's defaults). A 1536-token shared prefix is
+# 24 full pages; the miss adds a 128-token suffix, the burst 64-300.
+PREFIX_LEN = 1536
+PREFIX_SUFFIXES = (128, 64, 180, 300)
+PREFIX_HIT_PAGES = 3 * PREFIX_LEN // 64
+# Chunked prefill: a 1900-token prompt in 512-token chunks (4 chunks)
+# while a 256-token request decodes 128 tokens.
+CHUNK_PROMPT = 1900
+CHUNK = 512
+CHUNK_OTHER = (256, 128)
+# The host tier: prompt A of 16 full pages and a 16-token tail (the
+# reserve shares at most (n - 1) // 64 pages, so all 16 are reusable) in
+# a 20-page pool; B (100 tokens, 1180 new: all 20 pages) evicts all of
+# A's published pages and is cancelled after its first token, so the
+# rerun of A finds 19 free pages for the promotion.
+TIER_PROMPT = 1040
+TIER_POOL_TOKENS = 20 * 64
+TIER_EVICTOR = (100, 1180)
+
+
+def record_suffix_logits(eng):
+    """Wrap the engine's suffix prefill (prefix hits and prefill chunks)
+    to keep each call's (start, length, logits) as the engine computed
+    them; the wrapper changes nothing the engine sees."""
+    rec = []
+    orig = eng._prefill_suffix_impl
+
+    def wrapped(tokens, start, length, table_row, lora_id=0):
+        out = orig(tokens, start, length, table_row, lora_id)
+        rec.append((start, length, out[1].clone()))
+        return out
+    eng._prefill_suffix_impl = wrapped
+    return rec
+
+
+def reset_counters():
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    fa.reset_launches()
+    pa.reset_launches()
+
+
+def read_counters():
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    return {'flash_fwd': fa.launches, **pa.launches}
+
+
+def check_hit_logits(model, prompt, logits, label):
+    """A prefix hit's (or a final chunk's) first-token logits, as the
+    engine computed them over the shared pages, against the plain full
+    forward of the whole prompt (plain_last_logits): rel L2 within
+    LOGIT_REL_L2."""
+    import torch
+    with torch.inference_mode():
+        toks = torch.as_tensor([prompt],
+                               device=next(model.parameters()).device)
+        ref = plain_last_logits(model, toks)[0]
+    got = logits.reshape(-1).float()
+    rel = rel_l2(got, ref)
+    _log(f'{label}: first-token logits vs plain full forward (rel L2) '
+         f'{rel:.3e} (limit {LOGIT_REL_L2}); argmax equal '
+         f'{int(got.argmax()) == int(ref.argmax())}')
+    assert torch.isfinite(got).all(), f'{label}: non-finite logits'
+    assert rel <= LOGIT_REL_L2, (label, rel)
+    return rel
+
+
+def run_shared_prefix(model, card, kv_dtype):
+    """One miss (prefix + 128, a full prefill through the flash kernel,
+    publishing its 26 full pages) then a burst of 3 hits (prefix + 64,
+    180, 300), each sharing the prefix's 24 pages and prefilling only its
+    suffix. Asserts 72 hit pages, one flash prefill (32 launches), the
+    paged kernel launched, and each hit's logits against the plain full
+    forward."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    label = f'prefix {kv_dtype}'
+    eng = engine_lib.InferenceEngine(
+        model, num_slots=8, max_seq_len=2048, decode_chunk=16, page_size=64,
+        kv_dtype=kv_dtype, device=next(model.parameters()).device)
+    assert eng.prefix_caching
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(SEED + 30)
+    prefix = rng.integers(1, vocab, PREFIX_LEN).tolist()
+    prompts = [prefix + rng.integers(1, vocab, n).tolist()
+               for n in PREFIX_SUFFIXES]
+    warm_up(eng, np.random.default_rng(SEED + 2))
+    # A throwaway hit too (200 tokens twice: the second shares 3 pages):
+    # the suffix path's first calls pay one-time set-up.
+    warm = np.random.default_rng(SEED + 33).integers(1, vocab, 200).tolist()
+    eng.start()
+    try:
+        for _ in range(2):
+            eng.generate(warm, engine_lib.SamplingParams(max_new_tokens=4))
+    finally:
+        eng.stop()
+    eng.reset_perf()
+    rec = record_suffix_logits(eng)
+    sp = engine_lib.SamplingParams(max_new_tokens=MAX_NEW)
+    reset_counters()
+    eng.start()
+    try:
+        outs = [eng.generate(prompts[0], sp)]
+        hits0 = eng.pool.prefix_stats['hit_pages']
+        queues = [eng.submit(p, sp)[1] for p in prompts[1:]]
+        outs += [drain(q) for q in queues]
+    finally:
+        eng.stop()
+    launches = read_counters()
+    hit_pages = eng.pool.prefix_stats['hit_pages'] - hits0
+    kernel = 'paged_decode_q' if kv_dtype == 'int8' else 'paged_decode'
+    ttfts = eng.ttfts()
+    _log(f'{label} [{card}]: {len(outs)} requests x {MAX_NEW} tokens; '
+         f'{hit_pages} hit pages (want {PREFIX_HIT_PAGES}); launches '
+         f'{launches}; TTFT miss ({len(prompts[0])} tokens, full prefill) '
+         f'{ttfts[0] * 1e3:.1f} ms, hits (suffixes {PREFIX_SUFFIXES[1:]}, '
+         f'admitted one after another) '
+         + ', '.join(f'{t * 1e3:.1f}' for t in ttfts[1:]) + ' ms')
+    for i, toks in enumerate(outs):
+        assert len(toks) == MAX_NEW, f'{label} request {i}: {len(toks)}'
+    assert hit_pages == PREFIX_HIT_PAGES, (label, hit_pages)
+    assert launches['flash_fwd'] == model.cfg.n_layers, (label, launches)
+    assert launches[kernel] > 0, f'{label}: {kernel} never launched'
+    assert [length for _, length, _ in rec] == \
+        [len(p) for p in prompts[1:]], (label, rec)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    rels = [check_hit_logits(model, p, logits, f'{label} hit {i}')
+            for i, (p, (_, _, logits)) in enumerate(zip(prompts[1:], rec))]
+    return {'launches': launches, 'hit_pages': hit_pages,
+            'ttft_miss_s': ttfts[0], 'ttft_hits_s': ttfts[1:],
+            'hit_rel_l2': rels,
+            'prompt_lengths': [len(p) for p in prompts]}
+
+
+def run_chunked(model, card):
+    """prefill_chunk=512: a 256-token request is decoding when a
+    1900-token prompt arrives, which prefills in 4 chunks (one per loop
+    iteration, through the suffix path) while the other request keeps
+    receiving tokens. Asserts >= 3 chunks, tokens of the other request
+    delivered between chunks, and the final chunk's logits against the
+    plain full forward."""
+    import threading
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    eng = engine_lib.InferenceEngine(
+        model, num_slots=8, max_seq_len=2048, decode_chunk=16, page_size=64,
+        prefill_chunk=CHUNK, device=next(model.parameters()).device)
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(SEED + 31)
+    other = rng.integers(1, vocab, CHUNK_OTHER[0]).tolist()
+    long = rng.integers(1, vocab, CHUNK_PROMPT).tolist()
+    warm_up(eng, np.random.default_rng(SEED + 2))
+    rec = record_suffix_logits(eng)
+    marks = []     # prefill_chunks as each of the other's tokens arrives
+    reset_counters()
+    eng.start()
+    try:
+        _, q_other = eng.submit(other, engine_lib.SamplingParams(
+            max_new_tokens=CHUNK_OTHER[1]))
+        assert q_other.get(timeout=600) is not None
+
+        def watch():
+            while q_other.get(timeout=600) is not None:
+                marks.append(eng.perf['prefill_chunks'])
+        watcher = threading.Thread(target=watch)
+        watcher.start()
+        t0 = time.perf_counter()
+        out = eng.generate(long, engine_lib.SamplingParams(
+            max_new_tokens=MAX_NEW))
+        long_s = time.perf_counter() - t0
+        watcher.join(timeout=600)
+    finally:
+        eng.stop()
+    launches = read_counters()
+    chunks = eng.perf['prefill_chunks']
+    between = sorted({m for m in marks if 0 < m < chunks})
+    _log(f'chunked prefill [{card}]: {CHUNK_PROMPT}-token prompt in '
+         f'{chunks} chunks of {CHUNK}; the other request received '
+         f'{len(marks) + 1} tokens, at chunk counts {sorted(set(marks))} '
+         f'(between chunks: {between}); long prompt TTFT '
+         f'{eng.ttfts()[-1] * 1e3:.1f} ms, {long_s:.2f} s for '
+         f'{MAX_NEW} tokens; launches {launches}')
+    assert len(out) == MAX_NEW, len(out)
+    assert len(marks) + 1 == CHUNK_OTHER[1], len(marks)
+    assert chunks >= 3, chunks
+    assert len(between) >= 2, (marks, chunks)
+    assert launches['paged_decode'] > 0, launches
+    final = [lg for _, length, lg in rec if length == CHUNK_PROMPT]
+    assert len(rec) == chunks and len(final) == 1, [r[:2] for r in rec]
+    ttft = eng.ttfts()[-1]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = check_hit_logits(model, long, final[0], 'chunked final chunk')
+    return {'launches': launches, 'chunks': chunks,
+            'other_tokens_at_chunk_counts': marks,
+            'long_ttft_s': ttft, 'final_rel_l2': rel}
+
+
+def page_bytes(eng, hashes):
+    """The bytes of each page published under `hashes`, every pool
+    ({name: [L, H, P(, d)]} on the host)."""
+    out = []
+    for h in hashes:
+        page = eng.pool.registered_page(h)
+        assert page is not None, h.hex()
+        out.append({n: eng.cache[n][:, page].to('cpu', copy=True)
+                    for n in eng._kv_pool_keys()})
+    return out
+
+
+def same_bytes(a, b):
+    import torch
+    return sorted(a) == sorted(b) and all(
+        a[n].dtype == b[n].dtype and a[n].shape == b[n].shape and
+        torch.equal(a[n].view(torch.uint8), b[n].view(torch.uint8))
+        for n in a)
+
+
+def run_host_tier(model, card):
+    """SKYT_KV_TIER=host on a 20-page pool: A (1040 tokens, 16 reusable
+    pages) runs, B (100 tokens + 1180 new: all 20 pages) evicts every
+    one of A's published pages (each cloned on the stream and copied to
+    the host store by the writer thread) and is cancelled after its
+    first token; A's rerun promotes its 16 pages back and is a prefix
+    hit. Asserts 16 spilled and 16 promoted pages, each bit-equal to the
+    bytes A's prefill wrote and to the bytes spilled."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import paged_cache
+    old = os.environ.get('SKYT_KV_TIER')
+    os.environ['SKYT_KV_TIER'] = 'host'
+    try:
+        eng = engine_lib.InferenceEngine(
+            model, num_slots=8, max_seq_len=2048, decode_chunk=16,
+            page_size=64, pool_tokens=TIER_POOL_TOKENS,
+            device=next(model.parameters()).device)
+    finally:
+        if old is None:
+            del os.environ['SKYT_KV_TIER']
+        else:
+            os.environ['SKYT_KV_TIER'] = old
+    assert eng.kv_tier is not None
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(SEED + 32)
+    a = rng.integers(1, vocab, TIER_PROMPT).tolist()
+    b = rng.integers(1, vocab, TIER_EVICTOR[0]).tolist()
+    hashes = paged_cache.page_hashes(a, 64)[:(TIER_PROMPT - 1) // 64]
+    warm_up(eng, np.random.default_rng(SEED + 2))
+    promote = eng._kv_try_promote
+    promote_s = []
+
+    def timed_promote(req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = promote(req)
+        torch.cuda.synchronize()
+        promote_s.append((n, time.perf_counter() - t0))
+        return n
+    eng._kv_try_promote = timed_promote
+    sp = engine_lib.SamplingParams(max_new_tokens=8)
+    reset_counters()
+    eng.start()
+    try:
+        first = eng.generate(a, sp)
+        written = page_bytes(eng, hashes)
+        rid, q_b = eng.submit(b, engine_lib.SamplingParams(
+            max_new_tokens=TIER_EVICTOR[1]))
+        assert q_b.get(timeout=600) is not None
+        assert eng.cancel(rid)
+        b_toks = drain(q_b)
+        evicted = [eng.pool.registered_page(h) is None for h in hashes]
+        assert eng.kv_tier.drain(60), 'spills did not finish'
+        spilled = [eng.kv_tier.host.get(h, eng.kv_version) for h in hashes]
+        hits0 = eng.pool.prefix_stats['hit_pages']
+        again = eng.generate(a, sp)
+        promoted = page_bytes(eng, hashes)
+    finally:
+        eng.stop()
+    launches = read_counters()
+    snap = eng.kv_tier.snapshot()
+    hit = eng.pool.prefix_stats['hit_pages'] - hits0
+    ttfts = eng.ttfts()
+    n_prom = sum(n for n, _ in promote_s)
+    prom_s = sum(s for n, s in promote_s if n)
+    spill_ms = snap['spill_s'] / max(1, snap['spill_stored']) * 1e3
+    page_mib = sum(t.numel() * t.element_size()
+                   for t in written[0].values()) / 2**20
+    _log(f'host tier [{card}]: A {TIER_PROMPT} tokens, {len(hashes)} '
+         f'reusable pages of {page_mib:.1f} MiB; B reserved the pool and '
+         f'was cancelled after {len(b_toks) + 1} token(s); evicted '
+         f'{sum(evicted)}, spilled {snap["spill_stored"]} pages '
+         f'({spill_ms:.2f} ms a page in the writer: copy to host + put), '
+         f'host store {snap["host"]["bytes"] / 2**20:.0f} MiB; rerun '
+         f'promoted {n_prom} pages in {prom_s * 1e3:.2f} ms '
+         f'(install, synchronized), {hit} hit pages; TTFT A first '
+         f'{ttfts[0] * 1e3:.1f} ms, A rerun {ttfts[-1] * 1e3:.1f} ms; '
+         f'rerun tokens equal the first run\'s: {again == first}; '
+         f'launches {launches}')
+    assert all(evicted), evicted
+    assert all(s is not None for s in spilled), 'a page was not spilled'
+    assert all(same_bytes(s, w) for s, w in zip(spilled, written)), \
+        'a spilled page differs from the page A wrote'
+    assert n_prom == len(hashes) == 16, promote_s
+    assert snap['promoted_pages'] == len(hashes), snap
+    assert all(same_bytes(p, s) for p, s in zip(promoted, spilled)), \
+        'a promoted page differs from the bytes spilled'
+    assert hit == len(hashes), hit
+    assert len(first) == len(again) == 8
+    assert launches['paged_decode'] > 0, launches
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'evicted': sum(evicted),
+            'spilled_pages': snap['spill_stored'],
+            'spill_ms_per_page': spill_ms, 'page_mib': page_mib,
+            'promoted_pages': n_prom, 'promote_ms': prom_s * 1e3,
+            'hit_pages': hit, 'ttft_first_s': ttfts[0],
+            'ttft_rerun_s': ttfts[-1], 'rerun_tokens_equal': again == first,
+            'kv_tier': snap}
+
+
+def run_prefix(model, card):
+    """The prefix-caching phase: shared prefix on bf16 and int8 pools,
+    chunked prefill, the host tier. Each part's launch counters are set
+    to 0 just before it and read just after."""
+    res = {'shared_bf16': run_shared_prefix(model, card, 'auto'),
+           'shared_int8': run_shared_prefix(model, card, 'int8'),
+           'chunked': run_chunked(model, card),
+           'host_tier': run_host_tier(model, card)}
+    res['launches'] = {part: r['launches'] for part, r in res.items()}
+    return res
 
 
 # A spec engine on pages that the kernel's 16-row TMA boxes do not
@@ -3235,6 +3602,7 @@ def run_serving(args, card, gen, checks):
     paths_res = run_paths(model, card, eng_res['lone_ms_per_token'])
     paths_res['odd_pages'] = run_odd_pages(model, card)
     paths_res['agreement'] = check_agreement(model)
+    prefix_res = run_prefix(model, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3282,6 +3650,9 @@ def run_serving(args, card, gen, checks):
          'lone_plain_ms': tf_causal['plain_ms'],
          'lone_bound_ms': tf_causal['bound_ms'],
          'lone_library_ms': tf_causal['library_ms']}]
+    # Rows 1, 2 and 4 also carry the prefix phase's launches, by part.
+    kernels[0]['prefix_launches'] = {
+        part: n['flash_fwd'] for part, n in prefix_res['launches'].items()}
     for k, t in tp.items():
         launches = eng_res['launches'][k] if k == 'paged_decode' else \
             paths_res[path_of[k]]['launches'][k]
@@ -3297,6 +3668,9 @@ def run_serving(args, card, gen, checks):
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': t['bound_by'], 'library_ms': None,
             'shape': t['shape']})
+        if k in ('paged_decode', 'paged_decode_q'):
+            kernels[-1]['prefix_launches'] = {
+                part: n[k] for part, n in prefix_res['launches'].items()}
     # Kernels 6-7: launches from the LoRA run; times at decode (gather)
     # and the burst's packed row (grouped).
     for k, case, line in (
@@ -3316,6 +3690,7 @@ def run_serving(args, card, gen, checks):
             'index_bmm_ms': t['index_bmm_ms'], 'fused_ms': t['fused_ms'],
             'shape': t['shape'] + [t['out']]})
     details = {'engine': eng_res, 'paths': paths_res, 'lora': lora_run,
+               'prefix': prefix_res,
                'flash_packed': tf, 'flash_causal_512': tf_causal,
                'paged': tp, 'lora_timed': tl}
     return kernels, details

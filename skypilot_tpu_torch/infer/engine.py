@@ -5,6 +5,24 @@ skypilot_tpu/infer/engine.py in paged mode).
     prefill row separated by segment ids (ragged prefill); a lone request
     takes the bucket-padded prefill. Either way the prompt KV is then
     scattered into the request's reserved pages.
+  * Prefix caching (prefix_caching=True, the default): each prompt's full
+    pages are published under chained content hashes (salted by the
+    adapter id) once written. A prompt that agrees with a published run
+    leaves the ragged path, shares those pages read-only (at most
+    (n - 1) // P of them, so one token still runs) and prefills only its
+    suffix, at positions start.., over the slot's gathered view through
+    the dense continuation path (mha_reference with query positions, as
+    the JAX engine); only the suffix pages are written.
+  * Chunked prefill (prefill_chunk > 0, rounded to pages): a prompt whose
+    uncached part exceeds the chunk is prefilled one chunk per loop
+    iteration through the same suffix path, with a decode chunk of the
+    running requests in between; its slot stays out of the decode batch
+    (table row on the dummy page) until the final chunk installs it. One
+    chunked prefill at a time; a second long prompt waits.
+  * Host KV tier (SKYT_KV_TIER=host, infer/kv_tier.py): published pages
+    that eviction reclaims are cloned on the stream and copied to a
+    host-RAM LRU by a writer thread; a later prompt whose run continues
+    there gets the pages installed back (a byte copy) and shares them.
   * Decode: every slot steps together, `decode_chunk` steps per dispatch
     (a Python loop of model calls — the JAX engine scans them), and the
     host pulls the chunk's [chunk, slots] tokens once. Decode is
@@ -34,15 +52,18 @@ skypilot_tpu/infer/engine.py in paged mode).
     verify steps the per-slot ids (the gather kernel). The slot's id is
     set at admission and reset to 0 at release. request_adapter_update
     installs a new stack at a tick boundary (ids stable: in-flight
-    requests stay on their adapter); adapter_in_use backs the unload
-    refusal. int8 KV and spec_decode compose with it.
+    requests stay on their adapter) and flushes the prefix cache;
+    adapter_in_use backs the unload refusal. int8 KV and spec_decode
+    compose with it.
+  * cancel(req_id): a waiting request ends at admission, a running or
+    chunk-prefilling one is released at the next loop boundary.
 
 Not ported (raise): presence/frequency penalties, logit_bias, logprobs,
-deadlines, QoS classes and tenants, prefix caching, the draft model
-proposer, chunked prefill, meshes and multi-host lockstep. Not ported
-(absent): the dense (non-paged) cache mode, the padded batched
-admission, cancel, metrics, tracing, and the weight swap and reshard
-(only the adapter stack hot-loads).
+deadlines, QoS classes and tenants, the draft model proposer, the fleet
+KV tier (SKYT_KV_TIER=fleet: it needs the HTTP routes), meshes and
+multi-host lockstep. Not ported (absent): the dense (non-paged) cache
+mode, the padded batched admission, metrics, tracing, and the weight
+swap and reshard (only the adapter stack hot-loads).
 """
 import collections
 import dataclasses
@@ -55,6 +76,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.infer import kv_tier as kv_tier_lib
 from skypilot_tpu_torch.infer import lora as lora_lib
 from skypilot_tpu_torch.infer import paged_cache
 from skypilot_tpu_torch.utils import device as device_lib
@@ -134,6 +156,8 @@ class _Request:
     generated: int = 0
     rng: Any = None                   # numpy Generator: first token
     gen: Optional[torch.Generator] = None   # device sampling
+    page_hashes: Optional[List[bytes]] = None   # prefix-cache keys
+    cancelled: bool = False
 
 
 def _round_up_pow2(n: int, lo: int = 32) -> int:
@@ -146,7 +170,8 @@ def _round_up_pow2(n: int, lo: int = 32) -> int:
 def _fresh_perf() -> Dict[str, float]:
     return {'decode_tokens': 0, 'steady_tokens': 0, 'steady_time_s': 0.0,
             'prefill_dispatches': 0, 'ragged_dispatches': 0,
-            'spec_verify_steps': 0, 'spec_accepted': 0}
+            'prefill_chunks': 0, 'spec_verify_steps': 0,
+            'spec_accepted': 0}
 
 
 def _put_many(q, items) -> None:
@@ -280,7 +305,8 @@ class InferenceEngine:
                  max_seq_len: Optional[int] = None,
                  decode_chunk: int = 16,
                  page_size: int = 64,
-                 prefix_caching: bool = False,
+                 pool_tokens: Optional[int] = None,
+                 prefix_caching: bool = True,
                  spec_decode: int = 0,
                  prefill_chunk: int = 0,
                  kv_dtype: str = 'auto',
@@ -289,18 +315,20 @@ class InferenceEngine:
                  lora_stack=None) -> None:
         """model: a models.llama.LlamaModel holding its weights on
         `device` (None -> 'cuda'; raises without CUDA unless 'cpu').
-        spec_decode: draft length k of n-gram speculative decoding (0:
-        off). kv_dtype: 'int8' quantizes the paged pools; 'auto' defers
-        to SKYT_KV_DTYPE, then to the model dtype; anything else
-        explicit raises ValueError. lora_stack: a multi-LoRA stack
-        (infer/lora.py), validated against the model and placed on the
-        engine's device in the model dtype once. prefix_caching,
-        prefill_chunk, mesh, lockstep and a draft model exist in the JAX
-        engine and are not ported yet: anything but their defaults
-        raises."""
-        unported = {'prefix_caching': bool(prefix_caching),
-                    'prefill_chunk': prefill_chunk > 0,
-                    'mesh': mesh is not None,
+        pool_tokens: the page pool's size in tokens (default num_slots *
+        max_seq_len). prefix_caching: share published prompt pages (see
+        the module docstring); SKYT_KV_TIER=host adds the host tier to
+        it. prefill_chunk: chunked prefill's chunk in tokens, rounded
+        down to pages (at least one; 0: off). spec_decode: draft length
+        k of n-gram speculative decoding (0: off). kv_dtype: 'int8'
+        quantizes the paged pools; 'auto' defers to SKYT_KV_DTYPE, then
+        to the model dtype; anything else explicit raises ValueError.
+        lora_stack: a multi-LoRA stack (infer/lora.py), validated against
+        the model and placed on the engine's device in the model dtype
+        once. mesh, lockstep and a draft model exist in the JAX engine
+        and are not ported yet: anything but their defaults raises, as
+        does SKYT_KV_TIER=fleet."""
+        unported = {'mesh': mesh is not None,
                     'lockstep': lockstep is not None,
                     'draft_model': draft_model is not None}
         bad = [k for k, v in unported.items() if v]
@@ -322,6 +350,19 @@ class InferenceEngine:
             kv_req = 'auto'
         self.kv_dtype = kv_req
         self.spec_decode = max(0, int(spec_decode))
+        self.prefix_caching = bool(prefix_caching)
+        self.prefill_chunk = max(0, int(prefill_chunk))
+        if self.prefill_chunk:
+            # Page-aligned, so chunk boundaries land on page boundaries.
+            self.prefill_chunk = max(
+                page_size, self.prefill_chunk // page_size * page_size)
+        tier = kv_tier_lib.tier_from_env()
+        if tier == 'fleet':
+            raise NotImplementedError(kv_tier_lib.FLEET_UNPORTED)
+        if tier != 'off' and not self.prefix_caching:
+            logger.warning('SKYT_KV_TIER=%s needs prefix caching; tiering '
+                           'stays off', tier)
+            tier = 'off'
         self.device = device_lib.resolve_device(device)
         model_dev = next(model.parameters()).device
         if model_dev != self.device:
@@ -337,7 +378,7 @@ class InferenceEngine:
             [self.max_seq_len]
         self.dtype = model.dtype
         pcfg = paged_cache.PagedConfig.for_engine(
-            self.max_seq_len, num_slots, page_size)
+            self.max_seq_len, num_slots, page_size, pool_tokens)
         self.pool = paged_cache.PagePool(
             pcfg, self.cfg.n_layers, self.cfg.n_kv_heads,
             self.cfg.head_dim, num_slots, self.dtype, self.device,
@@ -357,6 +398,10 @@ class InferenceEngine:
             dtype=torch.int32, device=self.device) \
             if self.spec_decode > 0 else None
         self._deferred: Optional[_Request] = None
+        # The one chunked prefill in progress: {req, slot, row, hashes,
+        # start, n}. Its slot holds the reservation but stays out of the
+        # decode batch until the final chunk.
+        self._chunked: Optional[Dict[str, Any]] = None
         # Host slot table. _lengths is an upper-bound estimate for chunk
         # sizing; _conf_lengths the confirmed length, advanced at pulls.
         self._slots: List[Optional[_Request]] = [None] * num_slots
@@ -402,6 +447,20 @@ class InferenceEngine:
         self._had_admission = False
         self._ttfts: 'collections.deque[float]' = collections.deque(
             maxlen=512)
+        # Version stamped on host-tier pages; every prefix flush bumps it,
+        # so pages spilled before the flush are never promoted after it.
+        self.kv_version = 1
+        self.kv_tier: Optional[kv_tier_lib.KVTierManager] = None
+        if tier != 'off':
+            self.kv_tier = kv_tier_lib.KVTierManager()
+            self.kv_tier.host.set_version(self.kv_version)
+            self.pool.on_evict = self._kv_spill
+            # One page of each pool: [L, H, P(, d)] at pool dtype.
+            self.kv_tier.set_page_layout({
+                name: (self.cache[name].dtype,
+                       tuple(self.cache[name].shape[:1]
+                             + self.cache[name].shape[2:]))
+                for name in self._kv_pool_keys()})
 
     # ------------------------------------------------------- device work
     def _lora_kw(self, lora_ids) -> Dict[str, Any]:
@@ -454,13 +513,40 @@ class InferenceEngine:
         logits = logits[0].float()
         return logits.argmax(dim=-1), logits, cache
 
-    def _insert_paged_impl(self, prefill_cache, slot: int, req: _Request,
-                           first: int, temp: float, page_ids: np.ndarray,
-                           table_row: np.ndarray, src_off: int) -> None:
-        """Scatter the prompt KV (positions [src_off, src_off + n*P) of
-        row 0 of the prefill cache) into the reserved pages, install the
-        slot's table row and decode args — all in place, ordered after
-        any in-flight chunk on the stream."""
+    def _prefill_suffix_impl(self, tokens: torch.Tensor, start: int,
+                             length: int, table_row: np.ndarray,
+                             lora_id: int = 0):
+        """Prefix-cached (or chunked) prefill: tokens [1, bucket] at
+        positions start.. run over the slot's gathered view (int8 pools
+        dequantized), so they attend the pages already written through
+        the dense continuation path. Returns (greedy [1], logits [1, V]
+        f32 at position length - 1, the view {'k','v'}
+        [L, 1, max_pages*P, H, d] with the new tokens written at start..,
+        which the insert scatters back from src_off)."""
+        row = torch.as_tensor(table_row[None], device=self.device)
+        if 'k_scale' in self.cache:
+            view = {n: paged_cache.PagePool.gather_view_q(
+                self.cache[n], self.cache[f'{n}_scale'], row, self.dtype)
+                for n in ('k', 'v')}
+        else:
+            view = {n: paged_cache.PagePool.gather_view(self.cache[n], row)
+                    for n in ('k', 'v')}
+        positions = start + torch.arange(tokens.shape[1],
+                                         device=self.device)[None]
+        logit_pos = torch.full((1, 1), length - start - 1,
+                               dtype=torch.long, device=self.device)
+        logits, view = self.model(tokens, positions=positions, cache=view,
+                                  logit_positions=logit_pos,
+                                  **self._lora_kw([lora_id]))
+        logits = logits[:, 0, :].float()
+        return logits.argmax(dim=-1), logits, view
+
+    def _insert_pages_impl(self, prefill_cache, page_ids: np.ndarray,
+                           src_off: int) -> None:
+        """Scatter positions [src_off, src_off + n*P) of row 0 of a
+        prefill cache into pages `page_ids`, in place (int8 pools
+        quantize here). Alone, a chunk's write: the slot's table row and
+        decode args stay as they are until the final chunk."""
         p = self.pool.cfg.page_size
         need = src_off + len(page_ids) * p
         ids = torch.as_tensor(page_ids, dtype=torch.long,
@@ -470,13 +556,23 @@ class InferenceEngine:
             if pk.shape[2] < need:   # bucket shorter than the page span
                 pk = torch.nn.functional.pad(
                     pk, (0, 0, 0, 0, 0, need - pk.shape[2]))
-            if 'k_scale' in self.cache:   # int8 pool: quantize here
+            if 'k_scale' in self.cache:
                 paged_cache.PagePool.insert_prompt_q(
                     self.cache[name], self.cache[f'{name}_scale'], pk, ids,
                     src_off)
             else:
                 paged_cache.PagePool.insert_prompt(self.cache[name], pk,
                                                    ids, src_off)
+
+    def _insert_paged_impl(self, prefill_cache, slot: int, req: _Request,
+                           first: int, temp: float, page_ids: np.ndarray,
+                           table_row: np.ndarray, src_off: int) -> None:
+        """Scatter the prompt KV (positions [src_off, src_off + n*P) of
+        row 0 of the prefill cache) into the pages `page_ids`, install the
+        slot's table row and decode args — all in place, ordered after
+        any in-flight chunk on the stream. A prefix hit passes only its
+        suffix pages: shared pages are never written."""
+        self._insert_pages_impl(prefill_cache, page_ids, src_off)
         self.cache['tables'][slot] = torch.as_tensor(
             table_row, dtype=torch.int32, device=self.device)
         self._d_last[slot] = first
@@ -489,10 +585,93 @@ class InferenceEngine:
 
     def _clear_slot_impl(self, slot: int) -> None:
         """Point a released slot's table row at the dummy page so its
-        decode writes can never land in pages a later admission
-        re-reserves; its adapter id goes back to 0."""
+        decode writes (an in-flight chunk's included: this write orders
+        after it on the stream) can never land in pages a later
+        admission re-reserves or shares; its adapter id goes back to 0."""
         self.cache['tables'][slot] = 0
         self._d_lora[slot] = 0
+
+    # ---------------------------------------------------- host KV tier
+    def _kv_pool_keys(self) -> List[str]:
+        return ['k', 'v', 'k_scale', 'v_scale'] if 'k_scale' in self.cache \
+            else ['k', 'v']
+
+    def _kv_spill(self, page: int, h: bytes) -> None:
+        """PagePool.on_evict: clone the page being reclaimed on the
+        stream (a view would see the insert that reuses it), record an
+        event after the clones, and hand both to the tier's writer
+        thread, which waits on the event before its copy to host memory.
+        Never raises into the pool's accounting."""
+        try:
+            snap = {name: self.cache[name][:, page].clone()
+                    for name in self._kv_pool_keys()}
+            ready = None
+            if self.device.type == 'cuda':
+                ready = torch.cuda.Event()
+                ready.record()
+            self.kv_tier.enqueue_spill(h, self.kv_version, snap, ready)
+        except Exception:  # pylint: disable=broad-except
+            logger.exception('kv tier spill enqueue failed')
+
+    def _kv_install_impl(self, page_ids: List[int],
+                         datas: List[kv_tier_lib.PageArrays]) -> None:
+        """Write host pages ([L, H, P(, d)] at pool dtype each) into pool
+        pages `page_ids`, in place: a byte copy, so a promoted page is
+        bit-equal to the page that spilled."""
+        ids = torch.as_tensor(page_ids, dtype=torch.long,
+                              device=self.device)
+        for name in self._kv_pool_keys():
+            self.cache[name][:, ids] = torch.stack(
+                [d[name] for d in datas], dim=1).to(self.device)
+
+    def _kv_install(self, pages: List[int],
+                    datas: List[kv_tier_lib.PageArrays]) -> None:
+        """Install promoted pages in chunks of at most 8 (bounds the host
+        staging of one copy)."""
+        for i in range(0, len(pages), 8):
+            self._kv_install_impl(pages[i:i + 8], datas[i:i + 8])
+
+    def _kv_try_promote(self, req: _Request) -> int:
+        """If the registry's run for `req` stops short and the host store
+        holds its continuation, install those pages (refcount 0, warm)
+        so the reservation that follows shares them. Returns the pages
+        promoted."""
+        if self.kv_tier is None or not req.page_hashes:
+            return 0
+        psize = self.pool.cfg.page_size
+        lookup = req.page_hashes[:(len(req.tokens) - 1) // psize]
+        have = self.pool.prefix_peek(lookup)
+        if have >= len(lookup):
+            return 0
+        run = self.kv_tier.host.run(lookup[have:], self.kv_version)
+        # A page that does not match the pool's layout ends the run and
+        # is dropped from the store.
+        for i, (h, arrays) in enumerate(run):
+            bad = self.kv_tier.validate_page(arrays)
+            if bad is not None:
+                logger.warning('kv host page %s rejected: %s', h.hex(), bad)
+                self.kv_tier.host.discard(h)
+                run = run[:i]
+                break
+        if not run:
+            return 0
+        pages = self.pool.install_prefix([h for h, _ in run])
+        if pages is None:   # the free list cannot take it: recompute
+            return 0
+        self._kv_install(pages, [arrays for _, arrays in run])
+        self.kv_tier.note_promotion(len(pages))
+        return len(pages)
+
+    def _kv_admission_break(self, req: _Request, n: int,
+                            psize: int) -> bool:
+        """True when the host store holds the head of `req`'s prefix (the
+        registry missed it), so it leaves the ragged path for the
+        sequential one, where the promotion happens."""
+        if self.kv_tier is None:
+            return False
+        lookup = req.page_hashes[:(n - 1) // psize]
+        return bool(lookup) and self.kv_tier.host.contains(
+            lookup[0], self.kv_version)
 
     def _sampled_slots(self, sampling: bool) -> List[int]:
         return [i for i in range(self.num_slots)
@@ -657,8 +836,25 @@ class InferenceEngine:
                 return out
             out.append(tok)
 
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a submitted request (any thread): a waiting one ends at
+        admission without taking a slot, a running or chunk-prefilling
+        one is released at the next loop boundary (its queue then yields
+        None). Returns True if a live request with req_id was found."""
+        found = False
+        for req in (*self._slots, *self._admitting, self._deferred):
+            if req is not None and req.req_id == req_id:
+                req.cancelled = found = True
+        with self._waiting.mutex:
+            for req in self._waiting.queue:
+                if req.req_id == req_id:
+                    req.cancelled = found = True
+        return found
+
     def start(self) -> None:
         self._stop.clear()
+        if self.kv_tier is not None:
+            self.kv_tier.start()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -666,6 +862,8 @@ class InferenceEngine:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=60)
+        if self.kv_tier is not None:
+            self.kv_tier.stop()
 
     # ------------------------------------------------------------ adapters
     def _place_stack(self, stack):
@@ -673,6 +871,7 @@ class InferenceEngine:
         return lora_lib.place_stack(stack, self.dtype, self.device)
 
     def request_adapter_update(self, lora_stack, *, num_adapters: int,
+                               flush_prefix: bool = True,
                                drain: bool = False,
                                timeout: Optional[float] = None
                                ) -> Dict[str, Any]:
@@ -683,11 +882,14 @@ class InferenceEngine:
         (a registry appends or zero-fills slots, never renumbers), so
         in-flight requests stay on their adapter; drain=True waits until
         no slot is occupied (admissions are held meanwhile), for an
-        in-place replacement of a referenced id. The stack is validated
-        and placed on the caller's thread. Blocks until applied; returns
-        {'num_adapters', 'apply_s'}. Raises TimeoutError if no applicable
-        boundary comes within `timeout` (SKYT_ADAPTER_TIMEOUT_S); the old
-        stack then stays live."""
+        in-place replacement of a referenced id. flush_prefix (the
+        default) unpublishes the prefix cache and the host tier's pages:
+        pages are salted by adapter id, and a reused id would otherwise
+        hit KV computed under its old values. The stack is validated and
+        placed on the caller's thread. Blocks until applied; returns
+        {'num_adapters', 'flushed_prefix_pages', 'apply_s'}. Raises
+        TimeoutError if no applicable boundary comes within `timeout`
+        (SKYT_ADAPTER_TIMEOUT_S); the old stack then stays live."""
         if int(num_adapters) != int(lora_stack['scaling'].shape[0]):
             raise ValueError(
                 f'num_adapters={num_adapters} but the stack has '
@@ -696,6 +898,7 @@ class InferenceEngine:
             timeout = env.get_float('SKYT_ADAPTER_TIMEOUT_S')
         swap: Dict[str, Any] = {'lora_stack': self._place_stack(lora_stack),
                                 'num_adapters': int(num_adapters),
+                                'flush_prefix': bool(flush_prefix),
                                 'drain': bool(drain),
                                 'event': threading.Event(),
                                 'result': None}
@@ -732,17 +935,34 @@ class InferenceEngine:
             swap = self._swap_req
             if swap is None:
                 return
-            if swap['drain'] and any(s is not None for s in self._slots):
+            if swap['drain'] and (self._chunked is not None or any(
+                    s is not None for s in self._slots)):
                 return
             self._swap_req = None   # claimed: the apply is now inevitable
         t0 = time.perf_counter()
         self._lora_stack = swap['lora_stack']
         self.num_adapters = swap['num_adapters']
+        flushed = 0
+        if swap['flush_prefix'] and self.prefix_caching:
+            flushed = self.flush_prefix()
         swap['result'] = {'num_adapters': self.num_adapters,
+                          'flushed_prefix_pages': flushed,
                           'apply_s': time.perf_counter() - t0}
-        logger.info('adapter stack applied: %d slot(s) (drain=%s)',
-                    self.num_adapters, swap['drain'])
+        logger.info('adapter stack applied: %d slot(s) (drain=%s, %d prefix '
+                    'pages flushed)', self.num_adapters, swap['drain'],
+                    flushed)
         swap['event'].set()
+
+    def flush_prefix(self) -> int:
+        """Unpublish every prefix page (PagePool.flush_prefix) and move the
+        host tier to a new version, which drops its pages and any spill
+        still in flight. Engine-loop only (or with the loop stopped).
+        Returns the device entries flushed."""
+        flushed = self.pool.flush_prefix()
+        self.kv_version += 1
+        if self.kv_tier is not None:
+            self.kv_tier.host.set_version(self.kv_version)
+        return flushed
 
     def adapter_in_use(self, lora_id: int) -> bool:
         """True while an active, admitting, deferred or waiting request
@@ -769,7 +989,7 @@ class InferenceEngine:
         with self._lock:
             return list(self._ttfts)
 
-    def perf_stats(self) -> Dict[str, float]:
+    def perf_stats(self) -> Dict[str, Any]:
         """TTFT percentiles over the recent window and the steady-state
         decode rate (pull-to-pull intervals with no admission between)."""
         ttfts = sorted(self.ttfts())
@@ -785,6 +1005,16 @@ class InferenceEngine:
             steps = self.perf['spec_verify_steps']
             out['spec_accept_per_step'] = (
                 self.perf['spec_accepted'] / steps if steps else 0.0)
+        if self.prefix_caching:
+            pc = dict(self.pool.prefix_stats)
+            cached = self.pool.prefix_cached_pages()
+            total = self.pool.cfg.n_pages - 1   # page 0 is the dummy
+            pc['cached_pages'] = cached
+            if total > 0:
+                pc['occupancy'] = round(cached / total, 4)
+            out['prefix_cache'] = pc
+        if self.kv_tier is not None:
+            out['kv_tier'] = self.kv_tier.snapshot()
         return out
 
     # --------------------------------------------------------- admission
@@ -829,10 +1059,23 @@ class InferenceEngine:
         self._admitting = list(live)
         return live, (rows or None)
 
+    def _hashes(self, req: _Request) -> List[bytes]:
+        """The request's full-page hashes (computed once; none without
+        prefix caching)."""
+        if not self.prefix_caching:
+            return []
+        if req.page_hashes is None:
+            req.page_hashes = paged_cache.page_hashes(
+                req.tokens, self.pool.cfg.page_size, salt=req.params.lora_id)
+        return req.page_hashes
+
     def _try_admit_ragged(self) -> bool:
         """Pack a FIFO prefix of waiting requests (>= 2, page-aligned,
-        any mix of lengths) into one [1, T] prefill with segment ids."""
-        if self._deferred is not None:
+        any mix of lengths) into one [1, T] prefill with segment ids.
+        The prefix stops at a cancelled request, a prompt for chunked
+        prefill, a prefix hit or a host-tier hit: those take the
+        sequential path."""
+        if self._deferred is not None or self._chunked is not None:
             return False
         free = [i for i, r in enumerate(self._slots) if r is None]
         if len(free) < 2 or self._waiting.qsize() < 2:
@@ -843,7 +1086,16 @@ class InferenceEngine:
         cand: List[_Request] = []
         total = 0
         for req in queued:
-            span = -(-len(req.tokens) // psize) * psize
+            n = len(req.tokens)
+            if req.cancelled or (self.prefill_chunk and
+                                 n > self.prefill_chunk):
+                break
+            if self.prefix_caching:
+                lookup = self._hashes(req)[:(n - 1) // psize]
+                if self.pool.prefix_peek(lookup) > 0 or \
+                        self._kv_admission_break(req, n, psize):
+                    break
+            span = -(-n // psize) * psize
             if cand and total + span > self._ragged_max:
                 break
             cand.append(req)
@@ -900,6 +1152,7 @@ class InferenceEngine:
             self._insert_paged_impl(prefill_cache, slot, req, first,
                                     max(0.0, req.params.temperature),
                                     row[:n_ins], row, offs[j])
+            self.pool.publish(slot, self._hashes(req)[:n // psize])
             self._complete_admission(req, slot, n, first)
         return True
 
@@ -912,30 +1165,137 @@ class InferenceEngine:
                 req = self._waiting.get_nowait()
             except queue.Empty:
                 return False
+        if req.cancelled:   # never takes a slot
+            req.out_queue.put(None)
+            return True
+        n = len(req.tokens)
+        psize = self.pool.cfg.page_size
+        if self.prefill_chunk and self._chunked is not None and \
+                n > self.prefill_chunk:
+            # A long prompt behind a chunked prefill waits, unreserved.
+            self._deferred = req
+            return False
         self._admitting = [req]
         slot = self._slots.index(None)
-        n = len(req.tokens)
-        bucket = self._bucket_for(n)
         total = min(n + req.params.max_new_tokens, self.max_seq_len)
-        row = self.pool.try_reserve(slot, total)
-        if row is None:
+        hashes = self._hashes(req)
+        if self.kv_tier is not None and hashes:
+            try:
+                self._kv_try_promote(req)
+            except Exception:  # pylint: disable=broad-except
+                # The tier never fails an admission: it recomputes.
+                logger.exception('kv tier promotion failed; recomputing')
+        # At most (n - 1) // P shared pages: one token must run through
+        # the model for the next-token logits.
+        res = self.pool.try_reserve_prefix(slot, total,
+                                           hashes[:(n - 1) // psize])
+        if res is None:
             self._deferred = req   # pool full: keep FIFO order
             self._admitting = []
             return False
-        padded = np.zeros((1, bucket), np.int32)
-        padded[0, :n] = req.tokens
-        greedy, logits, prefill_cache = self._prefill_impl(
-            torch.as_tensor(padded, device=self.device).long(), n,
-            req.params.lora_id)
+        row, n_cached = res
+        if self.prefill_chunk and n - n_cached * psize > self.prefill_chunk:
+            # One chunk per loop iteration from here (_advance_chunked).
+            self._slots[slot] = req
+            req.slot = slot
+            self._slot_lora[slot] = req.params.lora_id
+            self._chunked = {'req': req, 'slot': slot, 'row': row,
+                             'hashes': hashes, 'start': n_cached * psize,
+                             'n': n}
+            self._admitting = []   # it lives in _slots now
+            return True
+        if n_cached > 0 and n_cached * psize + self._bucket_for(
+                n - n_cached * psize) > self.pool.cfg.max_pages_per_slot * \
+                psize:
+            # The suffix bucket would run past the slot's view: a full
+            # prefill instead.
+            self.pool.release(slot)
+            res = self.pool.try_reserve_prefix(slot, total, ())
+            if res is None:
+                self._deferred = req
+                self._admitting = []
+                return False
+            row, n_cached = res
+        temp = max(0.0, req.params.temperature)
+        reserved = int((row > 0).sum())
+        if n_cached > 0:
+            start = n_cached * psize
+            suffix = req.tokens[start:]
+            padded = np.zeros((1, self._bucket_for(len(suffix))), np.int32)
+            padded[0, :len(suffix)] = suffix
+            greedy, logits, prefill_cache = self._prefill_suffix_impl(
+                torch.as_tensor(padded, device=self.device).long(), start,
+                n, row, req.params.lora_id)
+            # Only the computed suffix pages; the shared ones hold it.
+            ids = row[n_cached:min(-(-n // psize), reserved)]
+        else:
+            start = 0
+            bucket = self._bucket_for(n)
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :n] = req.tokens
+            greedy, logits, prefill_cache = self._prefill_impl(
+                torch.as_tensor(padded, device=self.device).long(), n,
+                req.params.lora_id)
+            ids = row[:min(-(-bucket // psize), reserved)]
         self.perf['prefill_dispatches'] += 1
+        logits_row = logits.cpu().numpy()[0] if temp > 0.0 else None
+        first = self._first_token(req, logits_row,
+                                  lambda: int(greedy.cpu()[0]))
+        self._insert_paged_impl(prefill_cache, slot, req, first, temp, ids,
+                                row, start)
+        self.pool.publish(slot, hashes[:n // psize])
+        self._complete_admission(req, slot, n, first)
+        return True
+
+    def _advance_chunked(self) -> bool:
+        """Run ONE chunk of the chunked prefill in progress, if any,
+        through the suffix path: this chunk's tokens over the pages
+        written so far, its pages scattered back (the slot's table row
+        untouched, so it stays out of the decode batch). The final chunk
+        gives the first token and installs the slot. Returns whether
+        anything ran."""
+        st = self._chunked
+        if st is None:
+            return False
+        req, slot, row = st['req'], st['slot'], st['row']
+        if req.cancelled:
+            self._release(slot)   # drops its pages and self._chunked
+            return True
+        start, n, hashes = st['start'], st['n'], st['hashes']
+        psize = self.pool.cfg.page_size
+        piece = min(self.prefill_chunk, n - start)
+        final = start + piece >= n
+        sb = self._bucket_for(piece)
+        if start + sb > self.pool.cfg.max_pages_per_slot * psize:
+            # The padded writes must stay inside the slot's view; the
+            # page-rounded piece always fits.
+            sb = -(-piece // psize) * psize
+        padded = np.zeros((1, sb), np.int32)
+        padded[0, :piece] = req.tokens[start:start + piece]
+        self.perf['prefill_chunks'] += 1
+        self.perf['prefill_dispatches'] += 1
+        # Keep this iteration out of the steady decode rate.
+        self._had_admission = True
+        # An intermediate chunk's logits row (at its own end) goes unused.
+        greedy, logits, view = self._prefill_suffix_impl(
+            torch.as_tensor(padded, device=self.device).long(), start,
+            n if final else start + piece, row, req.params.lora_id)
+        first_page = start // psize
+        ids = row[first_page:min(-(-(start + piece) // psize),
+                                 int((row > 0).sum()))]
+        if not final:
+            self._insert_pages_impl(view, ids, first_page * psize)
+            self.pool.publish(slot, hashes[:(start + piece) // psize])
+            st['start'] = start + piece
+            return True
         temp = max(0.0, req.params.temperature)
         logits_row = logits.cpu().numpy()[0] if temp > 0.0 else None
         first = self._first_token(req, logits_row,
                                   lambda: int(greedy.cpu()[0]))
-        p = self.pool.cfg.page_size
-        n_ins = min(-(-bucket // p), int((row > 0).sum()))
-        self._insert_paged_impl(prefill_cache, slot, req, first, temp,
-                                row[:n_ins], row, 0)
+        self._insert_paged_impl(view, slot, req, first, temp, ids, row,
+                                first_page * psize)
+        self.pool.publish(slot, hashes[:n // psize])
+        self._chunked = None
         self._complete_admission(req, slot, n, first)
         return True
 
@@ -970,6 +1330,8 @@ class InferenceEngine:
         """Free a slot; the request's stream ends (None) only after the
         slot no longer holds it."""
         req = self._slots[slot]
+        if self._chunked is not None and self._chunked['slot'] == slot:
+            self._chunked = None   # a chunked prefill abandoned
         self._slots[slot] = None
         self._slot_lora[slot] = 0
         self._lengths[slot] = 0
@@ -1028,7 +1390,12 @@ class InferenceEngine:
                     break
                 admitted = True
             self._admitting = []
-            active = [i for i, r in enumerate(self._slots) if r is not None]
+            # One chunk of a long prompt's prefill, then a decode chunk:
+            # running requests keep streaming meanwhile.
+            chunked = self._advance_chunked()
+            filling = self._chunked['slot'] if self._chunked else None
+            active = [i for i, r in enumerate(self._slots)
+                      if r is not None and i != filling]
             new_pending = None
             upper = 0
             if active:
@@ -1056,7 +1423,7 @@ class InferenceEngine:
                     upper = chunk
             if pending is not None:
                 self._finish_chunk(pending)
-            elif not active and not admitted:
+            elif not active and not admitted and not chunked:
                 time.sleep(0.002)
             self._lengths = self._conf_lengths + upper
             pending = new_pending
@@ -1079,6 +1446,9 @@ class InferenceEngine:
         for i, req in entries:
             if self._slots[i] is not req:
                 continue   # finished earlier / slot re-admitted
+            if req.cancelled:
+                self._release(i)   # this chunk's tokens are dropped
+                continue
             p = req.params
             if counts_np is not None:
                 # The valid tokens of every verify step, in step order.

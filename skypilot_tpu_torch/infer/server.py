@@ -16,12 +16,15 @@ def build_engine(model_name: str = 'llama3-8b',
                  max_seq_len: int = 2048,
                  decode_chunk: int = 16,
                  page_size: int = 64,
+                 pool_tokens: Optional[int] = None,
                  dtype: str = 'bfloat16',
                  device=None,
                  seed: int = 0,
                  params: Optional[Dict[str, torch.Tensor]] = None,
+                 prefix_caching: bool = True,
                  spec_decode: int = 0,
                  kv_dtype: str = 'auto',
+                 prefill_chunk: int = 0,
                  draft_model_name: Optional[str] = None,
                  lora_stack: Optional[Dict[str, Any]] = None
                  ) -> engine_lib.InferenceEngine:
@@ -30,9 +33,11 @@ def build_engine(model_name: str = 'llama3-8b',
     and activations in `dtype`. params: a state_dict to load (for example
     models.weights.params_from_jax of a JAX tree); otherwise random
     weights drawn from a torch.Generator seeded with `seed` on the
-    device. spec_decode / kv_dtype / lora_stack pass through to the
-    engine (n-gram speculative decoding, int8 KV, a multi-LoRA stack from
-    infer/lora.py, served by SamplingParams.lora_id). A draft model
+    device. pool_tokens / prefix_caching / prefill_chunk / spec_decode /
+    kv_dtype / lora_stack pass through to the engine (the page pool's
+    size, prefix caching (on by default, as the JAX package's), chunked
+    prefill, n-gram speculative decoding, int8 KV, a multi-LoRA stack
+    from infer/lora.py, served by SamplingParams.lora_id). A draft model
     (draft_model_name) is not ported and raises."""
     if draft_model_name:
         raise NotImplementedError('the draft-model proposer is not ported; '
@@ -61,5 +66,6 @@ def build_engine(model_name: str = 'llama3-8b',
     return engine_lib.InferenceEngine(
         model, num_slots=num_slots, max_seq_len=model.cfg.max_seq_len,
         decode_chunk=decode_chunk, page_size=page_size,
-        spec_decode=spec_decode, kv_dtype=kv_dtype, device=dev,
-        lora_stack=lora_stack)
+        pool_tokens=pool_tokens, prefix_caching=prefix_caching,
+        prefill_chunk=prefill_chunk, spec_decode=spec_decode,
+        kv_dtype=kv_dtype, device=dev, lora_stack=lora_stack)

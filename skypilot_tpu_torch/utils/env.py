@@ -35,6 +35,13 @@ _var('SKYT_MINIMIZE_LOGGING', 'bool', False,
 _var('SKYT_KV_DTYPE', 'str', 'auto',
      "Paged KV cache dtype when the engine's kv_dtype is 'auto': 'auto' "
      "(the model dtype) or 'int8' (per-token, per-head scales).")
+_var('SKYT_KV_TIER', 'str', 'off',
+     'Prefix-KV cache tiering: "off" (device pages only) or "host" '
+     '(spill evicted prefix pages to a host-RAM LRU and promote them on '
+     'a miss). Needs prefix caching. "fleet" (cross-replica fetch over '
+     'GET /kv/prefix) is not ported and raises.')
+_var('SKYT_KV_HOST_BYTES', 'int', 256 * 1024 * 1024,
+     'Byte budget of the host-RAM prefix-page LRU.')
 _var('SKYT_ADAPTER_TIMEOUT_S', 'float', 120.0,
      'How long an adapter hot-load waits for the engine to reach an '
      'applicable decode-tick boundary before aborting (the old adapter '

@@ -89,7 +89,7 @@ def engines():
     def jax_eng():
         return jax_engine.InferenceEngine(
             jm, jp, num_slots=4, max_seq_len=MAX_SEQ, decode_chunk=4,
-            cache_mode='paged', page_size=PAGE, prefix_caching=False)
+            cache_mode='paged', page_size=PAGE)
 
     def torch_eng():
         model = llama.LlamaModel(pcfg)
@@ -177,9 +177,11 @@ def _port_modules():
 def test_port_module_list_covers_every_slice():
     """The two checks below walk every module of the port; the modules
     of each slice are among them (multi-LoRA: infer/lora.py, ops/lora.py;
-    training: train/ and utils/metrics.py, utils/profiling.py)."""
+    training: train/ and utils/metrics.py, utils/profiling.py; the host
+    KV tier: infer/kv_tier.py)."""
     mods = _port_modules()
     for mod in ('skypilot_tpu_torch.infer.engine',
+                'skypilot_tpu_torch.infer.kv_tier',
                 'skypilot_tpu_torch.infer.lora',
                 'skypilot_tpu_torch.ops.lora',
                 'skypilot_tpu_torch.ops.paged_attention',
@@ -241,19 +243,37 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         torch_engine.InferenceEngine(model)
 
 
-@pytest.mark.parametrize('kw,exc', [
-    ({'prefix_caching': True}, NotImplementedError),
-    ({'kv_dtype': 'fp8'}, ValueError),
-    ({'prefill_chunk': 64}, NotImplementedError),
-    ({'spec_decode': 2, 'draft_model': object()}, NotImplementedError),
-    ({'mesh': object()}, NotImplementedError),
-    ({'lockstep': object()}, NotImplementedError)])
-def test_unported_engine_options_raise(kw, exc):
+@pytest.mark.parametrize('kw,env,exc', [
+    ({}, {'SKYT_KV_TIER': 'fleet'}, NotImplementedError),
+    ({'kv_dtype': 'fp8'}, {}, ValueError),
+    ({'spec_decode': 2, 'draft_model': object()}, {}, NotImplementedError),
+    ({'mesh': object()}, {}, NotImplementedError),
+    ({'lockstep': object()}, {}, NotImplementedError)])
+def test_unported_engine_options_raise(kw, env, exc, monkeypatch):
     """Options the port does not take: the unported ones raise
-    NotImplementedError, an unknown explicit kv_dtype ValueError."""
+    NotImplementedError (the fleet KV tier naming the HTTP routes' slice
+    it waits for), an unknown explicit kv_dtype ValueError."""
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
     model = llama.LlamaModel(llama.CONFIGS['debug'])
-    with pytest.raises(exc):
+    with pytest.raises(exc, match='HTTP routes' if env else None):
         torch_engine.InferenceEngine(model, device='cpu', **kw)
+
+
+@pytest.mark.parametrize('kw,attr,want', [
+    ({}, 'prefix_caching', True),
+    ({'prefix_caching': False}, 'prefix_caching', False),
+    ({'prefill_chunk': 40}, 'prefill_chunk', 32)])
+def test_prefix_options_construct(kw, attr, want):
+    """Prefix caching is on by default, as in the JAX engine, and can be
+    turned off; prefill_chunk is rounded down to whole pages."""
+    model = llama.LlamaModel(llama.CONFIGS['debug'])
+    eng = torch_engine.InferenceEngine(model, device='cpu', page_size=16,
+                                       **kw)
+    assert getattr(eng, attr) == want
+    built = torch_server.build_engine('debug', device='cpu', page_size=16,
+                                      **kw)
+    assert getattr(built, attr) == want
 
 
 def test_build_engine_refuses_a_draft_model():

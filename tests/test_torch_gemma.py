@@ -14,8 +14,8 @@ tests/test_infer_weights.py builds the Gemma family. Held:
     (rounded to the compute dtype) against the reference's;
   * params_from_jax on a Gemma tree: logits against the JAX LlamaModel;
   * greedy token streams of the port's engine against the JAX engine's
-    (prefix_caching=False): float pools, kv_dtype='int8', spec_decode=3
-    and both;
+    (both with prefix caching on, their default): float pools,
+    kv_dtype='int8', spec_decode=3 and both;
   * attention's dispatch by head dim (the reference's _flash_ok rule),
     the CUDA wrappers' refusals of head dims they do not build, and
     build_engine on a Gemma preset.
@@ -320,7 +320,7 @@ def test_engine_greedy_streams_equal_jax(engine_setup, opts):
     jm, jp, pcfg, prompts = engine_setup
     jeng = jax_engine.InferenceEngine(
         jm, jp, num_slots=4, max_seq_len=MAX_SEQ, decode_chunk=4,
-        cache_mode='paged', page_size=16, prefix_caching=False, **opts)
+        cache_mode='paged', page_size=16, **opts)
     ref = _run(jeng, jax_engine.SamplingParams, prompts)
     teng = torch_engine.InferenceEngine(
         _port(jp, pcfg), num_slots=4, max_seq_len=MAX_SEQ, decode_chunk=4,

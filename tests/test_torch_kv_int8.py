@@ -220,8 +220,8 @@ def int8_engines():
 
     ref = _run(jax_engine.InferenceEngine(
         jm, jp, num_slots=4, max_seq_len=MAX_SEQ, decode_chunk=4,
-        cache_mode='paged', page_size=PAGE, prefix_caching=False,
-        kv_dtype='int8'), jax_engine.SamplingParams, prompts)
+        cache_mode='paged', page_size=PAGE, kv_dtype='int8'),
+        jax_engine.SamplingParams, prompts)
     eng = torch_eng(kv_dtype='int8')
     got = _run(eng, torch_engine.SamplingParams, prompts)
     return {'ref': ref, 'got': got, 'eng': eng, 'torch_eng': torch_eng}

@@ -486,7 +486,7 @@ def streams(base):
     jeng = jax_engine.InferenceEngine(
         base['jm'], nn.meta.unbox(base['jp']), num_slots=4,
         max_seq_len=MAX_SEQ, decode_chunk=4, cache_mode='paged',
-        page_size=PAGE, prefix_caching=False, lora_stack=base['jstack'])
+        page_size=PAGE, lora_stack=base['jstack'])
     ref = _serve(jeng, jax_engine, prompts)
     teng = _port_engine(base)
     got = _serve(teng, torch_engine, prompts)

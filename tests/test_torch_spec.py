@@ -272,7 +272,7 @@ def setup(debug_models):
     def jax_eng(**kw):
         return jax_engine.InferenceEngine(
             jm, jp, num_slots=4, max_seq_len=MAX_SEQ, decode_chunk=4,
-            cache_mode='paged', page_size=PAGE, prefix_caching=False, **kw)
+            cache_mode='paged', page_size=PAGE, **kw)
 
     def torch_eng(num_slots=4, max_seq_len=MAX_SEQ, **kw):
         return torch_engine.InferenceEngine(

@@ -9,8 +9,8 @@ weights cross through params_from_jax. Held:
     gather view in both packages; an unwindowed one takes the paged
     kernels, the Pallas ones in interpret mode on the JAX side);
   * greedy token streams of the port's engine against the JAX engine's
-    (prefix_caching=False), plain, with kv_dtype='int8' and with
-    spec_decode=2;
+    (both with prefix caching on, their default), plain, with
+    kv_dtype='int8' and with spec_decode=2;
   * one train step (loss, gradients, updated parameters) against JAX's
     value_and_grad and make_train_step;
   * that the window changes the logits;
@@ -284,7 +284,7 @@ def test_engine_greedy_streams_equal_jax(engine_setup, opts):
     jm, jp, pcfg, prompts = engine_setup
     jeng = jax_engine.InferenceEngine(
         jm, jp, num_slots=4, max_seq_len=MAX_SEQ, decode_chunk=4,
-        cache_mode='paged', page_size=16, prefix_caching=False, **opts)
+        cache_mode='paged', page_size=16, **opts)
     ref = _run(jeng, jax_engine.SamplingParams, prompts)
     teng = torch_engine.InferenceEngine(
         _port(jp, pcfg), num_slots=4, max_seq_len=MAX_SEQ, decode_chunk=4,
