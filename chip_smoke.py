@@ -123,6 +123,26 @@ Phases (any failure exits non-zero and prints no result line):
      promoted on the rerun (a prefix hit), every page bit-equal to the
      bytes the prefill wrote and to the bytes spilled; spill and
      promotion times.
+     Then the HTTP front door on the same weights (run_http; the
+     engine's settings as run_prefix's, the client http.client only):
+     the port's server in process on an ephemeral port; 8 concurrent
+     /generate requests of distinct prompts (64-1024 tokens) all 200
+     with their tokens, the flash and paged counters (set to 0 just
+     before, read just after) risen; a lone 64-token request over HTTP
+     gives eng.generate's tokens, its first logprob (/v1/completions)
+     within 5e-2 of the log-softmax of plain_last_logits; a stream
+     gives the whole response's tokens (client TTFT to the first
+     ndjson line and the engine's TTFT of the same request printed);
+     presence_penalty=1e9 makes 32 distinct tokens, logit_bias
+     {t: 100} every token t, X-Request-Deadline 0.2 s on max_tokens
+     2048 ends early and skyt_infer_deadline_expired_total rises; ms
+     per decode step with 8 greedy slots, then with logprobs,
+     penalties or bias on one slot, then greedy again; the OpenAI
+     routes' SSE ends in [DONE]; then `python -m
+     skypilot_tpu_torch.infer.server --model llama3-8b --num-slots 8`
+     as a subprocess answers /health and one /generate and exits 0 on
+     SIGTERM. Its results print as one {"http": {...}} line before the
+     kernels line.
      Then mistral-7b (sliding window 4096 on every layer) at full width,
      build_engine('mistral-7b', max_seq_len=8192, num_slots=4): a burst
      of a 6000- and a 2000-token prompt (one sampled) packed into one
@@ -184,9 +204,10 @@ Phases (any failure exits non-zero and prints no result line):
      its adds ordered too, and the backward kernel at head_dim 128 and on
      packed rows; the same at head_dim 256 on gemma-2b's sft shape
      [4, 2048, 8, 256] (1 kv head) and gemma-7b's [1, 2048, 16, 256];
-     then the {"kernels": [...]} line (all nine kernels, the windowed
-     forward and backward, and the head_dim-256 entries *_gemma7b and
-     *_gemma2b);
+     then the {"http": {...}} line and the {"kernels": [...]} line
+     (all nine kernels, the windowed forward and backward, and the
+     head_dim-256 entries *_gemma7b and *_gemma2b; flash_fwd and
+     paged_decode carry http_launches);
   5. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1959,6 +1980,338 @@ def run_prefix(model, card):
     return res
 
 
+# ----------------------------------------------------- phase 3: HTTP front door
+# The replica's HTTP server (infer/server.py) over an engine on the same
+# llama3-8b weights (8 slots, max_seq_len 2048, 64-token pages), driven
+# with http.client only. Eight concurrent /generate requests of distinct
+# prompts (64-1024 tokens); every other prompt is 64 tokens, one page
+# short of a prefix hit, so a repeated prompt keeps the uncached path.
+HTTP_BURST = (64, 1024, 300, 512, 128, 800, 200, 700)
+HTTP_NEW = 32
+HTTP_SHORT = 64
+HTTP_LP_TOL = 5e-2            # first logprob vs plain_last_logits'
+HTTP_DEADLINE_S = 0.2
+HTTP_COST_NEW = 128           # tokens a slot in the option-cost runs
+HTTP_OPTIONS = (('greedy', {}), ('logprobs', {'logprobs': 0}),
+                ('penalties', {'presence_penalty': 0.5,
+                               'frequency_penalty': 0.5}),
+                ('bias', {'logit_bias': {'17': 5.0}}),
+                ('greedy_again', {}))
+
+
+def http_call(port, method, path, body=None, headers=None, timeout=600):
+    """One request over http.client: (status, headers, body bytes)."""
+    import http.client
+    conn = http.client.HTTPConnection('127.0.0.1', port, timeout=timeout)
+    try:
+        hdrs = dict(headers or {})
+        data = None
+        if body is not None:
+            data = json.dumps(body)
+            hdrs['Content-Type'] = 'application/json'
+        conn.request(method, path, body=data, headers=hdrs)
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, \
+            resp.read()
+    finally:
+        conn.close()
+
+
+def http_stream(port, path, body):
+    """A streamed POST: (status, headers, lines, seconds to the first
+    line, seconds to the end), timed from just before the request."""
+    import http.client
+    conn = http.client.HTTPConnection('127.0.0.1', port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request('POST', path, body=json.dumps(body),
+                     headers={'Content-Type': 'application/json'})
+        resp = conn.getresponse()
+        lines, first = [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if first is None and line.strip():
+                first = time.perf_counter() - t0
+            if line.strip():
+                lines.append(line.decode().strip())
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, \
+            lines, first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def http_metric(port, name):
+    _, _, raw = http_call(port, 'GET', '/metrics')
+    for line in raw.decode().splitlines():
+        if line.startswith(name + ' '):
+            return float(line.split()[1])
+    return 0.0
+
+
+def sse_done(lines):
+    """An SSE stream's events: its last is [DONE]."""
+    events = [ln[len('data: '):] for ln in lines if ln.startswith('data: ')]
+    assert events and events[-1] == '[DONE]', events[-2:]
+    return [json.loads(e) for e in events[:-1]]
+
+
+def http_option_cost(eng, port, rng, vocab, opts):
+    """8 concurrent requests of HTTP_COST_NEW tokens, the options `opts`
+    on the first only: the engine's ms per decode step over the steady
+    intervals (8 live slots)."""
+    import concurrent.futures
+    prompts = [rng.integers(1, vocab, HTTP_SHORT).tolist() for _ in range(8)]
+    eng.reset_perf()
+
+    def one(i):
+        if i == 0 and 'logprobs' in opts:
+            return http_call(port, 'POST', '/v1/completions', {
+                'prompt': prompts[i], 'max_tokens': HTTP_COST_NEW,
+                **opts})[0]
+        body = {'tokens': prompts[i], 'max_tokens': HTTP_COST_NEW}
+        if i == 0:
+            body.update(opts)
+        return http_call(port, 'POST', '/generate', body)[0]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        codes = list(pool.map(one, range(8)))
+    assert codes == [200] * 8, codes
+    perf = eng.perf_stats()
+    assert perf['steady_tokens'] > 0, perf
+    return perf['steady_time_s'] / (perf['steady_tokens'] / 8) * 1e3
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def run_server_entry(card, model=MODEL, extra=()):
+    """`python -m skypilot_tpu_torch.infer.server --model llama3-8b
+    --num-slots 8 --port <free>` in a subprocess: /health, one
+    /generate, then SIGTERM must exit 0. extra: more flags."""
+    import signal
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'skypilot_tpu_torch.infer.server',
+         '--model', model, '--num-slots', '8', '--port', str(port),
+         *extra],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        healthy = None
+        while time.perf_counter() - t0 < 300:
+            assert proc.poll() is None, proc.stdout.read()[-4000:]
+            try:
+                if http_call(port, 'GET', '/health', timeout=5)[0] == 200:
+                    healthy = time.perf_counter() - t0
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        assert healthy is not None, 'server never became healthy'
+        status, _, raw = http_call(port, 'POST', '/generate', {
+            'tokens': list(range(1, 65)), 'max_tokens': 8})
+        assert status == 200, raw[:500]
+        toks = json.loads(raw)['tokens']
+        assert len(toks) == 8, toks
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        out = proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert rc == 0, (rc, out[-4000:])
+    _log(f'server entry point [{card}]: healthy after {healthy:.1f} s '
+         f'(build + warm-up request), /generate 200 with {len(toks)} '
+         f'tokens, SIGTERM -> exit {rc}')
+    return {'healthy_s': healthy, 'exit_code': rc}
+
+
+def run_http(model, card):
+    """The HTTP front door on the llama3-8b weights (see HTTP_BURST).
+    Checks: 8 concurrent /generate all 200 with their tokens, the flash
+    and paged counters (set to 0 just before, read just after) risen; a
+    lone request over HTTP gives eng.generate's tokens and a first
+    logprob within HTTP_LP_TOL of plain_last_logits'; a stream gives
+    the whole response's tokens (client and engine TTFT printed);
+    presence_penalty=1e9 makes 32 distinct tokens, logit_bias {t: 100}
+    every token t, X-Request-Deadline 0.2 s ends a 2048-token request
+    early and skyt_infer_deadline_expired_total rises; the ms per decode
+    step with 8 slots, greedy and with each option on one slot; the
+    OpenAI routes' SSE ends in [DONE]; then the server's entry point in
+    a subprocess."""
+    import concurrent.futures
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.utils import metrics as metrics_lib
+    vocab = model.cfg.vocab_size
+    eng = engine_lib.InferenceEngine(
+        model, num_slots=8, max_seq_len=2048, decode_chunk=16, page_size=64,
+        device=next(model.parameters()).device,
+        metrics_registry=metrics_lib.MetricsRegistry())
+    warm_up(eng, np.random.default_rng(SEED + 2))
+    srv = server_lib.InferenceServer(eng, model_id=MODEL)
+    rng = np.random.default_rng(SEED + 50)
+    res = {}
+    eng.start()
+    port = srv.start()
+    try:
+        burst = [rng.integers(1, vocab, n).tolist() for n in HTTP_BURST]
+        reset_counters()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            replies = list(pool.map(lambda p: http_call(
+                port, 'POST', '/generate',
+                {'tokens': p, 'max_tokens': HTTP_NEW}), burst))
+        burst_s = time.perf_counter() - t0
+        launches = read_counters()
+        for i, (status, hdrs, raw) in enumerate(replies):
+            assert status == 200, (i, status, raw[:300])
+            toks = json.loads(raw)['tokens']
+            assert len(toks) == HTTP_NEW and all(0 <= t < vocab
+                                                 for t in toks), (i, toks)
+            assert 'x-request-id' in hdrs
+        assert launches['flash_fwd'] > 0, launches
+        assert launches['paged_decode'] > 0, launches
+        res['launches'] = launches
+        res['burst_s'] = burst_s
+        _log(f'http burst [{card}]: 8 concurrent /generate (prompts '
+             f'{HTTP_BURST}) x {HTTP_NEW} tokens, all 200 in {burst_s:.2f} s; '
+             f'launches {launches}')
+
+        lone = rng.integers(1, vocab, HTTP_SHORT).tolist()
+        status, _, raw = http_call(port, 'POST', '/generate',
+                                   {'tokens': lone, 'max_tokens': HTTP_NEW})
+        assert status == 200, raw[:300]
+        http_toks = json.loads(raw)['tokens']
+        eng_toks = eng.generate(lone, engine_lib.SamplingParams(
+            max_new_tokens=HTTP_NEW))
+        assert http_toks == eng_toks, (http_toks, eng_toks)
+        status, _, raw = http_call(port, 'POST', '/v1/completions', {
+            'prompt': lone, 'max_tokens': 1, 'logprobs': 0})
+        assert status == 200, raw[:300]
+        first_lp = json.loads(raw)['choices'][0]['logprobs'][
+            'token_logprobs'][0]
+        with torch.inference_mode():
+            toks = torch.as_tensor([lone], device=eng.device)
+            ref_lp = float(torch.log_softmax(plain_last_logits(
+                model, toks)[0], -1)[http_toks[0]])
+            ker_lp = float(torch.log_softmax(kernel_last_logits(
+                model, toks)[0], -1)[http_toks[0]])
+        _log(f'http lone [{card}]: tokens equal to eng.generate; first '
+             f'logprob {first_lp:.5f}, plain_last_logits {ref_lp:.5f} '
+             f'(|diff| {abs(first_lp - ref_lp):.2e}, limit {HTTP_LP_TOL}), '
+             f'kernel prefill {ker_lp:.5f}')
+        assert math.isfinite(first_lp)
+        assert abs(first_lp - ref_lp) <= HTTP_LP_TOL, (first_lp, ref_lp)
+        res['lone'] = {'first_logprob': first_lp, 'plain_logprob': ref_lp,
+                       'kernel_logprob': ker_lp}
+
+        sp = rng.integers(1, vocab, HTTP_SHORT).tolist()
+        status, hdrs, lines, client_ttft, stream_s = http_stream(
+            port, '/generate', {'tokens': sp, 'max_tokens': HTTP_NEW,
+                                'stream': True})
+        assert status == 200 and hdrs['transfer-encoding'] == 'chunked'
+        stream_toks = [json.loads(ln)['token'] for ln in lines]
+        whole = json.loads(http_call(port, 'POST', '/generate', {
+            'tokens': sp, 'max_tokens': HTTP_NEW})[2])['tokens']
+        assert stream_toks == whole, (stream_toks, whole)
+        rid = hdrs['x-request-id']
+        trace = json.loads(http_call(port, 'GET',
+                                     f'/stats?request_id={rid}')[2])
+        engine_ttft = trace['first_token'] - trace['queued']
+        _log(f'http stream [{card}]: {len(stream_toks)} ndjson tokens equal '
+             f'to the whole response; TTFT client (request sent -> first '
+             f'line) {client_ttft * 1e3:.2f} ms, engine (queued -> first '
+             f'token) {engine_ttft * 1e3:.2f} ms, gap '
+             f'{(client_ttft - engine_ttft) * 1e3:.2f} ms; stream '
+             f'{stream_s:.3f} s')
+        res['stream'] = {'client_ttft_s': client_ttft,
+                         'engine_ttft_s': engine_ttft, 'stream_s': stream_s}
+
+        pen = json.loads(http_call(port, 'POST', '/generate', {
+            'tokens': rng.integers(1, vocab, HTTP_SHORT).tolist(),
+            'max_tokens': 32, 'presence_penalty': 1e9})[2])['tokens']
+        assert len(pen) == 32 and len(set(pen)) == 32, pen
+        biased = json.loads(http_call(port, 'POST', '/generate', {
+            'tokens': rng.integers(1, vocab, HTTP_SHORT).tolist(),
+            'max_tokens': 32, 'logit_bias': {'4242': 100}})[2])['tokens']
+        assert biased == [4242] * 32, biased
+        expired0 = http_metric(port, 'skyt_infer_deadline_expired_total')
+        t0 = time.perf_counter()
+        status, hdrs, raw = http_call(
+            port, 'POST', '/generate',
+            {'tokens': rng.integers(1, vocab, HTTP_SHORT).tolist(),
+             'max_tokens': 2048},
+            {'X-Request-Deadline': str(HTTP_DEADLINE_S)})
+        dl_s = time.perf_counter() - t0
+        assert status == 200, raw[:300]
+        dl_toks = json.loads(raw)['tokens']
+        expired = http_metric(port, 'skyt_infer_deadline_expired_total')
+        assert len(dl_toks) < 2048 - HTTP_SHORT and expired == expired0 + 1, \
+            (len(dl_toks), expired0, expired)
+        trace = json.loads(http_call(
+            port, 'GET', f'/stats?request_id={hdrs["x-request-id"]}')[2])
+        assert trace['status'] == 'deadline', trace
+        _log(f'http options [{card}]: presence_penalty=1e9 -> 32 distinct '
+             f'tokens; logit_bias {{4242: 100}} -> 32 x 4242; '
+             f'X-Request-Deadline {HTTP_DEADLINE_S} s on max_tokens 2048 -> '
+             f'{len(dl_toks)} tokens in {dl_s:.3f} s, '
+             f'skyt_infer_deadline_expired_total {expired0:g} -> '
+             f'{expired:g}')
+        res['options'] = {'deadline_tokens': len(dl_toks),
+                          'deadline_wall_s': dl_s}
+
+        cost = {name: http_option_cost(eng, port, rng, vocab, opts)
+                for name, opts in HTTP_OPTIONS}
+        _log(f'http option cost [{card}]: ms per decode step, 8 live slots, '
+             f'{HTTP_COST_NEW} tokens each, the option on one slot: ' +
+             ', '.join(f'{k} {v:.3f}' for k, v in cost.items()))
+        res['ms_per_step'] = cost
+
+        status, hdrs, lines, c_ttft, _ = http_stream(
+            port, '/v1/completions', {'prompt': 'Tell me about the sea.',
+                                      'max_tokens': 16, 'stream': True})
+        assert status == 200, lines
+        events = sse_done(lines)
+        assert events[-1]['choices'][0]['finish_reason'] == 'length'
+        status, hdrs, lines, chat_ttft, _ = http_stream(
+            port, '/v1/chat/completions', {
+                'messages': [{'role': 'user', 'content': 'Hello there.'}],
+                'max_tokens': 16, 'stream': True})
+        assert status == 200, lines
+        chat = sse_done(lines)
+        assert chat[0]['choices'][0]['delta'].get('role') == 'assistant'
+        status, _, raw = http_call(port, 'GET', '/stats')
+        stats = json.loads(raw)
+        assert status == 200 and stats['kernel_paths']['paged_attention'] \
+            == 'cuda', stats
+        _log(f'http openai [{card}]: /v1/completions SSE {len(events)} '
+             f'events + [DONE] (first event {c_ttft * 1e3:.2f} ms), '
+             f'/v1/chat/completions SSE {len(chat)} events + [DONE] '
+             f'({chat_ttft * 1e3:.2f} ms)')
+        res['openai'] = {'completions_events': len(events),
+                         'chat_events': len(chat)}
+    finally:
+        srv.stop()
+        eng.stop()
+    del eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    res['entry'] = run_server_entry(card)
+    return res
+
+
 # A spec engine on pages that the kernel's 16-row TMA boxes do not
 # divide: 24 tokens (one 32-row box, its last 8 rows past the page).
 ODD_PAGE = 24
@@ -3519,6 +3872,13 @@ def main() -> int:
         json.dump(details, f, indent=1, default=str)
     assert all(math.isfinite(k['ms']) for k in kernels)
     _log(card)
+    http_res = details['http']
+    print(json.dumps({'http': {
+        'card': card, 'launches': http_res['launches'],
+        'burst_s': http_res['burst_s'], 'lone': http_res['lone'],
+        'stream': http_res['stream'], 'options': http_res['options'],
+        'ms_per_step': http_res['ms_per_step'],
+        'openai': http_res['openai'], 'entry': http_res['entry']}}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': device_kind,
@@ -3603,6 +3963,7 @@ def run_serving(args, card, gen, checks):
     paths_res['odd_pages'] = run_odd_pages(model, card)
     paths_res['agreement'] = check_agreement(model)
     prefix_res = run_prefix(model, card)
+    http_res = run_http(model, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3689,8 +4050,11 @@ def run_serving(args, card, gen, checks):
             'bound_by': t['bound_by'], 'library_ms': None,
             'index_bmm_ms': t['index_bmm_ms'], 'fused_ms': t['fused_ms'],
             'shape': t['shape'] + [t['out']]})
+    # Rows 1 and 2 also carry the HTTP phase's launches.
+    kernels[0]['http_launches'] = http_res['launches']['flash_fwd']
+    kernels[1]['http_launches'] = http_res['launches']['paged_decode']
     details = {'engine': eng_res, 'paths': paths_res, 'lora': lora_run,
-               'prefix': prefix_res,
+               'prefix': prefix_res, 'http': http_res,
                'flash_packed': tf, 'flash_causal_512': tf_causal,
                'paged': tp, 'lora_timed': tl}
     return kernels, details

@@ -57,13 +57,33 @@ skypilot_tpu/infer/engine.py in paged mode).
     compose with it.
   * cancel(req_id): a waiting request ends at admission, a running or
     chunk-prefilling one is released at the next loop boundary.
+  * Request options (SamplingParams): presence and frequency penalties
+    over output-token counts ([slots, V] int32 on the device, vLLM's
+    convention, on the raw logits before temperature / top-k / top-p),
+    logit_bias (a [slots, 64] (idx, val) scatter-add after them; the
+    first token takes it on a host copy of its row), logprobs (the out
+    queue yields (token, raw logprob) pairs: the log-softmax of the
+    unpenalized, unbiased logits), deadlines (an expired request ends
+    like a cancel, its trace status 'deadline'), and with SKYT_QOS=1
+    priority classes and tenants (serve/qos.py's ClassedRequestQueue
+    as the waiting queue, reordered once a tick; SKYT_QOS_RESERVE_SLOTS
+    slots kept for 'interactive' admissions). A decode chunk runs the
+    penalty, bias and logprob ops only when an active slot asks for
+    them, so a chunk without them issues the launches it always did;
+    a chunk with a penalized or biased slot takes the plain path under
+    spec_decode.
+  * Observability: stats() (the reference's /stats keys), request
+    traces (queued, prefill_start, first_token, done; a bounded FIFO),
+    and the reference's engine metric families in metrics_registry.
 
-Not ported (raise): presence/frequency penalties, logit_bias, logprobs,
-deadlines, QoS classes and tenants, the draft model proposer, the fleet
-KV tier (SKYT_KV_TIER=fleet: it needs the HTTP routes), meshes and
-multi-host lockstep. Not ported (absent): the dense (non-paged) cache
-mode, the padded batched admission, metrics, tracing, and the weight
-swap and reshard (only the adapter stack hot-loads).
+Not ported (raise): the draft model proposer, the fleet KV tier
+(SKYT_KV_TIER=fleet: it needs the /kv/prefix and /kv/index routes),
+meshes and multi-host lockstep. Not ported (absent): the dense
+(non-paged) cache mode, the padded batched admission, the capacity
+ledger and the tick plane (and their metric families, with the weight
+version's, the virtual nodes' and the host-finish counter), tracing
+spans, warmup(), and the weight swap and reshard (only the adapter
+stack hot-loads).
 """
 import collections
 import dataclasses
@@ -82,12 +102,21 @@ from skypilot_tpu_torch.infer import paged_cache
 from skypilot_tpu_torch.utils import device as device_lib
 from skypilot_tpu_torch.utils import env
 from skypilot_tpu_torch.utils import log_utils
+from skypilot_tpu_torch.utils import metrics as metrics_lib
 
 logger = log_utils.init_logger(__name__)
 
 # Device-side top-k sampling supports k up to this (one shared top-k
 # sort serves every slot's k and its top-p nucleus).
 _TOPK_BUCKET = 64
+# QoS priority classes (serve/qos.py's PRIORITIES; repeated here so
+# validate() needs no import of the QoS module).
+_QOS_PRIORITIES = ('interactive', 'standard', 'batch')
+# Max logit_bias entries a request: each slot's (idx, val) pairs are a
+# fixed [slots, _BIAS_BUCKET] scatter-add.
+_BIAS_BUCKET = 64
+# Finished request traces kept for request_trace (a bounded FIFO).
+_TRACE_KEEP = 2048
 
 
 @dataclasses.dataclass
@@ -108,8 +137,8 @@ class SamplingParams:
     tenant: str = ''
 
     def validate(self) -> None:
-        """Reject parameters the engine cannot honor exactly, and the
-        features this engine does not implement yet."""
+        """Reject parameters the engine cannot honor exactly (the JAX
+        engine's rules)."""
         if not isinstance(self.top_k, int) or isinstance(self.top_k, bool):
             raise ValueError(f'top_k must be an int, got {self.top_k!r}')
         if self.top_k < 0:
@@ -129,19 +158,32 @@ class SamplingParams:
         if not isinstance(self.lora_id, int) or self.lora_id < 0:
             raise ValueError(f'lora_id must be an int >= 0, got '
                              f'{self.lora_id!r}')
-        unported = {
-            'presence_penalty': self.presence_penalty != 0.0,
-            'frequency_penalty': self.frequency_penalty != 0.0,
-            'logprobs': bool(self.logprobs),
-            'logit_bias': bool(self.logit_bias),
-            'deadline': self.deadline is not None,
-            'priority': self.priority != 'standard',
-            'tenant': self.tenant != '',
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f'sampling parameters not ported yet: {", ".join(bad)}')
+        if self.priority not in _QOS_PRIORITIES:
+            raise ValueError(
+                f'priority must be one of {_QOS_PRIORITIES}, got '
+                f'{self.priority!r}')
+        if not isinstance(self.tenant, str):
+            raise ValueError(f'tenant must be a string, got '
+                             f'{self.tenant!r}')
+        if self.logit_bias:
+            if len(self.logit_bias) > _BIAS_BUCKET:
+                raise ValueError(
+                    f'logit_bias supports at most {_BIAS_BUCKET} '
+                    f'entries, got {len(self.logit_bias)}')
+            for t, b in self.logit_bias.items():
+                if not isinstance(t, int) or isinstance(t, bool) or t < 0:
+                    raise ValueError(
+                        f'logit_bias keys must be token ids >= 0, got '
+                        f'{t!r}')
+                if not -100.0 <= float(b) <= 100.0:
+                    raise ValueError(
+                        f'logit_bias values must be in [-100, 100], got '
+                        f'{b!r} for token {t}')
+
+    @property
+    def penalized(self) -> bool:
+        return self.presence_penalty != 0.0 or \
+            self.frequency_penalty != 0.0
 
 
 @dataclasses.dataclass
@@ -149,15 +191,19 @@ class _Request:
     req_id: int
     tokens: List[int]
     params: SamplingParams
-    out_queue: 'queue.Queue[Optional[int]]'
+    out_queue: 'queue.Queue[Any]'
     submitted_at: float = dataclasses.field(default_factory=time.time)
+    prefill_start_at: Optional[float] = None   # first admission try
     first_token_at: Optional[float] = None
     slot: Optional[int] = None
     generated: int = 0
     rng: Any = None                   # numpy Generator: first token
-    gen: Optional[torch.Generator] = None   # device sampling
+    # Device sampling (temperature > 0): made on the engine loop at
+    # insert, seeded with seed + req_id.
+    gen: Optional[torch.Generator] = None
     page_hashes: Optional[List[bytes]] = None   # prefix-cache keys
     cancelled: bool = False
+    expired: bool = False             # cancelled by its deadline
 
 
 def _round_up_pow2(n: int, lo: int = 32) -> int:
@@ -182,6 +228,31 @@ def _put_many(q, items) -> None:
         q.queue.extend(items)
         q.unfinished_tasks += len(items)
         q.not_empty.notify(len(items))
+
+
+def _np_raw_lp(logits_row: np.ndarray, tok: int) -> float:
+    """Raw model logprob of one token from a host logits row."""
+    row = logits_row.astype(np.float64)
+    m = row.max()
+    return float(row[tok] - m - np.log(np.exp(row - m).sum()))
+
+
+def _bias_arrays(params: SamplingParams):
+    """(idx [_BIAS_BUCKET] int64, val [_BIAS_BUCKET] f32) for a
+    request's logit_bias; the zero padding adds 0.0 to token 0."""
+    idx = np.zeros(_BIAS_BUCKET, np.int64)
+    val = np.zeros(_BIAS_BUCKET, np.float32)
+    for j, (t, b) in enumerate((params.logit_bias or {}).items()):
+        idx[j] = int(t)
+        val[j] = float(b)
+    return idx, val
+
+
+def raw_logprobs(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """The chosen tokens' raw logprobs: log-softmax of `logits` [..., V]
+    at `toks` [...]."""
+    picked = torch.gather(logits, -1, toks.long()[..., None])[..., 0]
+    return picked - torch.logsumexp(logits, dim=-1)
 
 
 def sampling_filter(scaled: torch.Tensor, topks: torch.Tensor,
@@ -298,6 +369,18 @@ def propose_ngram(hist: torch.Tensor, lens: torch.Tensor,
                         torch.arange(k, device=hist.device)[None, :])
 
 
+def kv_bytes_per_token(cfg, kv_dtype: str = 'auto') -> int:
+    """KV pool bytes one token costs across all layers (k + v), as
+    skypilot_tpu/infer/memory_plan.py counts them: head_dim values at
+    the model dtype's width, or for int8 head_dim bytes plus one f32
+    scale a head."""
+    if kv_dtype == 'int8':
+        per_head = cfg.head_dim + 4
+    else:
+        per_head = cfg.head_dim * (2 if cfg.dtype == 'bfloat16' else 4)
+    return cfg.n_layers * 2 * cfg.n_kv_heads * per_head
+
+
 class InferenceEngine:
     """Slot-based continuous batching over the paged KV cache."""
 
@@ -312,7 +395,9 @@ class InferenceEngine:
                  kv_dtype: str = 'auto',
                  mesh=None, lockstep=None,
                  draft_model=None, device=None,
-                 lora_stack=None) -> None:
+                 lora_stack=None,
+                 metrics_registry: Optional[
+                     metrics_lib.MetricsRegistry] = None) -> None:
         """model: a models.llama.LlamaModel holding its weights on
         `device` (None -> 'cuda'; raises without CUDA unless 'cpu').
         pool_tokens: the page pool's size in tokens (default num_slots *
@@ -325,9 +410,10 @@ class InferenceEngine:
         to the model dtype; anything else explicit raises ValueError.
         lora_stack: a multi-LoRA stack (infer/lora.py), validated against
         the model and placed on the engine's device in the model dtype
-        once. mesh, lockstep and a draft model exist in the JAX engine
-        and are not ported yet: anything but their defaults raises, as
-        does SKYT_KV_TIER=fleet."""
+        once. metrics_registry: where the engine's metric families live
+        (default: metrics.REGISTRY). mesh, lockstep and a draft model
+        exist in the JAX engine and are not ported yet: anything but
+        their defaults raises, as does SKYT_KV_TIER=fleet."""
         unported = {'mesh': mesh is not None,
                     'lockstep': lockstep is not None,
                     'draft_model': draft_model is not None}
@@ -410,7 +496,30 @@ class InferenceEngine:
         self._temps = np.zeros((num_slots,), np.float32)
         self._slot_gens: List[Optional[torch.Generator]] = \
             [None] * num_slots
-        self._waiting: 'queue.Queue[_Request]' = queue.Queue()
+        # Waiting queue: a FIFO, or with SKYT_QOS=1 the classed queue
+        # (a queue.Queue whose deque is kept in scheduled order, so the
+        # head snapshots, pops and requeues below work unchanged).
+        # Decided here: the queue's type never changes under a live
+        # engine. Adapter ids name their flows through model_labels
+        # (the server writes it).
+        self.model_labels: Dict[int, str] = {0: 'base'}
+        self._qos_queue = None
+        self._qos_reserved = 0
+        if env.get_bool('SKYT_QOS'):
+            from skypilot_tpu_torch.serve import qos as qos_lib
+            self._qos_queue = qos_lib.ClassedRequestQueue(
+                meta=lambda r: qos_lib.RequestMeta(
+                    cls=r.params.priority,
+                    tenant=r.params.tenant or 'default',
+                    cost=float(len(r.tokens) + r.params.max_new_tokens),
+                    seq=r.req_id, enq_t=r.submitted_at,
+                    model=str(self.model_labels.get(
+                        r.params.lora_id, r.params.lora_id))))
+            self._qos_reserved = max(0, min(
+                num_slots - 1, env.get_int('SKYT_QOS_RESERVE_SLOTS', 0)))
+        self._waiting: 'queue.Queue[_Request]' = \
+            self._qos_queue if self._qos_queue is not None \
+            else queue.Queue()
         # Requests popped but not yet in _slots (failed on a loop crash).
         self._admitting: List[_Request] = []
         # Packed-token cap per ragged prefill (bounds its shape the way
@@ -426,6 +535,22 @@ class InferenceEngine:
         self._d_temps = torch.zeros((n,), dtype=torch.float32, device=dev)
         self._d_topks = torch.zeros((n,), dtype=torch.int32, device=dev)
         self._d_topps = torch.ones((n,), dtype=torch.float32, device=dev)
+        # Request options: presence / frequency penalties and each
+        # slot's output-token counts [slots, V]; the logit_bias pairs.
+        # Written at insert only for a request that sets them, or to
+        # clear what a slot's earlier request left (_slot_pen /
+        # _slot_bias: the slot's device values are nonzero), so an
+        # engine serving neither issues no extra work.
+        self._d_press = torch.zeros((n,), dtype=torch.float32, device=dev)
+        self._d_freqs = torch.zeros((n,), dtype=torch.float32, device=dev)
+        self._d_counts = torch.zeros((n, self.cfg.vocab_size),
+                                     dtype=torch.int32, device=dev)
+        self._d_bidx = torch.zeros((n, _BIAS_BUCKET), dtype=torch.long,
+                                   device=dev)
+        self._d_bval = torch.zeros((n, _BIAS_BUCKET), dtype=torch.float32,
+                                   device=dev)
+        self._slot_pen = np.zeros((n,), bool)
+        self._slot_bias = np.zeros((n,), bool)
         # Multi-LoRA: the live stack (None: no adapters), its entry count
         # (id 0 included), and each slot's adapter id, on the host and as
         # the device copy the decode steps read.
@@ -447,6 +572,17 @@ class InferenceEngine:
         self._had_admission = False
         self._ttfts: 'collections.deque[float]' = collections.deque(
             maxlen=512)
+        # Set while the loop runs (/health); cleared by a crash.
+        self.ready = threading.Event()
+        # Request traces: req_id -> phase timestamps (queued,
+        # prefill_start, first_token, done) and status.
+        self._traces: 'collections.OrderedDict[int, Dict[str, Any]]' = \
+            collections.OrderedDict()
+        self._traces_lock = threading.Lock()
+        self._last_gauge_t = 0.0
+        self._last_deadline_scan = 0.0
+        self.metrics_registry = metrics_registry or metrics_lib.REGISTRY
+        self._init_metrics()
         # Version stamped on host-tier pages; every prefix flush bumps it,
         # so pages spilled before the flush are never promoted after it.
         self.kv_version = 1
@@ -461,6 +597,103 @@ class InferenceEngine:
                        tuple(self.cache[name].shape[:1]
                              + self.cache[name].shape[2:]))
                 for name in self._kv_pool_keys()})
+            self._m_kv_tier_hits = self.metrics_registry.counter(
+                'skyt_infer_kv_tier_hit_pages_total',
+                'Prefix pages served per cache tier: hbm = registry '
+                'hits, host = pages promoted host->device, fleet = '
+                'pages landed by cross-replica fetch', ('tier',))
+            self._prefix_seen['tier_hbm'] = 0
+            self._kv_tier_seen = {'promoted_pages': 0}
+
+    def _init_metrics(self) -> None:
+        """The JAX engine's metric families (same names, help, labels and
+        buckets), each counted at the same event; the QoS ones only with
+        SKYT_QOS=1."""
+        reg = self.metrics_registry
+        self._m_requests = reg.counter(
+            'skyt_infer_requests_total', 'Requests submitted')
+        self._m_prefill_tokens = reg.counter(
+            'skyt_infer_prefill_tokens_total',
+            'Prompt tokens admitted through prefill')
+        self._m_decode_tokens = reg.counter(
+            'skyt_infer_decode_tokens_total',
+            'Tokens generated by decode')
+        self._m_queue_depth = reg.gauge(
+            'skyt_infer_queue_depth',
+            'Requests queued but not yet admitted to a slot')
+        self._m_running = reg.gauge(
+            'skyt_infer_running_requests',
+            'Requests occupying a decode slot')
+        reg.gauge('skyt_infer_slots_total',
+                  'Configured decode slots').set(self.num_slots)
+        self._m_ttft = reg.histogram(
+            'skyt_infer_ttft_seconds',
+            'Time to first token (queue wait + prefill)')
+        self._m_itl = reg.histogram(
+            'skyt_infer_itl_seconds',
+            'Inter-token latency (per-chunk mean across active slots)')
+        self._m_prefill_dispatches = reg.counter(
+            'skyt_infer_prefill_dispatches_total',
+            'Target-model prefill device dispatches (batched admission '
+            'amortizes these across same-bucket requests)')
+        self._m_admission_batch = reg.histogram(
+            'skyt_infer_admission_batch_size',
+            'Requests admitted per prefill dispatch',
+            buckets=(1, 2, 4, 8, 16, 32))
+        self._m_prefill_disp_tokens = reg.counter(
+            'skyt_infer_prefill_dispatch_tokens_total',
+            'Token positions prefill dispatches actually computed '
+            '(batch x bucket for padded, packed T for ragged)')
+        self._m_prefill_padded = reg.counter(
+            'skyt_infer_prefill_padded_tokens_total',
+            'Prefill dispatch positions holding no real prompt token '
+            '(the wasted-FLOP fraction ragged prefill removes)')
+        self._m_kv_util = reg.gauge(
+            'skyt_infer_kv_cache_utilization',
+            'KV cache occupancy fraction (0-1)')
+        self._m_deadline_expired = reg.counter(
+            'skyt_infer_deadline_expired_total',
+            'Requests expired by their per-request deadline (slot and '
+            'KV pages reclaimed)')
+        self._m_prefix_hit = reg.counter(
+            'skyt_infer_prefix_cache_hit_pages_total',
+            'Prompt pages served from the prefix cache')
+        self._m_prefix_miss = reg.counter(
+            'skyt_infer_prefix_cache_miss_pages_total',
+            'Prompt pages that missed the prefix cache')
+        self._m_prefix_evictions = reg.counter(
+            'skyt_infer_prefix_cache_evictions_total',
+            'Published prefix pages reclaimed by allocation pressure '
+            '(each one is warm KV dropped from HBM — and spilled to '
+            'the host tier when SKYT_KV_TIER is on)')
+        self._m_prefix_pages = reg.gauge(
+            'skyt_infer_prefix_cache_pages',
+            'Pages currently holding published (reusable) prefix KV')
+        self._m_prefix_occupancy = reg.gauge(
+            'skyt_infer_prefix_cache_occupancy',
+            'Published prefix pages / allocatable pool pages (0-1)')
+        # Pool running totals already folded into the counters.
+        self._prefix_seen = {'hit_pages': 0, 'miss_pages': 0,
+                             'evictions': 0}
+        self._m_kv_tier_hits = None
+        reg.gauge(
+            'skyt_infer_kv_bytes_per_token',
+            'KV cache bytes per token at the active KV dtype '
+            '(memory_plan page math) — the disaggregation '
+            'advisor transfer-cost input').set(float(
+                kv_bytes_per_token(self.cfg, self.kv_dtype)))
+        self._m_qos_depth = self._m_qos_wait = self._m_qos_ttft = None
+        if self._qos_queue is not None:
+            self._m_qos_depth = reg.gauge(
+                'skyt_qos_queue_depth',
+                'Waiting requests by QoS class', ('class',))
+            self._m_qos_wait = reg.histogram(
+                'skyt_qos_queue_wait_seconds',
+                'Queue wait (submit -> prefill start) by QoS class',
+                ('class',))
+            self._m_qos_ttft = reg.histogram(
+                'skyt_qos_ttft_seconds',
+                'Time to first token by QoS class', ('class',))
 
     # ------------------------------------------------------- device work
     def _lora_kw(self, lora_ids) -> Dict[str, Any]:
@@ -581,7 +814,33 @@ class InferenceEngine:
         self._d_topks[slot] = min(req.params.top_k, _TOPK_BUCKET)
         self._d_topps[slot] = req.params.top_p
         self._d_lora[slot] = req.params.lora_id
+        if temp > 0.0 and req.gen is None:
+            req.gen = torch.Generator(device=self.device)
+            req.gen.manual_seed(req.params.seed + req.req_id)
         self._slot_gens[slot] = req.gen
+        self._insert_options_impl(slot, req.params, first)
+
+    def _insert_options_impl(self, slot: int, p: SamplingParams,
+                             first: int) -> None:
+        """A slot's penalty and bias state: a penalized request sets its
+        penalties and its count row (reset, then the first token
+        counted, as the JAX engine's _update_args); a biased one its
+        (idx, val) pairs. A request without them only clears what the
+        slot's earlier request left, so greedy traffic writes nothing
+        here."""
+        pen = p.penalized
+        if pen or self._slot_pen[slot]:
+            self._d_press[slot] = p.presence_penalty
+            self._d_freqs[slot] = p.frequency_penalty
+            self._slot_pen[slot] = pen
+        if pen:
+            self._d_counts[slot] = 0
+            self._d_counts[slot, first] = 1
+        if p.logit_bias or self._slot_bias[slot]:
+            idx, val = _bias_arrays(p)
+            self._d_bidx[slot] = torch.as_tensor(idx, device=self.device)
+            self._d_bval[slot] = torch.as_tensor(val, device=self.device)
+            self._slot_bias[slot] = bool(p.logit_bias)
 
     def _clear_slot_impl(self, slot: int) -> None:
         """Point a released slot's table row at the dummy page so its
@@ -692,20 +951,35 @@ class InferenceEngine:
         self._dev_hist[slot, :width] = torch.as_tensor(row,
                                                        device=self.device)
 
-    def _decode_n_impl(self, n: int, sampling: bool):
+    def _decode_n_impl(self, n: int, sampling: bool, penalize: bool = False,
+                       biased: bool = False, want_lp: bool = False):
         """Generate n tokens per slot: n model steps with on-device
-        sampling (greedy where temps == 0). Returns tokens [n, slots]
-        and advances the device args (and the spec history, if kept)."""
+        sampling (greedy where temps == 0). penalize / biased / want_lp
+        (some active slot asks for penalties, logit_bias, logprobs) add
+        their ops; without them a step issues exactly the greedy and
+        sampling ops. Returns (tokens [n, slots], raw logprobs [n, slots]
+        or None) and advances the device args (and the spec history,
+        if kept)."""
         last, lens = self._d_last, self._d_lens
         sampled_slots = self._sampled_slots(sampling)
         hist = self._dev_hist
         rows = torch.arange(self.num_slots, device=self.device)
-        toks = []
+        toks, lps = [], []
         for _ in range(n):
             logits, _ = self.model(last[:, None], positions=lens[:, None],
                                    cache=self.cache,
                                    **self._lora_kw(self._d_lora))
             logits = logits[:, 0, :].float()
+            raw = logits          # logprobs report the raw model's
+            if penalize:
+                # vLLM's convention over output-token counts, on the raw
+                # logits before temperature / top-k / top-p (greedy too).
+                counts = self._d_counts
+                logits = logits - self._d_freqs[:, None] * counts - \
+                    self._d_press[:, None] * (counts > 0)
+            if biased:
+                # Each slot's (idx, val) pairs; padding adds 0 to token 0.
+                logits = logits.scatter_add(1, self._d_bidx, self._d_bval)
             tok = logits.argmax(dim=-1).to(torch.int32)
             if sampled_slots:
                 scaled = logits / self._d_temps.clamp_min(1e-6)[:, None]
@@ -720,6 +994,10 @@ class InferenceEngine:
                         generator=self._slot_gens[i]))
                 drawn = (filtered + noise).argmax(dim=-1).to(torch.int32)
                 tok = torch.where(self._d_temps > 0, drawn, tok)
+            if penalize:
+                self._d_counts[rows, tok.long()] += 1
+            if want_lp:
+                lps.append(raw_logprobs(raw, tok))
             if hist is not None:
                 # Released slots' stale lengths may run past the buffer:
                 # their writes clamp into its (unread) last column.
@@ -727,19 +1005,21 @@ class InferenceEngine:
             toks.append(tok)
             last, lens = tok, lens + 1
         self._d_last, self._d_lens = last, lens
-        return torch.stack(toks)
+        return torch.stack(toks), (torch.stack(lps) if want_lp else None)
 
-    def _decode_spec_impl(self, n: int, k: int, sampling: bool):
+    def _decode_spec_impl(self, n: int, k: int, sampling: bool,
+                          want_lp: bool = False):
         """n speculative verify steps: per slot, k n-gram drafts, one
         s = k+1 forward over [last, drafts] at lens..lens+k, accept a
         draft prefix, emit accepted+1 tokens. Returns (tokens
-        [n, slots, k+1], valid counts [n, slots]) and advances the device
-        args and the history."""
+        [n, slots, k+1], valid counts [n, slots], the emitted rows' raw
+        logprobs [n, slots, k+1] when want_lp, else None) and advances
+        the device args and the history."""
         last, lens, hist = self._d_last, self._d_lens, self._dev_hist
         sampled_slots = self._sampled_slots(sampling)
         vocab = self.cfg.vocab_size
         ar = torch.arange(k + 1, device=self.device)
-        toks, counts = [], []
+        toks, counts, lps = [], [], []
         for _ in range(n):
             draft = propose_ngram(hist, lens, k)
             logits, _ = self.model(torch.cat([last[:, None], draft], 1),
@@ -760,6 +1040,8 @@ class InferenceEngine:
                 out = logits.argmax(dim=-1).to(torch.int32)
                 acc = torch.cumprod((draft == out[:, :k]).to(torch.int32),
                                     dim=1).sum(dim=1, dtype=torch.int32)
+            if want_lp:
+                lps.append(raw_logprobs(logits, out))
             # All k+1 candidates go to the history at lens+1; entries past
             # acc+1 are junk the proposer never matches (its window ends
             # at lens).
@@ -770,7 +1052,8 @@ class InferenceEngine:
             last = torch.gather(out, 1, acc.long()[:, None])[:, 0]
             lens = lens + acc + 1
         self._d_last, self._d_lens = last, lens
-        return torch.stack(toks), torch.stack(counts)
+        return torch.stack(toks), torch.stack(counts), \
+            (torch.stack(lps) if want_lp else None)
 
     def _sample(self, logits: np.ndarray, req: _Request) -> int:
         """Host-side sampling of a request's FIRST token; the same
@@ -799,13 +1082,21 @@ class InferenceEngine:
                params: Optional[SamplingParams] = None
                ) -> 'tuple[int, queue.Queue]':
         """Enqueue a request; returns (req_id, token queue). The queue
-        yields generated token ids, then None when finished."""
+        yields generated token ids (or (token, raw logprob) pairs when
+        params.logprobs), then None when finished."""
         params = params or SamplingParams()
         params.validate()
         if params.lora_id >= max(1, self.num_adapters):
             raise ValueError(
                 f'lora_id {params.lora_id} out of range: engine has '
                 f'{max(0, self.num_adapters - 1)} adapter(s) loaded')
+        if params.logit_bias:
+            bad = [t for t in params.logit_bias
+                   if t >= self.cfg.vocab_size]
+            if bad:
+                raise ValueError(
+                    f'logit_bias token ids out of vocab '
+                    f'(V={self.cfg.vocab_size}): {bad[:5]}')
         if len(tokens) >= self.max_seq_len:
             raise ValueError(f'prompt length {len(tokens)} >= max_seq_len '
                              f'{self.max_seq_len}')
@@ -816,18 +1107,19 @@ class InferenceEngine:
         with self._lock:
             req_id = self._next_id
             self._next_id += 1
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(params.seed + req_id)
         req = _Request(req_id=req_id, tokens=list(tokens), params=params,
                        out_queue=queue.Queue(),
-                       rng=np.random.default_rng(params.seed + req_id),
-                       gen=gen)
+                       rng=np.random.default_rng(params.seed + req_id))
+        self._m_requests.inc()
+        self._trace_event(req_id, 'queued', ts=req.submitted_at,
+                          prompt_tokens=len(tokens), status='waiting')
         self._waiting.put(req)
         return req_id, req.out_queue
 
     def generate(self, tokens: List[int],
-                 params: Optional[SamplingParams] = None) -> List[int]:
-        """Blocking convenience: submit + drain."""
+                 params: Optional[SamplingParams] = None) -> List[Any]:
+        """Blocking convenience: submit + drain. Items as the queue
+        yields them: ints, or (token, logprob) pairs with logprobs."""
         _, q = self.submit(tokens, params)
         out = []
         while True:
@@ -850,6 +1142,33 @@ class InferenceEngine:
                 if req.req_id == req_id:
                     req.cancelled = found = True
         return found
+
+    def _expire_deadlines(self) -> None:
+        """Cancel every request past its params.deadline (engine loop,
+        each iteration): a running one is released at the next delivery
+        boundary, a waiting one ends at admission without a slot. The
+        waiting queue (a scan under its mutex) is read at most 4 times a
+        second; the slots every iteration."""
+        now = time.time()
+        expired: List[_Request] = []
+        for req in (*self._slots, self._deferred, *self._admitting):
+            if req is not None and not req.cancelled and \
+                    req.params.deadline is not None and \
+                    now > req.params.deadline:
+                expired.append(req)
+        if now - self._last_deadline_scan >= 0.25:
+            self._last_deadline_scan = now
+            with self._waiting.mutex:
+                for req in self._waiting.queue:
+                    if not req.cancelled and \
+                            req.params.deadline is not None and \
+                            now > req.params.deadline:
+                        expired.append(req)
+        for req in expired:
+            if not req.expired:
+                req.expired = True
+                self._m_deadline_expired.inc()
+            req.cancelled = True
 
     def start(self) -> None:
         self._stop.clear()
@@ -1017,7 +1336,134 @@ class InferenceEngine:
             out['kv_tier'] = self.kv_tier.snapshot()
         return out
 
+    def stats(self) -> Dict[str, Any]:
+        """The /stats body: slot and queue occupancy, each op's
+        implementation ('cuda': the hand-written kernels; 'plain' on the
+        CPU), perf_stats(), and the JAX engine's keys the serve plane
+        reads (ttft_ms percentiles, steady_decode_tok_per_sec)."""
+        active = sum(1 for r in self._slots if r is not None)
+        impl = 'cuda' if self.device.type == 'cuda' else 'plain'
+        out: Dict[str, Any] = {
+            'active_slots': active, 'num_slots': self.num_slots,
+            'waiting': self._waiting.qsize() + (
+                1 if self._deferred is not None else 0),
+            'ready': self.ready.is_set(),
+            'kernel_paths': dict.fromkeys(
+                ('flash_attention', 'paged_attention', 'lora'), impl),
+            **self.perf_stats()}
+        out['steady_decode_tok_per_sec'] = out.get('steady_decode_tok_s',
+                                                   0.0)
+        ttfts = self.ttfts()
+        if ttfts:
+            arr = np.asarray(ttfts) * 1000.0
+            out['ttft_ms'] = {
+                'p50': round(float(np.percentile(arr, 50)), 2),
+                'p90': round(float(np.percentile(arr, 90)), 2),
+                'p99': round(float(np.percentile(arr, 99)), 2),
+                'count': int(arr.size)}
+        return out
+
+    def _trace_event(self, req_id: int, phase: str,
+                     ts: Optional[float] = None, **extra) -> None:
+        """Record one phase timestamp of a request (the first write of a
+        phase wins) and any fields in `extra`."""
+        now = ts if ts is not None else time.time()
+        with self._traces_lock:
+            tr = self._traces.get(req_id)
+            if tr is None:
+                tr = {'request_id': req_id}
+                self._traces[req_id] = tr
+                while len(self._traces) > _TRACE_KEEP:
+                    self._traces.popitem(last=False)
+            tr.setdefault(phase, now)
+            tr.update(extra)
+
+    def request_trace(self, req_id: int) -> Optional[Dict[str, Any]]:
+        """A request's phase timestamps (queued, prefill_start,
+        first_token, done) with prompt_tokens, generated and status, or
+        None for an unknown or evicted id."""
+        with self._traces_lock:
+            tr = self._traces.get(req_id)
+            return None if tr is None else dict(tr)
+
+    def qos_depths(self) -> Optional[Dict[str, int]]:
+        """Waiting requests by QoS class, or None with QoS off."""
+        if self._qos_queue is None:
+            return None
+        return self._qos_queue.depths()
+
+    def qos_signals(self) -> Dict[str, float]:
+        """Overload signals for the server's QoS admission controller:
+        queue depth, slot count, page occupancy, rolling p95 TTFT."""
+        sig: Dict[str, float] = {
+            'queue_depth': float(self._waiting.qsize() + (
+                1 if self._deferred is not None else 0)),
+            'num_slots': float(self.num_slots)}
+        total = self.pool.cfg.n_pages - 1
+        if total > 0:
+            sig['kv_util'] = (total - self.pool.free_pages()) / total
+        ttfts = self.ttfts()
+        if ttfts:
+            sig['ttft_p95_s'] = float(np.percentile(np.asarray(ttfts), 95))
+        return sig
+
+    def _update_metric_gauges(self) -> None:
+        """Refresh the gauges and fold the pool's running prefix totals
+        into their counters; each loop iteration, at most 4 times a
+        second."""
+        now = time.monotonic()
+        if now - self._last_gauge_t < 0.25:
+            return
+        self._last_gauge_t = now
+        self._m_queue_depth.set(self._waiting.qsize() + (
+            1 if self._deferred is not None else 0))
+        self._m_running.set(sum(1 for r in self._slots if r is not None))
+        if self._qos_queue is not None:
+            for cls, depth in self._qos_queue.depths().items():
+                self._m_qos_depth.labels(cls).set(depth)
+        total = self.pool.cfg.n_pages - 1   # page 0 is the dummy
+        if total > 0:
+            self._m_kv_util.set((total - self.pool.free_pages()) / total)
+        if not self.prefix_caching:
+            return
+        ps = self.pool.prefix_stats
+        for key, metric in (('hit_pages', self._m_prefix_hit),
+                            ('miss_pages', self._m_prefix_miss),
+                            ('evictions', self._m_prefix_evictions)):
+            cur = int(ps.get(key, 0))
+            if cur > self._prefix_seen[key]:
+                metric.inc(cur - self._prefix_seen[key])
+                self._prefix_seen[key] = cur
+        cached = self.pool.prefix_cached_pages()
+        self._m_prefix_pages.set(cached)
+        if total > 0:
+            self._m_prefix_occupancy.set(cached / total)
+        if self._m_kv_tier_hits is not None:
+            cur = int(ps.get('hit_pages', 0))
+            if cur > self._prefix_seen['tier_hbm']:
+                self._m_kv_tier_hits.labels('hbm').inc(
+                    cur - self._prefix_seen['tier_hbm'])
+                self._prefix_seen['tier_hbm'] = cur
+            cur = int(self.kv_tier.stats.get('promoted_pages', 0))
+            if cur > self._kv_tier_seen['promoted_pages']:
+                self._m_kv_tier_hits.labels('host').inc(
+                    cur - self._kv_tier_seen['promoted_pages'])
+                self._kv_tier_seen['promoted_pages'] = cur
+
     # --------------------------------------------------------- admission
+    def _count_prefill_dispatch(self, n_requests: int, dispatch_tokens: int,
+                                real_tokens: int) -> None:
+        """One prefill forward serving n_requests admissions (1 for the
+        single and the suffix paths and for each chunk), computing
+        dispatch_tokens positions of which real_tokens hold prompt
+        tokens."""
+        self.perf['prefill_dispatches'] += 1
+        self._m_prefill_dispatches.inc()
+        self._m_admission_batch.observe(n_requests)
+        self._m_prefill_disp_tokens.inc(dispatch_tokens)
+        if dispatch_tokens > real_tokens:
+            self._m_prefill_padded.inc(dispatch_tokens - real_tokens)
+
     def _bucket_for(self, n: int) -> int:
         for b in self.prefill_buckets:
             if n <= b:
@@ -1032,12 +1478,38 @@ class InferenceEngine:
         step = max(psize, (b // 8) - (b // 8) % psize)
         return -(-t // step) * step
 
-    def _first_token(self, req: _Request, logits_row, greedy) -> int:
-        """First token: host sampling for temp > 0, else the device
-        argmax (a lazy pull)."""
-        if req.params.temperature > 0.0:
-            return self._sample(logits_row, req)
-        return greedy()
+    @staticmethod
+    def _needs_row(p: SamplingParams) -> bool:
+        """Whether a request's first token needs its logits row on the
+        host: sampling, logprobs or logit_bias."""
+        return p.temperature > 0.0 or p.logprobs or bool(p.logit_bias)
+
+    def _first_token(self, req: _Request, logits_row, greedy):
+        """First token of an admitted prompt, the JAX engine's rule for
+        every admission path: logit_bias added to a host copy of the row,
+        host sampling for temp > 0, the biased row's argmax, else the
+        device argmax (`greedy`, a lazy pull); the raw logprob of the
+        unbiased row when asked for. logits_row: the host [V] row, or
+        None when _needs_row is False. Returns (first, first_lp)."""
+        p = req.params
+        row = logits_row
+        if p.logit_bias:
+            row = logits_row.copy()
+            for t, b in p.logit_bias.items():
+                row[int(t)] += float(b)
+        if p.temperature > 0.0:
+            first = self._sample(row, req)
+        elif p.logit_bias:
+            first = int(np.argmax(row))
+        else:
+            first = greedy()
+        first_lp = _np_raw_lp(logits_row, first) if p.logprobs else None
+        return first, first_lp
+
+    def _mark_prefill_start(self, req: _Request) -> None:
+        if req.prefill_start_at is None:
+            req.prefill_start_at = time.time()
+        self._trace_event(req.req_id, 'prefill_start', status='running')
 
     def _reserve_admission_batch(self, live: List[_Request],
                                  free: List[int]):
@@ -1090,6 +1562,10 @@ class InferenceEngine:
             if req.cancelled or (self.prefill_chunk and
                                  n > self.prefill_chunk):
                 break
+            if self._qos_reserved and \
+                    req.params.priority != 'interactive' and \
+                    len(cand) >= len(free) - self._qos_reserved:
+                break
             if self.prefix_caching:
                 lookup = self._hashes(req)[:(n - 1) // psize]
                 if self.pool.prefix_peek(lookup) > 0 or \
@@ -1122,6 +1598,7 @@ class InferenceEngine:
         for j, req in enumerate(cand):
             n = len(req.tokens)
             off = offs[j]
+            self._mark_prefill_start(req)
             tokens[0, off:off + n] = req.tokens
             segs[0, off:off + n] = j + 1
             lora_row[0, off:off + n] = req.params.lora_id
@@ -1130,7 +1607,8 @@ class InferenceEngine:
             poss[0, off:off + spans[j]] = np.arange(spans[j])
             logit_pos[0, j] = off + n - 1
         self.perf['ragged_dispatches'] += 1
-        self.perf['prefill_dispatches'] += 1
+        self._count_prefill_dispatch(
+            nb, t_bucket, sum(len(r.tokens) for r in cand))
         dev = self.device
         greedy, logits, prefill_cache = self._prefill_ragged_impl(
             torch.as_tensor(tokens, device=dev).long(),
@@ -1138,14 +1616,15 @@ class InferenceEngine:
             torch.as_tensor(poss, device=dev).long(),
             torch.as_tensor(logit_pos, device=dev).long(), lora_row)
         logits_np = logits.cpu().numpy() if any(
-            r.params.temperature > 0.0 for r in cand) else None
+            self._needs_row(r.params) for r in cand) else None
         greedy_np = greedy.cpu().numpy() if any(
-            r.params.temperature <= 0.0 for r in cand) else None
+            r.params.temperature <= 0.0 and not r.params.logit_bias
+            for r in cand) else None
         for j, req in enumerate(cand):
             slot = free[j]
             n = len(req.tokens)
-            first = self._first_token(
-                req, logits_np[j] if logits_np is not None else None,
+            first, first_lp = self._first_token(
+                req, logits_np[j] if self._needs_row(req.params) else None,
                 lambda j=j: int(greedy_np[j]))
             row = rows[j]
             n_ins = min(-(-n // psize), int((row > 0).sum()))
@@ -1153,10 +1632,23 @@ class InferenceEngine:
                                     max(0.0, req.params.temperature),
                                     row[:n_ins], row, offs[j])
             self.pool.publish(slot, self._hashes(req)[:n // psize])
-            self._complete_admission(req, slot, n, first)
+            self._complete_admission(req, slot, n, first, first_lp)
         return True
 
     def _admit_one(self) -> bool:
+        if self._qos_reserved:
+            # A non-interactive head may not take the slots kept for
+            # interactive requests (a cancelled one passes: it never
+            # takes a slot).
+            head = self._deferred
+            if head is None:
+                with self._waiting.mutex:
+                    head = self._waiting.queue[0] \
+                        if self._waiting.queue else None
+            if head is not None and not head.cancelled and \
+                    head.params.priority != 'interactive' and \
+                    self._slots.count(None) <= self._qos_reserved:
+                return False
         req = self._deferred
         if req is not None:
             self._deferred = None
@@ -1166,6 +1658,8 @@ class InferenceEngine:
             except queue.Empty:
                 return False
         if req.cancelled:   # never takes a slot
+            self._trace_event(req.req_id, 'done', status='deadline'
+                              if req.expired else 'cancelled')
             req.out_queue.put(None)
             return True
         n = len(req.tokens)
@@ -1196,6 +1690,7 @@ class InferenceEngine:
         row, n_cached = res
         if self.prefill_chunk and n - n_cached * psize > self.prefill_chunk:
             # One chunk per loop iteration from here (_advance_chunked).
+            self._mark_prefill_start(req)
             self._slots[slot] = req
             req.slot = slot
             self._slot_lora[slot] = req.params.lora_id
@@ -1218,6 +1713,7 @@ class InferenceEngine:
             row, n_cached = res
         temp = max(0.0, req.params.temperature)
         reserved = int((row > 0).sum())
+        self._mark_prefill_start(req)
         if n_cached > 0:
             start = n_cached * psize
             suffix = req.tokens[start:]
@@ -1228,6 +1724,7 @@ class InferenceEngine:
                 n, row, req.params.lora_id)
             # Only the computed suffix pages; the shared ones hold it.
             ids = row[n_cached:min(-(-n // psize), reserved)]
+            self._count_prefill_dispatch(1, padded.shape[1], len(suffix))
         else:
             start = 0
             bucket = self._bucket_for(n)
@@ -1237,14 +1734,15 @@ class InferenceEngine:
                 torch.as_tensor(padded, device=self.device).long(), n,
                 req.params.lora_id)
             ids = row[:min(-(-bucket // psize), reserved)]
-        self.perf['prefill_dispatches'] += 1
-        logits_row = logits.cpu().numpy()[0] if temp > 0.0 else None
-        first = self._first_token(req, logits_row,
-                                  lambda: int(greedy.cpu()[0]))
+            self._count_prefill_dispatch(1, bucket, n)
+        logits_row = logits.cpu().numpy()[0] \
+            if self._needs_row(req.params) else None
+        first, first_lp = self._first_token(req, logits_row,
+                                            lambda: int(greedy.cpu()[0]))
         self._insert_paged_impl(prefill_cache, slot, req, first, temp, ids,
                                 row, start)
         self.pool.publish(slot, hashes[:n // psize])
-        self._complete_admission(req, slot, n, first)
+        self._complete_admission(req, slot, n, first, first_lp)
         return True
 
     def _advance_chunked(self) -> bool:
@@ -1273,7 +1771,7 @@ class InferenceEngine:
         padded = np.zeros((1, sb), np.int32)
         padded[0, :piece] = req.tokens[start:start + piece]
         self.perf['prefill_chunks'] += 1
-        self.perf['prefill_dispatches'] += 1
+        self._count_prefill_dispatch(1, sb, piece)
         # Keep this iteration out of the steady decode rate.
         self._had_admission = True
         # An intermediate chunk's logits row (at its own end) goes unused.
@@ -1289,26 +1787,39 @@ class InferenceEngine:
             st['start'] = start + piece
             return True
         temp = max(0.0, req.params.temperature)
-        logits_row = logits.cpu().numpy()[0] if temp > 0.0 else None
-        first = self._first_token(req, logits_row,
-                                  lambda: int(greedy.cpu()[0]))
+        logits_row = logits.cpu().numpy()[0] \
+            if self._needs_row(req.params) else None
+        first, first_lp = self._first_token(req, logits_row,
+                                            lambda: int(greedy.cpu()[0]))
         self._insert_paged_impl(view, slot, req, first, temp, ids, row,
                                 first_page * psize)
         self.pool.publish(slot, hashes[:n // psize])
         self._chunked = None
-        self._complete_admission(req, slot, n, first)
+        self._complete_admission(req, slot, n, first, first_lp)
         return True
 
     def _complete_admission(self, req: _Request, slot: int, n: int,
-                            first: int) -> None:
+                            first: int,
+                            first_lp: Optional[float] = None) -> None:
         if self._dev_hist is not None:
             self._hist_insert_impl(slot, req.tokens, first)
         req.first_token_at = time.time()
+        ttft = req.first_token_at - req.submitted_at
         with self._lock:
-            self._ttfts.append(req.first_token_at - req.submitted_at)
+            self._ttfts.append(ttft)
+        self._m_ttft.observe(ttft)
+        if self._qos_queue is not None:
+            cls = req.params.priority
+            self._m_qos_ttft.labels(cls).observe(ttft)
+            start = req.prefill_start_at or req.first_token_at
+            self._m_qos_wait.labels(cls).observe(
+                max(0.0, start - req.submitted_at))
+        self._m_prefill_tokens.inc(n)
+        self._trace_event(req.req_id, 'first_token', ts=req.first_token_at)
         req.slot = slot
         req.generated = 1
-        req.out_queue.put(first)
+        req.out_queue.put((first, first_lp) if req.params.logprobs
+                          else first)
         self._slots[slot] = req
         self._slot_lora[slot] = req.params.lora_id
         self._lengths[slot] = n
@@ -1326,9 +1837,10 @@ class InferenceEngine:
             return True
         return self._lengths[req.slot] + 1 >= self.max_seq_len
 
-    def _release(self, slot: int) -> None:
+    def _release(self, slot: int, status: Optional[str] = None) -> None:
         """Free a slot; the request's stream ends (None) only after the
-        slot no longer holds it."""
+        slot no longer holds it. status overrides the trace's outcome
+        (the crash handler's 'failed')."""
         req = self._slots[slot]
         if self._chunked is not None and self._chunked['slot'] == slot:
             self._chunked = None   # a chunked prefill abandoned
@@ -1340,27 +1852,38 @@ class InferenceEngine:
         if req is not None:
             self.pool.release(slot)
             self._clear_slot_impl(slot)
+            # The trace before the None: a client reading it right after
+            # its response must see the request done.
+            self._trace_event(req.req_id, 'done', generated=req.generated,
+                              status=status or (
+                                  'deadline' if req.expired else
+                                  'cancelled' if req.cancelled else 'done'))
             req.out_queue.put(None)
 
     # -------------------------------------------------------------- loop
     def _loop(self) -> None:
+        self.ready.set()
         try:
             with torch.inference_mode():
                 self._loop_body()
         except Exception:  # pylint: disable=broad-except
             logger.exception('engine loop crashed; failing open requests')
+            self.ready.clear()
             for i, req in enumerate(self._slots):
                 if req is not None:
+                    self._trace_event(req.req_id, 'done', status='failed')
                     req.out_queue.put(None)
                     self._slots[i] = None
-            for req in (*self._admitting, self._deferred):
-                if req is not None and req.slot is None:
-                    req.out_queue.put(None)
+            pending = [r for r in (*self._admitting, self._deferred)
+                       if r is not None and r.slot is None]
             while True:
                 try:
-                    self._waiting.get_nowait().out_queue.put(None)
+                    pending.append(self._waiting.get_nowait())
                 except queue.Empty:
                     break
+            for req in pending:
+                self._trace_event(req.req_id, 'done', status='failed')
+                req.out_queue.put(None)
         finally:
             # A pending adapter update must not wedge its waiter on a
             # stopped or dead loop: it fails (the old stack stays live).
@@ -1381,6 +1904,12 @@ class InferenceEngine:
                 self._maybe_apply_swap()
             swap = self._swap_req
             hold = swap is not None and swap['drain']
+            self._expire_deadlines()
+            if self._qos_queue is not None and self._waiting.qsize() > 1:
+                # The fair schedule (class order, aging, DRR across
+                # tenants) over the backlog, before this tick's
+                # admissions.
+                self._qos_queue.reorder(time.time())
             admitted = False
             while None in self._slots and not hold:
                 if self._try_admit_ragged():
@@ -1406,21 +1935,30 @@ class InferenceEngine:
                     max(self._lengths[i] for i in active))
                 sampling = any(self._temps[i] > 0 for i in active)
                 entries = [(i, self._slots[i]) for i in active]
+                opts = [r.params for _, r in entries]
+                penalize = any(p.penalized for p in opts)
+                biased = any(p.logit_bias for p in opts)
+                want_lp = any(p.logprobs for p in opts)
                 k = self.spec_decode
-                if k > 0 and rem_space // (k + 1) >= 1:
+                # A penalized or biased slot takes the plain path: its
+                # target moves within a draft run (as in vLLM).
+                if k > 0 and not penalize and not biased and \
+                        rem_space // (k + 1) >= 1:
                     bound = max(1, min(self.decode_chunk,
                                        rem_space // (k + 1)))
                     chunk = 1 << (bound.bit_length() - 1)
-                    toks, counts = self._decode_spec_impl(chunk, k,
-                                                          sampling)
-                    new_pending = (toks, counts, entries)
+                    toks, counts, lps = self._decode_spec_impl(
+                        chunk, k, sampling, want_lp)
+                    new_pending = (toks, counts, lps, entries)
                     upper = chunk * (k + 1)
                 else:
                     bound = max(1, min(self.decode_chunk, rem_space))
                     chunk = 1 << (bound.bit_length() - 1)
-                    toks = self._decode_n_impl(chunk, sampling)
-                    new_pending = (toks, None, entries)
+                    toks, lps = self._decode_n_impl(
+                        chunk, sampling, penalize, biased, want_lp)
+                    new_pending = (toks, None, lps, entries)
                     upper = chunk
+            self._update_metric_gauges()
             if pending is not None:
                 self._finish_chunk(pending)
             elif not active and not admitted and not chunked:
@@ -1436,10 +1974,11 @@ class InferenceEngine:
         slots and advance the confirmed lengths. A spec chunk's tokens
         are [chunk, slots, k+1] with counts [chunk, slots]: the first
         counts[t, i] entries of step t are valid."""
-        toks_dev, counts_dev, entries = pending
+        toks_dev, counts_dev, lps_dev, entries = pending
         toks_np = toks_dev.cpu().numpy()
         counts_np = counts_dev.cpu().numpy() if counts_dev is not None \
             else None
+        lps_np = lps_dev.cpu().numpy() if lps_dev is not None else None
         now = time.perf_counter()
         delivered = 0
         base = {i: int(self._conf_lengths[i]) for i, _ in entries}
@@ -1453,10 +1992,13 @@ class InferenceEngine:
             if counts_np is not None:
                 # The valid tokens of every verify step, in step order.
                 c = counts_np[:, i]
-                flat = toks_np[:, i, :][np.arange(toks_np.shape[2])[None]
-                                        < c[:, None]]
+                valid = np.arange(toks_np.shape[2])[None] < c[:, None]
+                flat = toks_np[:, i, :][valid]
+                flat_lps = lps_np[:, i, :][valid] if lps_np is not None \
+                    else None
             else:
                 flat = toks_np[:, i]
+                flat_lps = lps_np[:, i] if lps_np is not None else None
             total = int(flat.shape[0])
             # Tokens up to AND including the first EOS; at most
             # max_new_tokens in all; positions below max_seq_len - 1.
@@ -1469,7 +2011,10 @@ class InferenceEngine:
                         self.max_seq_len - 1 - base[i])
             n_del = min(total, n_raw)
             if n_del > 0:
-                _put_many(req.out_queue, flat[:n_del].tolist())
+                items = flat[:n_del].tolist()
+                if p.logprobs:
+                    items = list(zip(items, flat_lps[:n_del].tolist()))
+                _put_many(req.out_queue, items)
                 req.generated += n_del
                 delivered += n_del
                 base[i] += n_del
@@ -1485,8 +2030,13 @@ class InferenceEngine:
             if self._slots[i] is req:
                 self._conf_lengths[i] = base[i]
         self.perf['decode_tokens'] += delivered
+        self._m_decode_tokens.inc(delivered)
         if self._last_pull_t is not None and not self._had_admission:
             self.perf['steady_tokens'] += delivered
             self.perf['steady_time_s'] += now - self._last_pull_t
+            if delivered > 0:
+                # Tokens arrive a chunk at a time: the pull interval over
+                # the chunk's delivered count.
+                self._m_itl.observe((now - self._last_pull_t) / delivered)
         self._last_pull_t = now
         self._had_admission = False

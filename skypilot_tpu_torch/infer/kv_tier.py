@@ -54,9 +54,9 @@ _TAGS = {v: k for k, v in _DTYPES.items()}
 
 PageArrays = Dict[str, torch.Tensor]
 
-FLEET_UNPORTED = ('SKYT_KV_TIER=fleet is not ported: the fleet tier (GET '
-                  '/kv/prefix, peer fetch, prewarm) waits for the slice '
-                  'that ports the HTTP routes; use "host" or "off"')
+FLEET_UNPORTED = ('SKYT_KV_TIER=fleet is not ported: the fleet tier (peer '
+                  'fetch, prewarm) needs the /kv/prefix and /kv/index '
+                  'HTTP routes, not ported yet; use "host" or "off"')
 
 
 def tier_from_env() -> str:

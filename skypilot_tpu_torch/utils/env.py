@@ -60,6 +60,46 @@ _var('SKYT_TRAIN_MFU', 'bool', True,
 _var('SKYT_TORCH_BUILD_DIR', 'str', '',
      'Where the CUDA kernels are built (default: the package\'s '
      '_build/ directory).')
+# QoS plane (serve/qos.py, the engine's classed queue, the server's
+# admission gate); the reference's names and defaults.
+_var('SKYT_QOS', 'bool', False,
+     'Master switch for the QoS plane (admission, DRR, shedding).')
+_var('SKYT_QOS_WEIGHTS', 'str', '',
+     'DRR class weights, e.g. "interactive:8,standard:4,batch:1".')
+_var('SKYT_QOS_QUANTUM', 'float', 256.0,
+     'DRR quantum (token credits per round).')
+_var('SKYT_QOS_AGING_S', 'float', 30.0,
+     'Anti-starvation aging horizon for queued requests.')
+_var('SKYT_QOS_DEBT_HALFLIFE_S', 'float', 30.0,
+     'Half-life of accumulated DRR debt.')
+_var('SKYT_QOS_RESERVE_SLOTS', 'int', 0,
+     'Engine slots reserved for interactive-class admission.')
+_var('SKYT_QOS_QUEUE_DEGRADE', 'float', 4.0,
+     'Queue-depth-per-slot level that triggers degrade mode.')
+_var('SKYT_QOS_QUEUE_SHED', 'float', 8.0,
+     'Queue-depth-per-slot level that triggers shedding.')
+_var('SKYT_QOS_KV_DEGRADE', 'float', 0.90,
+     'KV-cache utilization that triggers degrade mode.')
+_var('SKYT_QOS_KV_SHED', 'float', 0.97,
+     'KV-cache utilization that triggers shedding.')
+_var('SKYT_QOS_TTFT_SLO_MS', 'float', 500.0,
+     'Interactive TTFT objective the overload ladder protects.')
+_var('SKYT_QOS_HOLD_S', 'float', 2.0,
+     'Hysteresis hold before the overload level steps down.')
+_var('SKYT_QOS_REFRESH_S', 'float', 0.25,
+     'Overload-level recompute cadence.')
+_var('SKYT_QOS_RETRY_AFTER_S', 'float', 1.0,
+     'Base Retry-After seconds on shed (429) responses.')
+_var('SKYT_QOS_DEGRADE_MAX_TOKENS', 'float', 32.0,
+     'max_tokens clamp applied to batch requests in degrade mode.')
+_var('SKYT_QOS_TENANT_RPS', 'float', 0.0,
+     'Per-tenant request-rate limit (0 = off).')
+_var('SKYT_QOS_TENANT_BURST', 'float', 0.0,
+     'Per-tenant burst allowance (0 = 2x the rate).')
+_var('SKYT_QOS_MODEL_WEIGHTS', 'str', '',
+     'Per-model DRR quantum multipliers for the fair queue, e.g. '
+     '"summarize:4,translate:1" (multiplied with the class weight; '
+     'unlisted models weigh 1.0).')
 
 _FALSEY = ('', '0', 'false', 'no', 'off')
 

@@ -1,19 +1,27 @@
 """Dependency-free Prometheus-style metrics registry: the port's own copy
-of Counter, Gauge, MetricsRegistry and REGISTRY from
-skypilot_tpu/utils/metrics.py (same names, get-or-create semantics,
-thread safety, per-family series cap SKYT_METRICS_MAX_SERIES and text
-exposition 0.0.4), which train/trainer.py's TrainMetricsPublisher
-writes. Histograms are not copied: nothing of the port observes one yet.
+of skypilot_tpu/utils/metrics.py (Counter, Gauge, Histogram with its
+child and timer, MetricsRegistry, CONTENT_TYPE and REGISTRY: the same
+names, buckets, get-or-create semantics, thread safety, per-family
+series cap SKYT_METRICS_MAX_SERIES and text exposition 0.0.4, histograms
+as _bucket/_sum/_count). train/trainer.py's TrainMetricsPublisher, the
+serving engine and the HTTP server write here.
 """
 import math
 import re
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from skypilot_tpu_torch.utils import env
 
 _NAME_RE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*$')
 _LABEL_RE = re.compile(r'^[a-zA-Z_][a-zA-Z0-9_]*$')
+
+# Latency buckets (seconds) spanning sub-ms device steps to multi-second
+# cold prefills; shared default for the engine histograms.
+DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                   0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+
 
 def _max_series() -> int:
     """Per-family label-set cap (SKYT_METRICS_MAX_SERIES, default
@@ -256,6 +264,110 @@ class Gauge(_Metric):
     value = Counter.value
 
 
+class _HistogramTimer:
+    """Context manager observing its own wall duration (seconds) into
+    a histogram child on exit — replaces hand-rolled
+    `t0 = time.perf_counter(); ...; h.observe(perf_counter() - t0)`
+    pairs. Observes on the exception path too: error latency is
+    latency."""
+
+    __slots__ = ('_child', '_t0')
+
+    def __init__(self, child: '_HistogramChild') -> None:
+        self._child = child
+        self._t0 = 0.0
+
+    def __enter__(self) -> '_HistogramTimer':
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *args) -> None:
+        self._child.observe(time.perf_counter() - self._t0)
+
+
+class _HistogramChild:
+    def __init__(self, buckets: Sequence[float]) -> None:
+        self._lock = threading.Lock()
+        self.buckets = buckets              # upper bounds, sorted, +Inf last
+        self.counts = [0] * len(buckets)    # per-bucket (non-cumulative)
+        self.sum = 0.0
+        self.count = 0
+
+    def time(self) -> _HistogramTimer:
+        return _HistogramTimer(self)
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        with self._lock:
+            self.sum += v
+            self.count += 1
+            for i, bound in enumerate(self.buckets):
+                if v <= bound:
+                    self.counts[i] += 1
+                    break
+
+    def cumulative(self) -> List[int]:
+        with self._lock:
+            out, acc = [], 0
+            for c in self.counts:
+                acc += c
+                out.append(acc)
+            return out
+
+
+class Histogram(_Metric):
+    type = 'histogram'
+
+    def __init__(self, name: str, help_text: str,
+                 labelnames: Sequence[str] = (),
+                 buckets: Sequence[float] = DEFAULT_BUCKETS) -> None:
+        super().__init__(name, help_text, labelnames)
+        bs = sorted(float(b) for b in buckets)
+        if not bs:
+            raise ValueError('histogram needs at least one bucket')
+        if bs != sorted(set(bs)):
+            raise ValueError(f'duplicate buckets in {buckets!r}')
+        if bs[-1] != math.inf:
+            bs.append(math.inf)
+        self.buckets = tuple(bs)
+
+    def _make_child(self):
+        return _HistogramChild(self.buckets)
+
+    def observe(self, value: float) -> None:
+        self._default_child().observe(value)
+
+    def time(self) -> _HistogramTimer:
+        """`with hist.time(): ...` — observe the block's duration.
+        Labeled histograms: `with hist.labels(...).time(): ...`."""
+        return self._default_child().time()
+
+    def expose_lines(self) -> List[str]:
+        lines = [f'# HELP {self.name} {_escape_help(self.help)}',
+                 f'# TYPE {self.name} {self.type}']
+        bnames = self.labelnames + ('le',)
+        for key, child in self._sorted_children():
+            for bound, cum in zip(self.buckets, child.cumulative()):
+                lines.append(
+                    f'{self.name}_bucket'
+                    f'{_render_labels(bnames, key + (_fmt(bound),))} '
+                    f'{cum}')
+            lab = _render_labels(self.labelnames, key)
+            lines.append(f'{self.name}_sum{lab} {_fmt(child.sum)}')
+            lines.append(f'{self.name}_count{lab} {child.count}')
+        return lines
+
+    def sample_dicts(self) -> List[Dict[str, Any]]:
+        out = []
+        for key, child in self._sorted_children():
+            out.append({'labels': self._labels_dict(key),
+                        'count': child.count, 'sum': child.sum,
+                        'buckets': {_fmt(b): c for b, c in
+                                    zip(self.buckets,
+                                        child.cumulative())}})
+        return out
+
+
 # The guard's loss counter (one family, 'metric' label = family name).
 _DROPPED_SERIES = 'skyt_metrics_dropped_series_total'
 
@@ -268,7 +380,7 @@ class MetricsRegistry:
         self._metrics: 'Dict[str, _Metric]' = {}
 
     def _get_or_create(self, cls, name: str, help_text: str,
-                       labelnames: Sequence[str]):
+                       labelnames: Sequence[str], **kwargs):
         with self._lock:
             existing = self._metrics.get(name)
             if existing is not None:
@@ -278,8 +390,20 @@ class MetricsRegistry:
                         f'metric {name!r} already registered as '
                         f'{existing.type} with labels '
                         f'{existing.labelnames}')
+                want = kwargs.get('buckets')
+                if want is not None:
+                    # Re-registration with different buckets would
+                    # silently pile observations into the first
+                    # registration's (wrong) buckets.
+                    bs = sorted(float(b) for b in want)
+                    if bs[-1] != math.inf:
+                        bs.append(math.inf)
+                    if tuple(bs) != existing.buckets:
+                        raise ValueError(
+                            f'histogram {name!r} already registered '
+                            f'with buckets {existing.buckets}')
                 return existing
-            metric = cls(name, help_text, labelnames)
+            metric = cls(name, help_text, labelnames, **kwargs)
             if name != _DROPPED_SERIES:
                 # The dropped-series counter itself is exempt: its
                 # 'metric' label domain is the (bounded) family set,
@@ -308,6 +432,13 @@ class MetricsRegistry:
     def gauge(self, name: str, help_text: str,
               labelnames: Sequence[str] = ()) -> Gauge:
         return self._get_or_create(Gauge, name, help_text, labelnames)
+
+    def histogram(self, name: str, help_text: str,
+                  labelnames: Sequence[str] = (),
+                  buckets: Sequence[float] = DEFAULT_BUCKETS
+                  ) -> Histogram:
+        return self._get_or_create(Histogram, name, help_text,
+                                   labelnames, buckets=buckets)
 
     def get(self, name: str) -> Optional[_Metric]:
         with self._lock:

@@ -7,8 +7,8 @@ the max_new_tokens cut-off and an EOS cut-off.
 
 Also here: the port's device sampling with top_k=1 reproduces its greedy
 stream, and the isolation checks — the port imports neither jax nor
-anything of skypilot_tpu, and its entry points refuse to run without
-CUDA unless the caller names the CPU.
+anything of skypilot_tpu (nor aiohttp), and its entry points refuse to
+run without CUDA unless the caller names the CPU.
 """
 import ast
 import dataclasses
@@ -178,11 +178,15 @@ def test_port_module_list_covers_every_slice():
     """The two checks below walk every module of the port; the modules
     of each slice are among them (multi-LoRA: infer/lora.py, ops/lora.py;
     training: train/ and utils/metrics.py, utils/profiling.py; the host
-    KV tier: infer/kv_tier.py)."""
+    KV tier: infer/kv_tier.py; the HTTP front door: infer/server.py,
+    infer/tokenizer.py, serve/qos.py)."""
     mods = _port_modules()
     for mod in ('skypilot_tpu_torch.infer.engine',
                 'skypilot_tpu_torch.infer.kv_tier',
                 'skypilot_tpu_torch.infer.lora',
+                'skypilot_tpu_torch.infer.server',
+                'skypilot_tpu_torch.infer.tokenizer',
+                'skypilot_tpu_torch.serve.qos',
                 'skypilot_tpu_torch.ops.lora',
                 'skypilot_tpu_torch.ops.paged_attention',
                 'skypilot_tpu_torch.models.weights',
@@ -212,6 +216,8 @@ def test_port_imports_no_jax_in_subprocess():
 
 
 def test_port_sources_import_nothing_of_jax():
+    """No port source imports JAX, the JAX package or aiohttp (the
+    card's machine has none of them)."""
     bad = []
     for root, _, files in os.walk(PKG):
         for f in files:
@@ -229,7 +235,7 @@ def test_port_sources_import_nothing_of_jax():
                 for n in names:
                     top = n.split('.')[0]
                     if top in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
-                               'skypilot_tpu'):
+                               'skypilot_tpu', 'aiohttp'):
                         bad.append(f'{path}: {n}')
     assert not bad, bad
 
