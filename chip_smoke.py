@@ -143,6 +143,24 @@ Phases (any failure exits non-zero and prints no result line):
      as a subprocess answers /health and one /generate and exits 0 on
      SIGTERM. Its results print as one {"http": {...}} line before the
      kernels line.
+     Then HF checkpoints on the same weights (run_checkpoint): the model
+     written by weights.save_hf_checkpoint to a temporary directory
+     (bytes, seconds; fewer layers at full width only if the disk cannot
+     hold 32, logged), with a tokenizer.json when `tokenizers` is there;
+     build_engine(checkpoint=) in bf16: a 512-token prompt's last logits
+     bit-equal to the in-memory model's and the same greedy stream; with
+     quantize int8 and int4: codes made on the card byte-equal to the
+     CPU quantizer's (layers.0.attn.wq, lm_head) and to the loaded
+     engine's, last logits within LOGIT_REL_L2 of plain_last_logits of
+     the quantized model (check_logits), rel L2 against bf16 printed;
+     for each mode the load's seconds, peak and resident memory, ms per
+     token at 8 slots and at 4 slots with spec_decode=4, the flash and
+     paged counters (set to 0 just before, read just after) risen; then
+     the example's command line (examples/llama_8b_int8_serve.yaml:
+     --checkpoint --num-slots 4 --max-seq-len 2048 --quantize int8
+     --spec-decode 4) as a subprocess: /health, /v1/models naming the
+     directory, /generate, SIGTERM -> 0. A {"checkpoint": {...}} line
+     before the kernels line.
      Then mistral-7b (sliding window 4096 on every layer) at full width,
      build_engine('mistral-7b', max_seq_len=8192, num_slots=4): a burst
      of a 6000- and a 2000-token prompt (one sampled) packed into one
@@ -204,10 +222,11 @@ Phases (any failure exits non-zero and prints no result line):
      its adds ordered too, and the backward kernel at head_dim 128 and on
      packed rows; the same at head_dim 256 on gemma-2b's sft shape
      [4, 2048, 8, 256] (1 kv head) and gemma-7b's [1, 2048, 16, 256];
-     then the {"http": {...}} line and the {"kernels": [...]} line
-     (all nine kernels, the windowed forward and backward, and the
-     head_dim-256 entries *_gemma7b and *_gemma2b; flash_fwd and
-     paged_decode carry http_launches);
+     then the {"http": {...}} line, the {"checkpoint": {...}} line and
+     the {"kernels": [...]} line (all nine kernels, the windowed forward
+     and backward, and the head_dim-256 entries *_gemma7b and *_gemma2b;
+     flash_fwd and paged_decode carry http_launches, and with
+     paged_decode_mq ckpt_launches);
   5. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1215,7 +1234,9 @@ def check_lora(gen):
 # ----------------------------------------------------------- phase 3
 def plain_proj(lora, i, name, linear, x):
     """Layer i's projection `name` with its adapter delta from the plain
-    versions (JAX's y + d); lora: None or (stack, ids [B] or [B, S])."""
+    versions (JAX's y + d); lora: None or (stack, ids [B] or [B, S]).
+    linear: a Linear, or a quantized model's QuantLinear / QuantLinear4
+    (plain torch, no kernel: their forward is their plain version)."""
     from skypilot_tpu_torch.ops import lora as lora_ops
     y = linear(x)
     if lora is None:
@@ -2089,19 +2110,22 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_server_entry(card, model=MODEL, extra=()):
+def run_server_entry(card, model=MODEL, extra=(), argv=None, text=False):
     """`python -m skypilot_tpu_torch.infer.server --model llama3-8b
-    --num-slots 8 --port <free>` in a subprocess: /health, one
-    /generate, then SIGTERM must exit 0. extra: more flags."""
+    --num-slots 8 --port <free>` in a subprocess: /health, /v1/models,
+    one /generate, then SIGTERM must exit 0. extra: more flags; argv: the
+    flags in place of --model/--num-slots; text: also one /generate on
+    text (a checkpoint's tokenizer)."""
     import signal
     port = free_port()
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
     t0 = time.perf_counter()
+    flags = ('--model', model, '--num-slots', '8') if argv is None \
+        else tuple(argv)
     proc = subprocess.Popen(
         [sys.executable, '-m', 'skypilot_tpu_torch.infer.server',
-         '--model', model, '--num-slots', '8', '--port', str(port),
-         *extra],
+         *flags, '--port', str(port), *extra],
         cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     try:
@@ -2116,11 +2140,21 @@ def run_server_entry(card, model=MODEL, extra=()):
                 pass
             time.sleep(0.5)
         assert healthy is not None, 'server never became healthy'
+        status, _, raw = http_call(port, 'GET', '/v1/models')
+        assert status == 200, raw[:500]
+        model_id = json.loads(raw)['data'][0]['id']
         status, _, raw = http_call(port, 'POST', '/generate', {
             'tokens': list(range(1, 65)), 'max_tokens': 8})
         assert status == 200, raw[:500]
         toks = json.loads(raw)['tokens']
         assert len(toks) == 8, toks
+        text_toks = None
+        if text:
+            status, _, raw = http_call(port, 'POST', '/generate', {
+                'text': 'hello tpu world again', 'max_tokens': 8})
+            assert status == 200, raw[:500]
+            text_toks = json.loads(raw)['tokens']
+            assert len(text_toks) == 8, text_toks
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
         out = proc.stdout.read()
@@ -2129,10 +2163,13 @@ def run_server_entry(card, model=MODEL, extra=()):
             proc.kill()
             proc.wait()
     assert rc == 0, (rc, out[-4000:])
-    _log(f'server entry point [{card}]: healthy after {healthy:.1f} s '
-         f'(build + warm-up request), /generate 200 with {len(toks)} '
-         f'tokens, SIGTERM -> exit {rc}')
-    return {'healthy_s': healthy, 'exit_code': rc}
+    _log(f'server entry point {" ".join(flags)} [{card}]: healthy after '
+         f'{healthy:.1f} s (build + warm-up request), /v1/models '
+         f'{model_id!r}, /generate 200 with {len(toks)} tokens'
+         + ('' if text_toks is None else
+            f' (and {len(text_toks)} on text)') + f', SIGTERM -> exit {rc}')
+    return {'healthy_s': healthy, 'exit_code': rc, 'model_id': model_id,
+            'tokens': toks, 'text_tokens': text_toks}
 
 
 def run_http(model, card):
@@ -2309,6 +2346,302 @@ def run_http(model, card):
     gc.collect()
     torch.cuda.empty_cache()
     res['entry'] = run_server_entry(card)
+    return res
+
+
+# ------------------------------------------------- phase 3: HF checkpoints
+# llama3-8b's weights written as an HF checkpoint by the port's writer
+# and served from it (page 64, 8 slots of 2048 tokens): bf16, then int8
+# and int4 weight-only quantized as each tensor leaves the reader.
+CKPT_PROMPT = 512
+CKPT_NEW = 32
+CKPT_COST_PROMPT = 128        # the ms-per-token runs: prompt, new tokens
+CKPT_COST_NEW = 64
+CKPT_QUANT = ('int8', 'int4')
+CKPT_CODES_OF = ('layers.0.attn.wq', 'lm_head')
+CKPT_DISK_MARGIN = 1.1         # free disk wanted over the weights' bytes
+
+
+def ckpt_tokenizer(d):
+    """A WordLevel tokenizer.json (and tokenizer_config.json) in d when
+    the `tokenizers` package is there; False (no file: the server takes
+    the byte fallback) when it is not."""
+    try:
+        import tokenizers
+        from tokenizers import models as tok_models
+        from tokenizers import pre_tokenizers
+    except ImportError:
+        return False
+    vocab = {'<s>': 0, '</s>': 1, '<unk>': 2, 'hello': 3, 'tpu': 4,
+             'world': 5, 'again': 6}
+    tok = tokenizers.Tokenizer(tok_models.WordLevel(vocab,
+                                                    unk_token='<unk>'))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(os.path.join(d, 'tokenizer.json'))
+    with open(os.path.join(d, 'tokenizer_config.json'), 'w') as f:
+        json.dump({'bos_token': '<s>', 'eos_token': '</s>'}, f)
+    return True
+
+
+def cut_model(model, n_layers):
+    """The first n_layers of `model` as a model of their own, sharing its
+    tensors (no copy): the checkpoint a smaller disk can hold."""
+    import dataclasses
+    from skypilot_tpu_torch.models import llama
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    cut = llama.LlamaModel(cfg, device='meta')
+    sd = {k: v for k, v in model.state_dict().items()
+          if not k.startswith('layers.') or int(k.split('.')[1]) < n_layers}
+    cut.load_state_dict(sd, assign=True)
+    return cut
+
+
+@contextlib.contextmanager
+def timed_loads(record):
+    """Wrap weights.load_checkpoint, as build_engine calls it, to keep
+    each load's seconds, its peak device memory over what was allocated
+    before it, and what stays resident; the wrapper changes nothing the
+    engine sees."""
+    import torch
+    from skypilot_tpu_torch.models import weights
+    real = weights.load_checkpoint
+
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        record.append({'load_s': time.perf_counter() - t0,
+                       'peak_gib': (torch.cuda.max_memory_allocated()
+                                    - base) / 2**30,
+                       'resident_gib': (torch.cuda.memory_allocated()
+                                        - base) / 2**30})
+        return out
+    weights.load_checkpoint = wrapped
+    try:
+        yield record
+    finally:
+        weights.load_checkpoint = real
+
+
+def ckpt_cost(eng, rng, n, repeat=False):
+    """n concurrent requests (CKPT_COST_PROMPT tokens, CKPT_COST_NEW new
+    each) on a started engine: ms per token a slot over the steady
+    intervals (a decode step's time at n live slots; a spec engine's
+    steps may give more than one). repeat: request 0 repeats a 16-token
+    sequence, so the n-gram proposer drafts (verify steps)."""
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    vocab = eng.model.cfg.vocab_size
+    prompts = [rng.integers(1, vocab, CKPT_COST_PROMPT).tolist()
+               for _ in range(n)]
+    if repeat:
+        prompts[0] = (rng.integers(1, vocab, 16).tolist() * 8)[
+            :CKPT_COST_PROMPT]
+    eng.reset_perf()
+    queues = [eng.submit(p, engine_lib.SamplingParams(
+        max_new_tokens=CKPT_COST_NEW))[1] for p in prompts]
+    outs = [drain(q) for q in queues]
+    assert all(len(o) == CKPT_COST_NEW for o in outs), [len(o) for o in outs]
+    perf = eng.perf_stats()
+    assert perf['steady_tokens'] > 0, perf
+    return perf['steady_time_s'] / (perf['steady_tokens'] / n) * 1e3, perf
+
+
+def ckpt_serve(eng, prompt, rng, card, label):
+    """One engine from the checkpoint: warm-up, the prompt's greedy
+    stream, then the 8-slot cost, the counters set to 0 just before and
+    read just after; then a 4-slot spec_decode=4 engine on the same
+    model (its verify kernel's counter too)."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    warm_up(eng, np.random.default_rng(SEED + 2))
+    reset_counters()
+    eng.start()
+    try:
+        toks = eng.generate(prompt, engine_lib.SamplingParams(
+            max_new_tokens=CKPT_NEW))
+        ms8, _ = ckpt_cost(eng, rng, 8)
+    finally:
+        eng.stop()
+    launches = read_counters()
+    assert launches['flash_fwd'] > 0, (label, launches)
+    assert launches['paged_decode'] > 0, (label, launches)
+    spec = engine_lib.InferenceEngine(
+        eng.model, num_slots=4, max_seq_len=2048, decode_chunk=16,
+        page_size=64, spec_decode=4, device=eng.device)
+    warm_up(spec, np.random.default_rng(SEED + 2))
+    reset_counters()
+    spec.start()
+    try:
+        ms4, perf = ckpt_cost(spec, rng, 4, repeat=True)
+    finally:
+        spec.stop()
+    spec_launches = read_counters()
+    assert perf['spec_verify_steps'] > 0, (label, perf)
+    assert spec_launches['paged_decode_mq'] > 0, (label, spec_launches)
+    del spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f'checkpoint {label} [{card}]: ms per token {ms8:.3f} at 8 slots, '
+         f'{ms4:.3f} at 4 slots with spec_decode=4 (accept per step '
+         f'{perf["spec_accept_per_step"]:.3f}); launches {launches}, spec '
+         f'{spec_launches}')
+    return {'tokens': toks, 'ms_per_token_8': ms8,
+            'ms_per_token_spec4': ms4,
+            'spec_accept_per_step': perf['spec_accept_per_step'],
+            'launches': launches, 'spec_launches': spec_launches}
+
+
+def same_bits(a, b):
+    """Equal bit for bit (floats compared as their integer words)."""
+    import torch
+    if a.is_floating_point():
+        word = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        a, b = a.view(word), b.view(word)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.cpu(), b.cpu())
+
+
+def run_checkpoint(model, card):
+    """HF checkpoint I/O and weight-only quantization on llama3-8b's
+    weights (the phase's seconds, bytes and memory printed):
+      * write: weights.save_hf_checkpoint of the model to a temporary
+        directory (fewer layers at full width if the disk cannot hold 32;
+        the cut is logged), with a tokenizer.json when `tokenizers` is
+        there;
+      * bf16: build_engine(checkpoint=) — last logits of a 512-token
+        prompt bit-equal to the in-memory model's, the same greedy
+        stream as an engine on the in-memory model;
+      * int8, int4: codes made on the card byte-equal to the CPU
+        quantizer's (layers.0.attn.wq, lm_head) and to the loaded
+        engine's; last logits within LOGIT_REL_L2 of plain_last_logits
+        of the same quantized model (check_logits); rel L2 against bf16;
+      * each mode: the load's seconds, peak and resident memory; ms per
+        token at 8 slots and at 4 slots with spec_decode=4; the flash
+        and paged counters risen;
+      * the example's command line (examples/llama_8b_int8_serve.yaml:
+        --checkpoint --num-slots 4 --max-seq-len 2048 --quantize int8
+        --spec-decode 4, --tokenizer when one was written) through
+        run_server_entry.
+    A finally removes the directory."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import quant, weights
+    res = {'card': card}
+    d = tempfile.mkdtemp(prefix='skyt_ckpt_')
+    try:
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in model.state_dict().values())
+        free = shutil.disk_usage(d).free
+        src = model
+        if free < CKPT_DISK_MARGIN * weight_bytes:
+            per_layer = weight_bytes / model.cfg.n_layers
+            n = int(free / CKPT_DISK_MARGIN / per_layer) - 2
+            assert n >= 1, f'{free / 2**30:.1f} GiB free holds no layer'
+            src = cut_model(model, n)
+            _log(f'checkpoint: {free / 2**30:.1f} GiB free under {d} holds '
+                 f'{n} of {model.cfg.n_layers} layers: the checkpoint is '
+                 f'llama3-8b at full width cut to {n} layers')
+        res.update({'disk_free_gib': free / 2**30,
+                    'n_layers': src.cfg.n_layers})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_bytes = weights.save_hf_checkpoint(src.cfg, src.state_dict(), d)
+        res['write_s'] = time.perf_counter() - t0
+        res['bytes'] = n_bytes
+        res['tokenizer'] = ckpt_tokenizer(d)
+        _log(f'checkpoint write [{card}]: {n_bytes} bytes '
+             f'({n_bytes / 2**30:.2f} GiB, {src.cfg.n_layers} layers) in '
+             f'{res["write_s"]:.2f} s to {d} ({free / 2**30:.1f} GiB '
+             f'free before); tokenizer.json '
+             f'{"written" if res["tokenizer"] else "not written (no tokenizers package)"}')
+
+        rng = np.random.default_rng(SEED + 60)
+        vocab = model.cfg.vocab_size
+        prompt = rng.integers(1, vocab, CKPT_PROMPT).tolist()
+        toks = torch.as_tensor([prompt], device='cuda')
+        with torch.inference_mode():
+            mem_logits = kernel_last_logits(src, toks)
+        ref_eng = engine_lib.InferenceEngine(
+            src, num_slots=8, max_seq_len=2048, decode_chunk=16,
+            page_size=64, device=torch.device('cuda'))
+        ref_eng.start()
+        try:
+            ref_stream = ref_eng.generate(prompt, engine_lib.SamplingParams(
+                max_new_tokens=CKPT_NEW))
+        finally:
+            ref_eng.stop()
+        del ref_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        loads = []
+        modes = {}
+        for mode in ('none',) + CKPT_QUANT:
+            label = 'bf16' if mode == 'none' else mode
+            with timed_loads(loads):
+                eng = server_lib.build_engine(
+                    checkpoint=d, num_slots=8, max_seq_len=2048,
+                    page_size=64, quantize=mode, dtype=src.cfg.dtype)
+            out = dict(loads[-1])
+            _log(f'checkpoint load {label} [{card}]: {out["load_s"]:.2f} s, '
+                 f'peak {out["peak_gib"]:.2f} GiB over the allocation '
+                 f'before it, {out["resident_gib"]:.2f} GiB resident')
+            with torch.inference_mode():
+                got = kernel_last_logits(eng.model, toks)
+            if mode == 'none':
+                assert same_bits(got, mem_logits), \
+                    'bf16 round trip: logits differ from the model\'s'
+                out['logits_bit_equal'] = True
+            else:
+                codes = {}
+                for name in CKPT_CODES_OF:
+                    w = src.get_submodule(name).weight
+                    qd, sd = quant.quantize_weight(w, mode)
+                    qc, sc = quant.quantize_weight(w.cpu(), mode)
+                    loaded = eng.model.get_submodule(name)
+                    codes[name] = {
+                        'card_vs_cpu': same_bits(qd, qc) and
+                        same_bits(sd, sc),
+                        'loaded_vs_card': same_bits(loaded.weight, qd) and
+                        same_bits(loaded.scale, sd)}
+                    assert all(codes[name].values()), (mode, name,
+                                                       codes[name])
+                out['codes_byte_equal'] = codes
+                out['logits'] = check_logits(eng.model, prompt,
+                                             label=f'checkpoint {mode}')
+                out['rel_vs_bf16'] = rel_l2(got, mem_logits)
+                _log(f'checkpoint {mode} [{card}]: codes made on the card '
+                     f'byte-equal to the CPU quantizer\'s and to the '
+                     f'loaded engine\'s on {", ".join(CKPT_CODES_OF)}; '
+                     f'last logits rel L2 vs bf16 {out["rel_vs_bf16"]:.4e}')
+            out.update(ckpt_serve(eng, prompt, rng, card, label))
+            if mode == 'none':
+                assert out['tokens'] == ref_stream, \
+                    (out['tokens'], ref_stream)
+                out['stream_equal'] = True
+            del out['tokens']
+            modes[label] = out
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        res['modes'] = modes
+        res['entry'] = run_server_entry(
+            card, argv=('--checkpoint', d, '--num-slots', '4',
+                        '--max-seq-len', '2048', '--quantize', 'int8',
+                        '--spec-decode', '4') +
+            (('--tokenizer', d) if res['tokenizer'] else ()),
+            text=res['tokenizer'])
+        assert res['entry']['model_id'] == os.path.basename(d), res['entry']
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
     return res
 
 
@@ -3879,6 +4212,14 @@ def main() -> int:
         'stream': http_res['stream'], 'options': http_res['options'],
         'ms_per_step': http_res['ms_per_step'],
         'openai': http_res['openai'], 'entry': http_res['entry']}}))
+    hf = details['hf_checkpoint']
+    print(json.dumps({'checkpoint': {
+        **{k: hf[k] for k in ('card', 'disk_free_gib', 'n_layers', 'bytes',
+                              'write_s', 'tokenizer')},
+        'modes': {label: {k: v for k, v in r.items() if k != 'logits'}
+                  for label, r in hf['modes'].items()},
+        'entry': {k: hf['entry'][k] for k in ('healthy_s', 'exit_code',
+                                              'model_id')}}}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': device_kind,
@@ -3964,6 +4305,7 @@ def run_serving(args, card, gen, checks):
     paths_res['agreement'] = check_agreement(model)
     prefix_res = run_prefix(model, card)
     http_res = run_http(model, card)
+    ckpt_res = run_checkpoint(model, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4053,8 +4395,17 @@ def run_serving(args, card, gen, checks):
     # Rows 1 and 2 also carry the HTTP phase's launches.
     kernels[0]['http_launches'] = http_res['launches']['flash_fwd']
     kernels[1]['http_launches'] = http_res['launches']['paged_decode']
+    # Rows 1-3 carry the checkpoint phase's, by engine (8-slot engines;
+    # the verify kernel's from the spec_decode=4 engines).
+    for entry in kernels[:3]:
+        k = entry['name']
+        entry['ckpt_launches'] = {
+            label: r['spec_launches' if k == 'paged_decode_mq'
+                     else 'launches'][k]
+            for label, r in ckpt_res['modes'].items()}
     details = {'engine': eng_res, 'paths': paths_res, 'lora': lora_run,
                'prefix': prefix_res, 'http': http_res,
+               'hf_checkpoint': ckpt_res,
                'flash_packed': tf, 'flash_causal_512': tf_causal,
                'paged': tp, 'lora_timed': tl}
     return kernels, details

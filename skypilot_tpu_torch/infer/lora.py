@@ -275,9 +275,14 @@ def zero_slot(stack: Stack, aid: int) -> Stack:
     return out
 
 
+# The projections an adapter can sit on: float, int8 and int4 bases.
+_PROJ_TYPES = (torch.nn.Linear, llama.QuantLinear, llama.QuantLinear4)
+
+
 def validate_stack(stack: Stack, model: torch.nn.Module) -> None:
     """Every entry must name an adapted projection of the serving model
-    (a Linear at layers.<i>.attn.<wq|wk|wv|wo> or
+    (a Linear, or a quantized base's QuantLinear / QuantLinear4, at
+    layers.<i>.attn.<wq|wk|wv|wo> or
     layers.<i>.mlp.<w_gate|w_up|w_down>) with A [N, in_features, r] and
     B [N, r, out_features], one N shared with scaling [N].
 
@@ -296,7 +301,7 @@ def validate_stack(stack: Stack, model: torch.nn.Module) -> None:
             lin = None
         ok = (len(parts) == 4 and parts[0] == 'layers' and
               _PROJ_SCOPES.get(parts[3]) == parts[2] and
-              isinstance(lin, torch.nn.Linear) and len(ab) == 2)
+              isinstance(lin, _PROJ_TYPES) and len(ab) == 2)
         if ok:
             a, b = ab
             ok = (a.dim() == 3 and b.dim() == 3 and

@@ -32,16 +32,25 @@ decision is a 429 with Retry-After. A client that disconnects cancels
 its engine requests. Handler threads never touch the device: they see
 Python ints and floats from the engine's queues.
 
+Weights: an HF checkpoint dir (--checkpoint, or SKYT_WEIGHTS_CHECKPOINT
+over it; llama, mistral and gemma families, streamed in by
+models/weights.py) with its tokenizer.json (--tokenizer, default the
+checkpoint dir; the byte tokenizer with a warning when there is none),
+or a preset's random weights from a seed. --quantize int8 | int4 serves
+weight-only quantized projections, quantized as they load.
+
 Not ported yet (ROADMAP queue 1): the fleet KV tier's /kv/prefix and
 /kv/index, /admin/* (weights, reshard, adapters, kv_prewarm) with the
 weight swap, /debug/* with the tracing plane, the SLO goodput and
-capacity counters, checkpoint and tokenizer loading (--checkpoint,
---tokenizer), adapter dirs (--lora), weight quantization, draft models,
-tensor parallelism and multi-host replicas: their flags exit naming the
-queue item.
+capacity counters, adapter dirs (--lora), draft models, tensor
+parallelism and multi-host replicas: their flags exit naming the queue
+item.
 
-Run (random weights from a seed, byte tokenizer):
+Run:
+  python -m skypilot_tpu_torch.infer.server --checkpoint /ckpt/llama3-8b \
+      --quantize int8 --port 8000
   python -m skypilot_tpu_torch.infer.server --model llama3-8b --port 8000
+      (random weights from a seed, the byte tokenizer)
 """
 import argparse
 import concurrent.futures
@@ -49,6 +58,7 @@ import dataclasses
 import datetime
 import http.server
 import json
+import os
 import queue as queue_lib
 import select
 import signal
@@ -63,8 +73,11 @@ import torch
 from skypilot_tpu_torch.infer import engine as engine_lib
 from skypilot_tpu_torch.infer import tokenizer as tokenizer_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import quant as quant_lib
+from skypilot_tpu_torch.models import weights as weights_lib
 from skypilot_tpu_torch.serve import qos as qos_lib
 from skypilot_tpu_torch.utils import device as device_lib
+from skypilot_tpu_torch.utils import env as env_lib
 from skypilot_tpu_torch.utils import log_utils
 from skypilot_tpu_torch.utils import metrics as metrics_lib
 
@@ -93,14 +106,23 @@ def build_engine(model_name: str = 'llama3-8b',
                  draft_model_name: Optional[str] = None,
                  lora_stack: Optional[Dict[str, Any]] = None,
                  metrics_registry: Optional[
-                     metrics_lib.MetricsRegistry] = None
+                     metrics_lib.MetricsRegistry] = None,
+                 checkpoint: Optional[str] = None,
+                 quantize: str = 'none'
                  ) -> engine_lib.InferenceEngine:
-    """Paged-cache engine serving preset `model_name` on `device`
-    (None -> 'cuda'; raises without CUDA unless device='cpu'), weights
-    and activations in `dtype`. params: a state_dict to load (for example
-    models.weights.params_from_jax of a JAX tree); otherwise random
-    weights drawn from a torch.Generator seeded with `seed` on the
-    device. pool_tokens / prefix_caching / prefill_chunk / spec_decode /
+    """Paged-cache engine on `device` (None -> 'cuda'; raises without
+    CUDA unless device='cpu'), weights and activations in `dtype`.
+
+    checkpoint: an HF checkpoint dir (config.json + *.safetensors): its
+    config (max_seq_len capped) and its weights, streamed in
+    (model_name is then unused). Otherwise preset `model_name` with
+    params, a state_dict to load (for example
+    models.weights.params_from_jax of a JAX tree), or random weights
+    drawn from a torch.Generator seeded with `seed` on the device.
+    quantize 'int8' | 'int4': weight-only quantized projections and
+    lm_head — quantized as each tensor loads, after the load of params,
+    or as the random init draws them (the float init's weights,
+    quantized). pool_tokens / prefix_caching / prefill_chunk / spec_decode /
     kv_dtype / lora_stack / metrics_registry pass through to the engine
     (the page pool's size, prefix caching (on by default, as the JAX
     package's), chunked prefill, n-gram speculative decoding, int8 KV, a
@@ -110,27 +132,44 @@ def build_engine(model_name: str = 'llama3-8b',
     if draft_model_name:
         raise NotImplementedError('the draft-model proposer is not ported; '
                                   'spec_decode uses the n-gram proposer')
+    if quantize not in ('none',) + quant_lib.MODES:
+        raise ValueError(f'unknown quantize mode {quantize!r}')
+    if checkpoint and params is not None:
+        raise ValueError('pass checkpoint or params, not both')
     dev = device_lib.resolve_device(device)
-    if model_name not in llama.CONFIGS:
-        raise ValueError(f'unknown model {model_name!r}; presets: '
-                         f'{sorted(llama.CONFIGS)}')
-    preset = llama.CONFIGS[model_name]
-    cfg = dataclasses.replace(
-        preset, dtype=dtype, remat=False,
-        max_seq_len=min(preset.max_seq_len, max_seq_len))
-    if cfg.param_dtype == 'float32' and cfg.dtype == 'bfloat16':
-        # Serving keeps the weights in the compute dtype: an f32 master
-        # copy would double the weight bytes every decode step reads.
-        cfg = dataclasses.replace(cfg, param_dtype='bfloat16')
-    # Built on the meta device, then materialized once on the target:
-    # no host copy of the weights and no default init to overwrite.
-    model = llama.LlamaModel(cfg, device='meta').to_empty(device=dev)
-    if params is not None:
-        model.load_state_dict(params)
+    if checkpoint:
+        # The checkpoint's weights in the compute dtype, each projection
+        # quantized as it leaves the reader when asked.
+        ckpt_len = weights_lib.load_config(checkpoint).max_seq_len
+        _, _, model = weights_lib.load_checkpoint(
+            checkpoint, quantize=quantize, device=dev, remat=False,
+            dtype=dtype, param_dtype=dtype,
+            max_seq_len=min(ckpt_len, max_seq_len))
     else:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        model.init_weights(gen)
+        if model_name not in llama.CONFIGS:
+            raise ValueError(f'unknown model {model_name!r}; presets: '
+                             f'{sorted(llama.CONFIGS)}')
+        preset = llama.CONFIGS[model_name]
+        cfg = dataclasses.replace(
+            preset, dtype=dtype, remat=False, quant=quantize,
+            max_seq_len=min(preset.max_seq_len, max_seq_len))
+        if cfg.param_dtype == 'float32' and cfg.dtype == 'bfloat16':
+            # Serving keeps the weights in the compute dtype: an f32
+            # master copy would double the weight bytes every decode step
+            # reads.
+            cfg = dataclasses.replace(cfg, param_dtype='bfloat16')
+        # Built on the meta device, then materialized once on the target:
+        # no host copy of the weights and no default init to overwrite.
+        model = llama.LlamaModel(cfg, device='meta').to_empty(device=dev)
+        if params is not None:
+            if quantize != 'none':
+                # Float projections quantized; quantized ones kept.
+                params = quant_lib.quantize_params(params, quantize)
+            model.load_state_dict(params)
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            model.init_weights(gen)
     return engine_lib.InferenceEngine(
         model, num_slots=num_slots, max_seq_len=model.cfg.max_seq_len,
         decode_chunk=decode_chunk, page_size=page_size,
@@ -1110,10 +1149,7 @@ def _make_handler(server: InferenceServer):
 # The reference's flags the port does not take yet: the ROADMAP queue 1
 # item each waits for, and the values that ask for nothing unported.
 _UNPORTED_FLAGS = {
-    'checkpoint': ('item 5 (HF checkpoint I/O)', (None,)),
-    'tokenizer': ('item 5 (HF checkpoint I/O)', (None,)),
     'lora': ('item 10 (the adapter plane)', (None,)),
-    'quantize': ('item 8 (weight quantization)', (None, 'none')),
     'draft_model': ('item 9 (draft-model speculation)', (None,)),
     'draft_checkpoint': ('item 9 (draft-model speculation)', (None,)),
     'tp': ('item 13 (parallelism, multi-host and comms)', (None, 1)),
@@ -1123,10 +1159,22 @@ _UNPORTED_FLAGS = {
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description='Serve a model of the PyTorch port over HTTP (random '
-                    'weights from seed 0, the byte tokenizer).')
+        description='Serve a model of the PyTorch port over HTTP: an HF '
+                    'checkpoint, or a preset with random weights from '
+                    'seed 0 and the byte tokenizer.')
     parser.add_argument('--model', default='llama3-8b',
-                        help='config preset')
+                        help='config preset (without --checkpoint)')
+    parser.add_argument('--checkpoint', default=None,
+                        help='HF checkpoint dir (config.json + '
+                             '*.safetensors); SKYT_WEIGHTS_CHECKPOINT '
+                             'overrides it')
+    parser.add_argument('--tokenizer', default=None,
+                        help='tokenizer.json or its dir (default: the '
+                             'checkpoint dir)')
+    parser.add_argument('--quantize', default='none',
+                        choices=('none',) + quant_lib.MODES,
+                        help='weight-only quantization of the '
+                             'projections, applied as they load')
     parser.add_argument('--port', type=int, default=8000)
     parser.add_argument('--num-slots', type=int, default=8)
     parser.add_argument('--max-seq-len', type=int, default=2048)
@@ -1159,6 +1207,14 @@ def main(argv=None) -> int:
         if getattr(args, flag) not in harmless:
             parser.exit(2, f'--{flag.replace("_", "-")} is not ported '
                            f'yet: ROADMAP queue 1 {item}\n')
+    # Rolling updates: the serve controller exports the service spec's
+    # current `weights:` checkpoint, so a replica launched mid- or
+    # post-rollout boots on the weights the fleet is serving.
+    env_ckpt = env_lib.get('SKYT_WEIGHTS_CHECKPOINT')
+    if env_ckpt:
+        logger.info('SKYT_WEIGHTS_CHECKPOINT overrides the startup '
+                    'checkpoint: %s', env_ckpt)
+        args.checkpoint = env_ckpt
     chat_template = None
     if args.chat_template:
         try:
@@ -1166,25 +1222,42 @@ def main(argv=None) -> int:
                 chat_template = f.read()
         except OSError as e:
             parser.exit(2, f'--chat-template {args.chat_template}: {e}\n')
+    tok_path = args.tokenizer or args.checkpoint
+    tokenizer, special_tokens = None, {}
+    if tok_path:
+        try:
+            tokenizer = tokenizer_lib.load_tokenizer(tok_path)
+        except FileNotFoundError:
+            logger.warning('no tokenizer.json at %s; using byte fallback',
+                           tok_path)
+        if chat_template is None:
+            chat_template = tokenizer_lib.load_chat_template(tok_path)
+        special_tokens = tokenizer_lib.special_token_strings(tok_path)
     engine = build_engine(args.model, args.num_slots, args.max_seq_len,
                           dtype=args.dtype, device=args.device,
                           prefix_caching=not args.no_prefix_caching,
                           spec_decode=args.spec_decode,
                           kv_dtype=args.kv_dtype,
-                          prefill_chunk=args.prefill_chunk)
+                          prefill_chunk=args.prefill_chunk,
+                          checkpoint=args.checkpoint,
+                          quantize=args.quantize)
     engine.start()
     # One short request first: the process's first device calls pay
     # one-time set-up that is not serving time.
     engine.generate([1] * 8, engine_lib.SamplingParams(max_new_tokens=2))
     engine.reset_perf()
-    server = InferenceServer(engine, model_id=args.model,
-                             chat_template=chat_template)
+    model_id = (os.path.basename(args.checkpoint.rstrip('/'))
+                if args.checkpoint else args.model)
+    server = InferenceServer(engine, tokenizer, model_id=model_id,
+                             chat_template=chat_template,
+                             special_tokens=special_tokens)
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
     port = server.start('0.0.0.0', args.port)
-    logger.info('inference server: model=%s device=%s port=%d slots=%d',
-                args.model, engine.device, port, args.num_slots)
+    logger.info('inference server: model=%s ckpt=%s quantize=%s device=%s '
+                'port=%d slots=%d', model_id, args.checkpoint, args.quantize,
+                engine.device, port, args.num_slots)
     stop.wait()
     server.stop()
     engine.stop()

@@ -51,8 +51,16 @@ wq/wk/wv/wo map dim <-> heads*head_dim, which is not dim), mlp_act
 1 + w and initialised to 0) and embed_scale (embeddings times sqrt(dim)
 rounded to the compute dtype first).
 
-Not ported here (raise NotImplementedError): quantized weights,
-remat_policy 'dots' and attn_impl 'ring'. The JAX LlamaConfig's other
+Weight-only quantization for serving (quant 'int8' | 'int4', the JAX
+LlamaConfig's field): every projection and lm_head is a QuantLinear
+(int8 codes, a scale per output channel) or a QuantLinear4 (int4 codes
+packed two a byte, a scale per group of 128 inputs and output channel),
+the counterparts of QuantDense and QuantDense4, in plain torch: the
+reference has no Pallas kernel there. The embedding and the norms stay
+float. models/quant.py makes the codes.
+
+Not ported here (raise NotImplementedError): remat_policy 'dots' and
+attn_impl 'ring'. The JAX LlamaConfig's other
 family knobs (attn_bias, qk_norm, the sandwich norms, the soft-caps and
 attn_scale) and the Qwen, Phi-3 and Gemma-2 presets wait for a later
 slice.
@@ -68,6 +76,7 @@ from torch import nn
 from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch.infer.paged_cache import PagePool
+from skypilot_tpu_torch.models import quant as quant_lib
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import lora as lora_ops
 from skypilot_tpu_torch.ops import norms, paged_attention, rope
@@ -100,7 +109,9 @@ class LlamaConfig:
     remat_policy: str = 'full'       # 'dots' is not ported
     attn_impl: str = 'auto'          # 'auto' | 'flash' | 'xla' ('ring': no)
     tie_embeddings: bool = False
-    quant: str = 'none'              # weight-only quantization: not ported
+    # Weight-only quantization for serving: 'none' | 'int8' | 'int4'
+    # (QuantLinear / QuantLinear4 below; models/quant.py).
+    quant: str = 'none'
     # Sliding-window attention (Mistral: every layer): query p attends
     # keys in (p - window, p]. 0 = off. Layer i is windowed iff
     # i % window_pattern == 0.
@@ -186,6 +197,77 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(self.compute_dtype))
 
 
+class QuantLinear(nn.Module):
+    """Weight-only int8 projection (QuantDense): `weight` int8 [out, in]
+    and a per-output-channel f32 `scale` [out], both buffers.
+    y = (x @ W^T) * scale with W cast to the compute dtype, in the
+    reference's order (an exact rewrite for per-column scales). Eager
+    torch fuses nothing: the cast writes and reads a compute-dtype copy
+    of W every call."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 cfg: LlamaConfig, device=None) -> None:
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.compute_dtype = torch_dtype(cfg.dtype)
+        self.register_buffer('weight', torch.zeros(
+            (out_features, in_features), dtype=torch.int8, device=device))
+        self.register_buffer('scale', torch.ones(
+            (out_features,), dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x, self.weight.to(dt)) * self.scale.to(dt)
+
+
+class QuantLinear4(nn.Module):
+    """Weight-only int4 projection (QuantDense4): codes in [-7, 7] on
+    groups of G = quant.int4_group_size(in) inputs, `weight` uint8
+    [out, in / 2] holding two codes a byte — input 2j in the low nibble
+    of byte j, input 2j + 1 in the high nibble, each as 4-bit two's
+    complement — and `scale` f32 [in / G, out] (the reference's layout).
+
+    y = sum_g (x_g @ W_g^T) * s_g: each group's dot in the compute dtype,
+    the scale-multiply and the cross-group sum in f32, one rounding at
+    the end, as QuantDense4 does."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 cfg: LlamaConfig, device=None) -> None:
+        super().__init__()
+        if in_features % 2:
+            raise ValueError(f'int4 packs two inputs a byte: in_features '
+                             f'{in_features} is odd')
+        self.in_features, self.out_features = in_features, out_features
+        self.group = quant_lib.int4_group_size(in_features)
+        self.compute_dtype = torch_dtype(cfg.dtype)
+        self.register_buffer('weight', torch.zeros(
+            (out_features, in_features // 2), dtype=torch.uint8,
+            device=device))
+        self.register_buffer('scale', torch.ones(
+            (in_features // self.group, out_features), dtype=torch.float32,
+            device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        n_g, g = self.in_features // self.group, self.group
+        lead = x.shape[:-1]
+        xg = x.reshape(-1, n_g, g).transpose(0, 1)           # [n_g, N, g]
+        w = quant_lib.unpack_int4(self.weight).to(dt)
+        wg = w.view(self.out_features, n_g, g).permute(1, 2, 0)  # [n_g, g, out]
+        partial = torch.bmm(xg, wg)                           # [n_g, N, out]
+        y = (partial.float() * self.scale[:, None, :]).sum(0)
+        return y.to(dt).reshape(*lead, self.out_features)
+
+
+_QUANT_LINEARS = {'none': Linear, 'int8': QuantLinear, 'int4': QuantLinear4}
+
+
+def _linear(in_features: int, out_features: int, cfg: LlamaConfig,
+            device=None) -> nn.Module:
+    """A projection of cfg.quant's kind (the reference's _dense)."""
+    return _QUANT_LINEARS[cfg.quant](in_features, out_features, cfg, device)
+
+
 def _proj(linear: nn.Linear, x: torch.Tensor, lora, name: str):
     """A projection plus its multi-LoRA delta (counterpart of _proj /
     _lora_delta): lora is None or (stack, 'layers.<i>.', ids, scale); a
@@ -229,9 +311,9 @@ class LlamaMLP(nn.Module):
         if cfg.mlp_act not in _ACTS:
             raise ValueError(f'unknown mlp_act {cfg.mlp_act!r}')
         self.act = _ACTS[cfg.mlp_act]
-        self.w_gate = Linear(cfg.dim, cfg.mlp_dim, cfg, device)
-        self.w_up = Linear(cfg.dim, cfg.mlp_dim, cfg, device)
-        self.w_down = Linear(cfg.mlp_dim, cfg.dim, cfg, device)
+        self.w_gate = _linear(cfg.dim, cfg.mlp_dim, cfg, device)
+        self.w_up = _linear(cfg.dim, cfg.mlp_dim, cfg, device)
+        self.w_down = _linear(cfg.mlp_dim, cfg.dim, cfg, device)
 
     def forward(self, x: torch.Tensor, lora=None) -> torch.Tensor:
         hidden = self.act(_proj(self.w_gate, x, lora, 'mlp.w_gate')) * \
@@ -247,10 +329,10 @@ class LlamaAttention(nn.Module):
         self.cfg = cfg
         self.window = window
         h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.wq = Linear(cfg.dim, h * hd, cfg, device)
-        self.wk = Linear(cfg.dim, hk * hd, cfg, device)
-        self.wv = Linear(cfg.dim, hk * hd, cfg, device)
-        self.wo = Linear(h * hd, cfg.dim, cfg, device)
+        self.wq = _linear(cfg.dim, h * hd, cfg, device)
+        self.wk = _linear(cfg.dim, hk * hd, cfg, device)
+        self.wv = _linear(cfg.dim, hk * hd, cfg, device)
+        self.wo = _linear(h * hd, cfg.dim, cfg, device)
 
     def forward(self, x, cos, sin, segment_ids=None, cache=None,
                 positions=None, lora=None):
@@ -384,9 +466,9 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None) -> None:
         super().__init__()
-        if cfg.quant != 'none':
-            raise NotImplementedError(
-                f'quantized weights ({cfg.quant}) are not ported')
+        if cfg.quant not in _QUANT_LINEARS:
+            raise ValueError(f'unknown quant mode {cfg.quant!r}; '
+                             f'choose from {sorted(_QUANT_LINEARS)}')
         if cfg.remat_policy != 'full':
             raise NotImplementedError(
                 f"remat_policy {cfg.remat_policy!r} is not ported; 'full' "
@@ -405,7 +487,7 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(
             [LlamaBlock(cfg, device, i) for i in range(cfg.n_layers)])
         self.final_norm = RMSNorm(cfg.dim, cfg, device)
-        self.lm_head = None if cfg.tie_embeddings else Linear(
+        self.lm_head = None if cfg.tie_embeddings else _linear(
             cfg.dim, cfg.vocab_size, cfg, device)
 
     @torch.no_grad()
@@ -413,12 +495,26 @@ class LlamaModel(nn.Module):
         """Random weights from `generator`: embedding N(0, 0.02), each
         projection N(0, 1/fan_in) (the variance of flax's lecun_normal,
         untruncated), norm weights 1, or 0 when zero-centred (applied as
-        1 + w: the identity either way, as the JAX init)."""
+        1 + w: the identity either way, as the JAX init). With quant,
+        each projection is drawn in param_dtype from the same generator
+        in the same order as the float model's, then quantized: the
+        quantized version of the float model's random weights (the
+        reference's fused init-then-quantize)."""
         self.tok_embed.normal_(0.0, 0.02, generator=generator)
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
                                    generator=generator)
+            elif isinstance(mod, (QuantLinear, QuantLinear4)):
+                w = torch.empty((mod.out_features, mod.in_features),
+                                dtype=self.param_dtype,
+                                device=mod.weight.device)
+                w.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
+                          generator=generator)
+                q, scale = quant_lib.quantize_weight(w, self.cfg.quant)
+                del w
+                mod.weight.copy_(q)
+                mod.scale.copy_(scale)
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(0.0 if mod.zero_centered else 1.0)
 

@@ -10,8 +10,12 @@ clipping and accumulation (train/trainer.py), a prefetcher that places
 the next batches on a side stream (train/prefetch.py), one-step-deferred
 metrics, MFU at log boundaries, checkpoint/resume and the preemption
 exit (code 75) at a step boundary (train/checkpoint.py). Synthetic or
-byte-level JSONL data, the same batches as the JAX entrypoint for the
-same seed.
+JSONL data, the same batches as the JAX entrypoint for the same seed:
+'text' rows byte-level, or through --data-tokenizer's tokenizer.json.
+--base-checkpoint starts from an HF checkpoint's weights (llama, mistral
+and gemma families; models/weights.py), checked against --model's sizes
+before a weight is read and streamed into the f32 masters one tensor at
+a time; a resume skips it.
 
 The run is bit-reproducible, as the JAX entrypoint's is: main() runs
 with torch.use_deterministic_algorithms(True, warn_only=True), so the
@@ -26,14 +30,13 @@ are restored when main() returns or exits.
 The flags are the JAX entrypoint's. Those whose machinery belongs to
 another slice exit with the reason instead of being ignored: a mesh of
 more than one device, --dcn-mesh and --attn ring (parallelism),
---lora-rank > 0 (LoRA training), --base-checkpoint (needs a safetensors
-reader), --data-tokenizer (the tokenizer is not ported) and the MoE
-presets.
+--lora-rank > 0 (LoRA training) and the MoE presets and checkpoints.
 """
 import argparse
 import dataclasses
 import json
 import math
+import os
 import time
 from typing import Any, Dict, Iterator, Optional
 
@@ -74,11 +77,12 @@ def synthetic_batches(vocab_size: int, batch: int, seq: int,
         yield {'tokens': toks[:, :-1], 'targets': toks[:, 1:]}
 
 
-def jsonl_batches(path: str, vocab_size: int, batch: int,
-                  seq: int) -> Iterator[Dict[str, np.ndarray]]:
+def jsonl_batches(path: str, vocab_size: int, batch: int, seq: int,
+                  tokenizer=None) -> Iterator[Dict[str, np.ndarray]]:
     """Pack {'text' or 'tokens'} JSONL rows into fixed [B, S] batches:
-    'tokens' rows as they are (modulo the vocab), 'text' rows byte-level,
-    a 0 after each row."""
+    'tokens' rows as they are (modulo the vocab), 'text' rows through
+    `tokenizer` (infer/tokenizer.py; --data-tokenizer) or byte-level
+    without one, a 0 after each row."""
     def _tokens():
         while True:
             n_rows = 0
@@ -91,6 +95,9 @@ def jsonl_batches(path: str, vocab_size: int, batch: int,
                     if 'tokens' in row:
                         yield from (int(t) % vocab_size
                                     for t in row['tokens'])
+                    elif tokenizer is not None:
+                        yield from (int(t) % vocab_size
+                                    for t in tokenizer.encode(row['text']))
                     else:
                         yield from (b % vocab_size
                                     for b in row['text'].encode())
@@ -133,13 +140,71 @@ def _refuse(args) -> None:
                          'is the parallelism slice\'s)')
     if args.lora_rank > 0:
         raise SystemExit('--lora-rank > 0: LoRA training is not ported yet')
-    if args.base_checkpoint:
-        raise SystemExit('--base-checkpoint is not ported yet: it needs a '
-                         'safetensors reader for the HF checkpoint')
-    if args.data_tokenizer:
-        raise SystemExit('--data-tokenizer is not ported yet (the '
-                         'tokenizer lands with the server routes); JSONL '
-                         "'text' rows are byte-level")
+
+
+def load_data_tokenizer(path: Optional[str]):
+    """--data-tokenizer's tokenizer (a tokenizer.json or its dir), loaded
+    up front so that a bad path fails before the model is built."""
+    if not path:
+        return None
+    from skypilot_tpu_torch.infer import tokenizer as tokenizer_lib
+    try:
+        return tokenizer_lib.load_tokenizer(path)
+    except Exception as e:  # pylint: disable=broad-except
+        raise SystemExit(f'--data-tokenizer {path}: {e}') from None
+
+
+def check_base_checkpoint(path: str, model_name: str):
+    """Fail fast on a checkpoint that does not fit --model, before the
+    model is built or a weight is read: the family (MoE or dense), then
+    the sizes the loader takes from the checkpoint."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import weights as weights_lib
+    if not os.path.isfile(os.path.join(path, 'config.json')):
+        raise SystemExit(f'--base-checkpoint {path}: no config.json (an HF '
+                         'checkpoint dir holds config.json and '
+                         '*.safetensors)')
+    ckpt_type = weights_lib.checkpoint_model_type(path)
+    is_moe_model = model_name in MOE_MODELS
+    if (ckpt_type in weights_lib.MOE_TYPES) != is_moe_model:
+        raise SystemExit(
+            f'--base-checkpoint is {ckpt_type!r} but --model '
+            f'{model_name!r} is {"MoE" if is_moe_model else "dense"}')
+    if is_moe_model or model_name not in llama.CONFIGS:
+        return   # build_model exits with the reason
+    try:
+        ckpt_cfg = weights_lib.load_config(path)
+    except NotImplementedError as e:
+        raise SystemExit(f'--base-checkpoint {path}: {e}') from None
+    cfg = llama.CONFIGS[model_name]
+    for f in ('dim', 'n_layers', 'n_heads', 'n_kv_heads', 'mlp_dim',
+              'vocab_size'):
+        if getattr(ckpt_cfg, f) != getattr(cfg, f):
+            raise SystemExit(
+                f'--base-checkpoint {f}={getattr(ckpt_cfg, f)} does not '
+                f'match --model {model_name!r} {f}={getattr(cfg, f)}')
+
+
+@torch.no_grad()
+def load_base_checkpoint(model, path: str, device: torch.device) -> None:
+    """The checkpoint's weights into the model's parameters (its
+    param_dtype, the f32 masters), one tensor at a time: the model plus
+    one tensor in memory, never two copies."""
+    from skypilot_tpu_torch.models import weights as weights_lib
+    params = dict(model.named_parameters())
+    seen = set()
+    for key, t in weights_lib.iter_llama_params(
+            model.cfg, path, param_dtype=model.cfg.param_dtype,
+            device=device):
+        if params[key].shape != t.shape:
+            raise SystemExit(f'--base-checkpoint {path}: {key} has shape '
+                             f'{list(t.shape)}, the model '
+                             f'{list(params[key].shape)}')
+        params[key].copy_(t)
+        seen.add(key)
+    if seen != set(params):
+        raise SystemExit(f'--base-checkpoint {path}: no weights for '
+                         f'{sorted(set(params) - seen)[:5]}')
 
 
 def build_model(name: str, attn: str, device: torch.device, seed: int = 0):
@@ -197,13 +262,15 @@ def _main(argv) -> Dict[str, Any]:
     parser.add_argument('--data', default=None,
                         help='JSONL path; default synthetic')
     parser.add_argument('--data-tokenizer', default=None,
-                        help='tokenizer for JSONL text rows (not ported '
-                             'yet; text rows are byte-level)')
+                        help='tokenizer.json (or its dir) for JSONL text '
+                             'rows; without it text rows are byte-level')
     parser.add_argument('--lora-rank', type=int, default=0,
                         help='> 0 enables LoRA (not ported yet)')
     parser.add_argument('--lora-alpha', type=float, default=16.0)
     parser.add_argument('--base-checkpoint', default=None,
-                        help='HF-format checkpoint dir (not ported yet)')
+                        help='HF checkpoint dir to finetune from (config.json '
+                             '+ *.safetensors); its sizes must match '
+                             '--model')
     parser.add_argument('--checkpoint-dir', default=None)
     parser.add_argument('--checkpoint-every', type=int, default=100)
     parser.add_argument('--resume', default='auto',
@@ -217,6 +284,9 @@ def _main(argv) -> Dict[str, Any]:
                         help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
     _refuse(args)
+    if args.base_checkpoint:
+        check_base_checkpoint(args.base_checkpoint, args.model)
+    data_tok = load_data_tokenizer(args.data_tokenizer)
     dev = device_lib.resolve_device(args.device)
     logger.info('device %s%s', dev, f' ({torch.cuda.get_device_name(dev)})'
                 if dev.type == 'cuda' else '')
@@ -246,6 +316,17 @@ def _main(argv) -> Dict[str, Any]:
             ckpt = ckpt_lib.Checkpointer(
                 args.checkpoint_dir,
                 save_interval_steps=args.checkpoint_every)
+        will_resume = (ckpt is not None and args.resume == 'auto'
+                       and ckpt.latest_step() is not None)
+        if args.base_checkpoint and will_resume:
+            # The resume checkpoint holds the whole state: streaming the
+            # base in first would only add restart latency.
+            logger.info('resume checkpoint found; skipping base load')
+        elif args.base_checkpoint:
+            t_load = time.perf_counter()
+            load_base_checkpoint(model, args.base_checkpoint, dev)
+            logger.info('loaded base checkpoint %s in %.1f s',
+                        args.base_checkpoint, time.perf_counter() - t_load)
         start_step = 0
         if ckpt is not None and args.resume == 'auto':
             if ckpt.restore(state) is not None:
@@ -254,7 +335,7 @@ def _main(argv) -> Dict[str, Any]:
 
         step_fn = trainer.make_train_step(model, tx)
         batches = (jsonl_batches(args.data, cfg.vocab_size, args.batch,
-                                 args.seq)
+                                 args.seq, tokenizer=data_tok)
                    if args.data else
                    synthetic_batches(cfg.vocab_size, args.batch, args.seq))
         place = prefetch_lib.make_placer(dev)

@@ -60,6 +60,11 @@ _var('SKYT_TRAIN_MFU', 'bool', True,
 _var('SKYT_TORCH_BUILD_DIR', 'str', '',
      'Where the CUDA kernels are built (default: the package\'s '
      '_build/ directory).')
+_var('SKYT_WEIGHTS_CHECKPOINT', 'str', None,
+     'Weights checkpoint override applied at replica startup '
+     '(exported from the service spec\'s `weights:` field, so '
+     'replicas launched mid/post-rollout boot on the current '
+     'weights instead of the task\'s original --checkpoint).')
 # QoS plane (serve/qos.py, the engine's classed queue, the server's
 # admission gate); the reference's names and defaults.
 _var('SKYT_QOS', 'bool', False,

@@ -7,8 +7,9 @@ the max_new_tokens cut-off and an EOS cut-off.
 
 Also here: the port's device sampling with top_k=1 reproduces its greedy
 stream, and the isolation checks — the port imports neither jax nor
-anything of skypilot_tpu (nor aiohttp), and its entry points refuse to
-run without CUDA unless the caller names the CPU.
+anything of skypilot_tpu (nor aiohttp, safetensors or ml_dtypes), and
+its entry points refuse to run without CUDA unless the caller names the
+CPU.
 """
 import ast
 import dataclasses
@@ -179,7 +180,8 @@ def test_port_module_list_covers_every_slice():
     of each slice are among them (multi-LoRA: infer/lora.py, ops/lora.py;
     training: train/ and utils/metrics.py, utils/profiling.py; the host
     KV tier: infer/kv_tier.py; the HTTP front door: infer/server.py,
-    infer/tokenizer.py, serve/qos.py)."""
+    infer/tokenizer.py, serve/qos.py; HF checkpoints and weight
+    quantization: models/safetensors_io.py, models/quant.py)."""
     mods = _port_modules()
     for mod in ('skypilot_tpu_torch.infer.engine',
                 'skypilot_tpu_torch.infer.kv_tier',
@@ -190,6 +192,8 @@ def test_port_module_list_covers_every_slice():
                 'skypilot_tpu_torch.ops.lora',
                 'skypilot_tpu_torch.ops.paged_attention',
                 'skypilot_tpu_torch.models.weights',
+                'skypilot_tpu_torch.models.safetensors_io',
+                'skypilot_tpu_torch.models.quant',
                 'skypilot_tpu_torch.train.trainer',
                 'skypilot_tpu_torch.train.sft',
                 'skypilot_tpu_torch.train.prefetch',
@@ -204,7 +208,8 @@ def test_port_imports_no_jax_in_subprocess():
             f'for m in {_port_modules()!r}:\n'
             '    importlib.import_module(m)\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "jaxlib", "flax", "optax", "orbax") or '
+            '("jax", "jaxlib", "flax", "optax", "orbax", "safetensors", '
+            '"ml_dtypes") or '
             'm == "skypilot_tpu" or '
             'm.startswith("skypilot_tpu.")]\n'
             'print(bad)\n'
@@ -216,8 +221,8 @@ def test_port_imports_no_jax_in_subprocess():
 
 
 def test_port_sources_import_nothing_of_jax():
-    """No port source imports JAX, the JAX package or aiohttp (the
-    card's machine has none of them)."""
+    """No port source imports JAX, the JAX package, aiohttp, safetensors
+    or ml_dtypes (the card's machine has none of them)."""
     bad = []
     for root, _, files in os.walk(PKG):
         for f in files:
@@ -235,7 +240,8 @@ def test_port_sources_import_nothing_of_jax():
                 for n in names:
                     top = n.split('.')[0]
                     if top in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',
-                               'skypilot_tpu', 'aiohttp'):
+                               'skypilot_tpu', 'aiohttp', 'safetensors',
+                               'ml_dtypes'):
                         bad.append(f'{path}: {n}')
     assert not bad, bad
 
