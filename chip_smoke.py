@@ -74,7 +74,11 @@ Phases (any failure exits non-zero and prints no result line):
      length; the kernel's own count of a block's shared memory must
      equal verify_plan's. Every paged case here and above is called
      REPEATS (20) times and must give bit-equal outputs (the merge's
-     fixed order);
+     fixed order). The Qwen head ratios at head_dim 128 join the cases:
+     the flash forward and backward at G = 7 (qwen2-7b's packed burst
+     row), 6 and 2; the paged kernel at T = 1 and at verify T = 4 with
+     G = 7 (28 rows: two m-tiles), 6 and 2 and T = 5 with G = 4, bf16
+     and int8; the LoRA gather kernel at 3584 -> 18944;
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -177,7 +181,29 @@ Phases (any failure exits non-zero and prints no result line):
      verify steps run paged_decode_mq at 32 query rows a kv head (the
      counter by rows shows it); every request returns its tokens, each
      path's kernels launch, and prefill and step logits match the plain
-     path within LOGIT_REL_L2; then the head_dim-256 timings (time_d256);
+     path within LOGIT_REL_L2; then the head_dim-256 timings (time_d256).
+     Then the families (run_families), each model at full width with
+     random bf16 weights from the seed and every bias and norm leaf
+     randomised, llama3-8b's engine settings and traffic: qwen2-7b (28
+     q / 4 kv heads, G = 7, q/k/v biases) through bf16, int8 KV,
+     spec_decode=3 and both (kernels 1-5), prefill, decode-step and
+     verify-step logits vs plain; its HF checkpoint (model_type qwen2)
+     written, loaded in bf16 (logits bit-equal) and int8 (seconds, peak
+     and resident GiB), and served by examples/qwen_serve.yaml's command
+     line without --tp (a subprocess: /health, /generate, SIGTERM ->
+     0), then deleted; qwen3-8b (q/k norms) at spec_decode=4 with a
+     full-width qwen3-0.6b draft (build_engine(draft_model_name=);
+     random weights: acceptance at chance), the n-gram engine and the
+     self-draft on the same model (drafts accepted per step and ms per
+     token of each), then the self-draft on a peaked copy of the weights
+     (embeddings x 4096, an output head of permuted embedding rows: no
+     bf16 tie left), where every verify step must accept exactly 4;
+     gemma2-2b (soft-caps, scale, windows on every other layer) and
+     phi3-mini (head_dim 96, window 2047), one burst each: 0 flash and
+     0 paged launches, and the engine's decode logits within
+     LOGIT_REL_L2 of a no-cache forward of the same tokens; then the
+     head-ratio timings (time_families: G = 7, 6, 2 at head_dim 128)
+     and the backward at qwen2-7b's [1, 2048, 28, 128] (time_bwd_at);
   4. kernel timings (the kernels line's flash_fwd, paged_decode and
      paged_decode_q entries also carry prefix_launches, the prefix
      phase's launches by part): device time per call from CUDA events around a
@@ -224,9 +250,12 @@ Phases (any failure exits non-zero and prints no result line):
      [4, 2048, 8, 256] (1 kv head) and gemma-7b's [1, 2048, 16, 256];
      then the {"http": {...}} line, the {"checkpoint": {...}} line and
      the {"kernels": [...]} line (all nine kernels, the windowed forward
-     and backward, and the head_dim-256 entries *_gemma7b and *_gemma2b;
-     flash_fwd and paged_decode carry http_launches, and with
-     paged_decode_mq ckpt_launches);
+     and backward, the head_dim-256 entries *_gemma7b and *_gemma2b,
+     and the qwen2-7b entries *_qwen2_7b with the G = 6 and G = 2 times
+     as g6_* and g2_* fields; flash_fwd and paged_decode carry
+     http_launches, with paged_decode_mq ckpt_launches, and kernels 1-5
+     family_launches, each family engine's launches), after a
+     {"families": {...}} line;
   5. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -549,6 +578,13 @@ FWD_CASES = (
     ('sq_gt_sk_window_unseen', 2, 300, 130, 8, 2, 128, False, None, 60),
     ('sq_gt_sk_d64', 1, 300, 200, 8, 2, 64, False, None, 0),
     ('sq_lt_sk_causal_d256', 1, 130, 300, 8, 2, 256, True, None, 0),
+    # The Qwen head ratios at head_dim 128: qwen2-7b's 28 q / 4 kv heads
+    # (G = 7) on its packed burst row, qwen2-1.5b's 12 / 2 (G = 6) with
+    # ragged tails, qwen3-0.6b's 16 / 8 (G = 2) packed.
+    ('qwen2_7b_packed_g7', 1, 2048, 2048, 28, 4, 128, True, (BURST,), 0),
+    ('qwen2_1_5b_ragged_g6', 2, 300, 300, 12, 2, 128, True, None, 0),
+    ('qwen3_0_6b_packed_g2', 1, 700, 700, 16, 8, 128, True,
+     ((300, 250, 129),), 0),
 )
 
 
@@ -626,6 +662,11 @@ BWD_CASES = (
     ('d128_noncausal_window100', 2, 300, 8, 2, 128, False, None, 100),
     ('packed_mid_tile_window65', 1, 1024, 32, 8, 64, True,
      (100, 37, 250, 300), 65),
+    # The Qwen head ratios (sft's --base-checkpoint takes them): G = 7 on
+    # the packed row, G = 6 with ragged tails, G = 2.
+    ('qwen2_7b_packed_g7', 1, 2048, 28, 4, 128, True, BURST, 0),
+    ('qwen2_1_5b_ragged_g6', 2, 300, 12, 2, 128, True, (90, 150, 40), 0),
+    ('qwen3_0_6b_g2', 1, 1024, 16, 8, 128, True, None, 0),
 )
 # Head_dim 256, Gemma training (checked on a generator of its own, after
 # check_d256, so that every check above keeps its inputs): gemma-2b's sft
@@ -751,7 +792,8 @@ def check_flash_bwd(gen, cases=BWD_CASES):
 # models: llama3-8b (the slice's), gemma-7b, and gemma-2b, whose 8 query
 # heads share 1 kv head (the verify step's T = 4 makes 32 query rows).
 PAGED_SHAPES = {'slice': (32, 8, 128), 'gemma7b': (16, 16, 256),
-                'gemma2b': (8, 1, 256)}
+                'gemma2b': (8, 1, 256), 'qwen2_7b': (28, 4, 128),
+                'qwen2_1_5b': (12, 2, 128), 'qwen3_0_6b': (16, 8, 128)}
 
 
 def paged_inputs(gen, t=1, quant=False, shape='slice'):
@@ -934,6 +976,13 @@ VERIFY_CASES = (
     ('r256_two_groups', 8, 32, 1, 64, 64),
     ('p8', 4, 32, 8, 128, 8),
     ('p80_d256', 4, 16, 2, 256, 80),
+    # The Qwen verify steps: qwen2-7b's T = 4 at G = 7 (28 rows: two
+    # m-tiles, not a multiple of 16), qwen2-1.5b's G = 6 (24 rows),
+    # qwen3-8b's T = 5 at G = 4 (20 rows) and qwen3-0.6b's G = 2.
+    ('qwen2_7b_t4_g7', 4, 28, 4, 128, 64),
+    ('qwen2_1_5b_t4_g6', 4, 12, 2, 128, 64),
+    ('qwen3_8b_t5_g4', 5, 32, 8, 128, 64),
+    ('qwen3_0_6b_t4_g2', 4, 16, 8, 128, 64),
 )
 DECODE_CASES = (
     ('t1_p8_g4_d128', 1, 32, 8, 128, 8),
@@ -944,6 +993,10 @@ DECODE_CASES = (
     ('t1_p80_g1_d128', 1, 8, 8, 128, 80),
     ('t1_p10_g4_d64', 1, 16, 4, 64, 10),
     ('t1_p64_g8_d256', 1, 8, 1, 256, 64),
+    # The Qwen decode steps: G = 7, 6 and 2 at head_dim 128.
+    ('t1_qwen2_7b_g7', 1, 28, 4, 128, 64),
+    ('t1_qwen2_1_5b_g6', 1, 12, 2, 128, 64),
+    ('t1_qwen3_0_6b_g2', 1, 16, 8, 128, 64),
 )
 
 
@@ -1144,6 +1197,8 @@ LORA_CASES = (
     ('grouped_ragged_r200', 2, 23, 100, 37, (200, 5, 12), 'random'),
     ('gather_decode_sparse', 8, 1, 4096, 14336, (16,) * 8,
      (1, 0, 2, 1, 0, 2, 1, 0)),
+    # qwen2-7b's widths (dim 3584 -> mlp 18944) at decode.
+    ('gather_decode_qwen2_7b', 8, 1, 3584, 18944, (16, 8, 16), SLOT_LORA),
 )
 
 
@@ -1258,18 +1313,25 @@ def plain_block(model, i, x, cos, sin, attend, lora):
     layer = model.layers[i]
     a, m = layer.attn, layer.mlp
     hn = layer.attn_norm(x)
-    q = rope.apply_rope(plain_proj(lora, i, 'attn.wq', a.wq, hn).view(
-        b, s, h, hd), cos, sin)
-    k = rope.apply_rope(plain_proj(lora, i, 'attn.wk', a.wk, hn).view(
-        b, s, hk, hd), cos, sin)
+    q = plain_proj(lora, i, 'attn.wq', a.wq, hn).view(b, s, h, hd)
+    k = plain_proj(lora, i, 'attn.wk', a.wk, hn).view(b, s, hk, hd)
+    if a.q_norm is not None:          # Qwen3: per-head norms before RoPE
+        q, k = a.q_norm(q), a.k_norm(k)
+    q = rope.apply_rope(q, cos, sin)
+    k = rope.apply_rope(k, cos, sin)
     v = plain_proj(lora, i, 'attn.wv', a.wv, hn).view(b, s, hk, hd)
-    out = attend(q, k, v)
-    x = x + plain_proj(lora, i, 'attn.wo', a.wo,
-                       out.to(model.dtype).reshape(b, s, h * hd))
+    out = plain_proj(lora, i, 'attn.wo', a.wo, attend(q, k, v).to(
+        model.dtype).reshape(b, s, h * hd))
+    if layer.attn_post_norm is not None:     # Gemma-2's sandwich norms
+        out = layer.attn_post_norm(out)
+    x = x + out
     hn = layer.mlp_norm(x)
     hidden = m.act(plain_proj(lora, i, 'mlp.w_gate', m.w_gate, hn)) * \
         plain_proj(lora, i, 'mlp.w_up', m.w_up, hn)
-    return x + plain_proj(lora, i, 'mlp.w_down', m.w_down, hidden)
+    out = plain_proj(lora, i, 'mlp.w_down', m.w_down, hidden)
+    if layer.mlp_post_norm is not None:
+        out = layer.mlp_post_norm(out)
+    return x + out
 
 
 def embed(model, tokens):
@@ -1283,10 +1345,18 @@ def embed(model, tokens):
 
 
 def head(model, x):
-    """The model's output head: lm_head, or the tied embedding."""
+    """The model's output head: lm_head, or the tied embedding; then
+    Gemma-2's soft-cap where the config has one."""
+    import torch
     if model.lm_head is None:
-        return x @ model.tok_embed.to(model.dtype).t()
-    return model.lm_head(x)
+        logits = x @ model.tok_embed.to(model.dtype).t()
+    else:
+        logits = model.lm_head(x)
+    cap = model.cfg.final_softcap
+    if cap > 0.0:
+        cap = torch.tensor(cap, dtype=logits.dtype, device=logits.device)
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 def plain_last_logits(model, tokens, exact=False, lora=None):
@@ -1296,6 +1366,7 @@ def plain_last_logits(model, tokens, exact=False, lora=None):
     window, and the LoRA plain versions in place of theirs:
     last-position logits."""
     import torch
+    from skypilot_tpu_torch.ops import attention as attention_ops
     from skypilot_tpu_torch.ops import flash_attention as fa
     from skypilot_tpu_torch.ops import rope
     cfg = model.cfg
@@ -1308,6 +1379,12 @@ def plain_last_logits(model, tokens, exact=False, lora=None):
     def attend(q, k, v, window):
         if exact:
             q, k, v = q.float(), k.float(), v.float()
+        if cfg.attn_softcap or cfg.attn_scale:
+            # What the kernels do not compute: the model's own plain path.
+            return attention_ops.mha_reference(
+                q, k, v, causal=True, window=window,
+                logit_softcap=cfg.attn_softcap,
+                softmax_scale=cfg.attn_scale or None)
         return fa.flash_attention_reference(q, k, v, causal=True,
                                             window=window)[0]
     for i in range(len(model.layers)):
@@ -2817,6 +2894,515 @@ def time_d256(gen):
     return res
 
 
+# ------------------------------------------------- phase 3: the families
+# Qwen2.5, Qwen3, Gemma-2 and Phi-3 at full width (the JAX presets'
+# shapes: llama.py:139-197 there), random bf16 weights from SEED with
+# every bias and norm leaf moved off its init (FAMILY_LEAF_STD), with
+# llama3-8b's engine settings and traffic (8 slots of 2048 tokens, page
+# 64; the 600/64/590/600 burst packed into [1, 2048], a lone 300-token
+# prompt, 32 new tokens each).
+QWEN2 = 'qwen2-7b'
+QWEN3 = 'qwen3-8b'
+QWEN3_DRAFT = 'qwen3-0.6b'
+FAMILY_SPEC_K = 4
+# qwen3-8b's engines decode 4 verify steps a chunk (not 16): a step with
+# a draft model runs k+1 draft forwards, and a chunk's steps past a
+# request's end (seconds each chunk with a draft) are thrown away.
+FAMILY_SPEC_CHUNK = 4
+FAMILY_ONE_BURST = ('gemma2-2b', 'phi3-mini')
+FAMILY_LEAF_STD = 0.1
+# The self-draft's peaked copy of qwen3-8b: embeddings x 2^12 keep the
+# residual stream on the current token's embedding, and the output head
+# holds the embedding rows in a seeded permutation, so the next token's
+# logit stands ~76 above the rest (bf16 spacing 0.5 there): no rounding
+# difference between the draft's plain path and the target's kernels can
+# change a greedy token.
+PEAK_EMBED_SCALE = 4096.0
+# qwen2-7b's HF checkpoint served by examples/qwen_serve.yaml's command
+# (without --tp 8, ROADMAP queue 1 item 13).
+QWEN_SERVE_ARGV = ('--num-slots', '16', '--max-seq-len', '4096',
+                   '--quantize', 'int8')
+
+
+def randomise_family_leaves(model, seed):
+    """Every bias and norm weight of the model (q/k/v biases, q/k norms,
+    sandwich norms and the pre-norms) plus N(0, FAMILY_LEAF_STD) from a
+    generator of its own: an init's zero biases and unit norms would hide
+    a dropped leaf. Returns how many leaves moved."""
+    import torch
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    n = 0
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(
+                model.named_buffers()):
+            if name.endswith('.bias') or 'norm' in name:
+                t.add_((torch.randn(t.shape, generator=gen, device=t.device)
+                        * FAMILY_LEAF_STD).to(t.dtype))
+                assert bool((t != 0).all()), f'{name}: a zero leaf'
+                n += 1
+    return n
+
+
+@contextlib.contextmanager
+def peaked(model, seed):
+    """The model with PEAK_EMBED_SCALE embeddings and an output head of
+    permuted embedding rows (untied models), restored after."""
+    import torch
+    emb, w = model.tok_embed, model.lm_head.weight
+    keep_e, keep_w = emb.detach().clone(), w.detach().clone()
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    perm = torch.randperm(emb.shape[0], generator=gen, device='cuda')
+    try:
+        with torch.no_grad():
+            w.copy_(keep_e[perm].to(w.dtype))
+            emb.mul_(PEAK_EMBED_SCALE)
+        yield model
+    finally:
+        with torch.no_grad():
+            emb.copy_(keep_e)
+            w.copy_(keep_w)
+
+
+def family_serve(eng, card, label, repeat=False, greedy=False):
+    """warm_up and serve (the counters set to 0 just before the traffic,
+    read just after) on llama3-8b's traffic; returns the run's record."""
+    import numpy as np
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    burst, params, lone = traffic(eng.model.cfg.vocab_size, repeat=repeat)
+    if greedy:
+        params = [engine_lib.SamplingParams(max_new_tokens=MAX_NEW)
+                  for _ in burst]
+    cold_s = warm_up(eng, np.random.default_rng(SEED + 2))
+    outs, launches, burst_ttft, lone_s = serve(eng, burst, params, lone)
+    by_rows = {f'{k}/{r}': n for (k, r), n in
+               sorted(pa.launches_by_rows.items())}
+    perf = eng.perf_stats()
+    lone_ttft = eng.ttfts()[-1]
+    ms_tok = (lone_s - lone_ttft) / (MAX_NEW - 1) * 1e3
+    spec = eng.spec_decode > 0
+    accept = perf.get('spec_accept_per_step')
+    _log(f'engine {label} [{card}]: {len(outs)} requests x {MAX_NEW} '
+         f'tokens; launches {launches}; paged launches by query rows a kv '
+         f'head {by_rows}; warm-up request {cold_s:.2f} s; burst TTFT max '
+         f'{burst_ttft * 1e3:.1f} ms; lone TTFT {lone_ttft * 1e3:.1f} ms, '
+         f'then {ms_tok:.3f} ms per token; steady decode '
+         f'{perf.get("steady_decode_tok_s", 0):.1f} tok/s'
+         + (f'; drafts accepted per step {accept:.3f} over '
+            f'{perf["spec_verify_steps"]} verify steps' if spec else ''))
+    return {'launches': launches, 'launches_by_rows': by_rows,
+            'warmup_request_s': cold_s, 'burst_ttft_max_s': burst_ttft,
+            'lone_ttft_s': lone_ttft, 'lone_ms_per_token': ms_tok,
+            'steady_decode_tok_s': perf.get('steady_decode_tok_s'),
+            'spec_accept_per_step': accept,
+            'spec_verify_steps': perf.get('spec_verify_steps'),
+            'lone_tokens': outs[-1], 'lone_prompt': lone}
+
+
+def decode_vs_forward(eng, prompt, card, label):
+    """The engine's first decode step for `prompt` (captured from the
+    model's forward on the paged cache, the request's own slot) against a
+    full no-cache forward of the prompt and its first token: rel L2 of
+    the logits <= LOGIT_REL_L2. A check of the soft-caps, the scale, the
+    window pattern and the gather view on the card."""
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    seen = []
+
+    def hook(mod, args, kwargs, out):
+        cache = kwargs.get('cache')
+        if not seen and cache is not None and 'tables' in cache and \
+                args[0].shape[1] == 1:
+            live = [i for i, r in enumerate(eng._slots) if r is not None]
+            seen.append((live, kwargs['positions'].clone(),
+                         out[0][:, 0].float().clone()))
+    handle = eng.model.register_forward_hook(hook, with_kwargs=True)
+    eng.start()
+    try:
+        toks = eng.generate(prompt, engine_lib.SamplingParams(
+            max_new_tokens=2))
+    finally:
+        eng.stop()
+        handle.remove()
+    live, positions, logits = seen[0]
+    assert len(live) == 1 and int(positions[live[0], 0]) == len(prompt), \
+        (live, positions)
+    got = logits[live[0]]
+    with torch.inference_mode():
+        full = eng.model(torch.as_tensor([prompt + toks[:1]],
+                                         device='cuda'))[0, -1].float()
+        torch.cuda.synchronize()
+    r = rel_l2(got, full)
+    same = int(got.argmax()) == int(full.argmax())
+    _log(f'{label} [{card}]: the engine\'s decode-step logits (paged '
+         f'cache, gather view) vs a no-cache forward of the same '
+         f'{len(prompt) + 1} tokens: rel L2 {r:.3e} (limit '
+         f'{LOGIT_REL_L2}), argmax equal {same}')
+    assert torch.isfinite(got).all(), f'{label}: non-finite decode logits'
+    assert r <= LOGIT_REL_L2, (label, r)
+    return {'rel_decode_vs_forward': r, 'argmax_equal': same}
+
+
+def family_checkpoint(model, card):
+    """qwen2-7b's HF checkpoint (model_type qwen2, biases included):
+    written by save_hf_checkpoint (fewer layers at full width only if the
+    disk cannot hold the file; the cut is logged), loaded by
+    build_engine(checkpoint=) in bf16 (last logits bit-equal to the
+    in-memory model's) and int8 (seconds, peak and resident GiB), then
+    served by examples/qwen_serve.yaml's command line (QWEN_SERVE_ARGV)
+    as a subprocess: /health, /v1/models, one /generate, SIGTERM -> 0.
+    The directory is removed in a finally."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import weights
+    res = {'card': card}
+    d = tempfile.mkdtemp(prefix='skyt_qwen_')
+    try:
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in model.state_dict().values())
+        free = shutil.disk_usage(d).free
+        src = model
+        if free < CKPT_DISK_MARGIN * weight_bytes:
+            per_layer = weight_bytes / model.cfg.n_layers
+            n = int(free / CKPT_DISK_MARGIN / per_layer) - 2
+            assert n >= 1, f'{free / 2**30:.1f} GiB free holds no layer'
+            src = cut_model(model, n)
+            _log(f'{QWEN2} checkpoint: {free / 2**30:.1f} GiB free under '
+                 f'{d} holds {n} of {model.cfg.n_layers} layers: the '
+                 f'checkpoint is {QWEN2} at full width cut to {n} layers')
+        res.update({'disk_free_gib': free / 2**30,
+                    'n_layers': src.cfg.n_layers})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res['bytes'] = weights.save_hf_checkpoint(src.cfg, src.state_dict(),
+                                                  d)
+        res['write_s'] = time.perf_counter() - t0
+        res['tokenizer'] = ckpt_tokenizer(d)
+        with open(os.path.join(d, 'config.json')) as f:
+            res['model_type'] = json.load(f)['model_type']
+        assert res['model_type'] == 'qwen2', res['model_type']
+        _log(f'{QWEN2} checkpoint write [{card}]: {res["bytes"]} bytes '
+             f'({res["bytes"] / 2**30:.2f} GiB, {src.cfg.n_layers} layers, '
+             f'model_type {res["model_type"]}) in {res["write_s"]:.2f} s')
+        prompt = np.random.default_rng(SEED + 61).integers(
+            1, model.cfg.vocab_size, CKPT_PROMPT).tolist()
+        toks = torch.as_tensor([prompt], device='cuda')
+        with torch.inference_mode():
+            mem_logits = kernel_last_logits(src, toks)
+        loads = []
+        for mode in ('none', 'int8'):
+            label = 'bf16' if mode == 'none' else mode
+            with timed_loads(loads):
+                eng = server_lib.build_engine(
+                    checkpoint=d, num_slots=8, max_seq_len=2048,
+                    page_size=64, quantize=mode, dtype=src.cfg.dtype)
+            out = dict(loads[-1])
+            assert eng.model.cfg.attn_bias, 'the qwen2 biases did not load'
+            with torch.inference_mode():
+                got = kernel_last_logits(eng.model, toks)
+            if mode == 'none':
+                assert same_bits(got, mem_logits), \
+                    f'{QWEN2} round trip: logits differ from the model\'s'
+                out['logits_bit_equal'] = True
+            else:
+                assert eng.model.layers[0].attn.wq.bias.dtype == \
+                    torch.bfloat16
+                out['rel_vs_bf16'] = rel_l2(got, mem_logits)
+            _log(f'{QWEN2} checkpoint load {label} [{card}]: '
+                 f'{out["load_s"]:.2f} s, peak {out["peak_gib"]:.2f} GiB '
+                 f'over the allocation before it, '
+                 f'{out["resident_gib"]:.2f} GiB resident'
+                 + ('; last logits bit-equal to the in-memory model\'s'
+                    if mode == 'none' else
+                    f'; last logits rel L2 vs bf16 {out["rel_vs_bf16"]:.4e}'))
+            res[label] = out
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        res['entry'] = run_server_entry(
+            card, argv=('--checkpoint', d) + (
+                ('--tokenizer', d) if res['tokenizer'] else ()) +
+            QWEN_SERVE_ARGV, text=res['tokenizer'])
+        assert res['entry']['model_id'] == os.path.basename(d), res['entry']
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def run_qwen2(card):
+    """qwen2-7b: bf16 (kernels 1-2), then int8 KV (4), spec_decode=3 (3)
+    and both (5) through run_paths on the same model (each path's step
+    logits vs plain there); prefill logits (check_logits) and a decode
+    step (check_step) vs plain; the HF checkpoint (family_checkpoint)."""
+    import torch
+    from skypilot_tpu_torch.infer import server
+    t0 = time.perf_counter()
+    eng = server.build_engine(QWEN2, seed=SEED)
+    moved = randomise_family_leaves(eng.model, SEED + 70)
+    torch.cuda.synchronize()
+    cfg = eng.model.cfg
+    _log(f'build_engine({QWEN2!r}): {cfg.num_params() / 1e9:.2f}B params, '
+         f'{cfg.n_heads} q / {cfg.n_kv_heads} kv heads (G = '
+         f'{cfg.n_heads // cfg.n_kv_heads}), head_dim {cfg.head_dim}, '
+         f'{time.perf_counter() - t0:.1f}s; {moved} bias and norm leaves '
+         f'randomised; paged pool {list(eng.cache["k"].shape)}')
+    run = family_serve(eng, card, QWEN2)
+    assert run['launches']['flash_fwd'] > 0, run['launches']
+    assert run['launches']['paged_decode'] > 0, run['launches']
+    model = eng.model
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    run['logits'] = check_logits(model, run['lone_prompt'], f'{QWEN2} lone')
+    run['step_rel_kernel_plain'] = check_step(model, False, 1)['rel']
+    run['paths'] = run_paths(model, card, run['lone_ms_per_token'])
+    run['checkpoint'] = family_checkpoint(model, card)
+    return run
+
+
+def run_qwen3(card):
+    """qwen3-8b at spec_decode=4 (FAMILY_SPEC_CHUNK steps a chunk) through
+    build_engine with a full-width qwen3-0.6b draft (random weights:
+    acceptance at chance), then on the
+    same model the n-gram engine and the self-draft (draft_model = the
+    model), each serving the traffic; the self-draft again on the peaked
+    copy (greedy traffic), where it must accept exactly 4 drafts every
+    verify step. Prefill and verify-step logits vs plain."""
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import server
+    k = FAMILY_SPEC_K
+    t0 = time.perf_counter()
+    eng = server.build_engine(QWEN3, seed=SEED, spec_decode=k,
+                              decode_chunk=FAMILY_SPEC_CHUNK,
+                              draft_model_name=QWEN3_DRAFT)
+    moved = randomise_family_leaves(eng.model, SEED + 71)
+    moved += randomise_family_leaves(eng.draft_model, SEED + 72)
+    torch.cuda.synchronize()
+    cfg, dcfg = eng.model.cfg, eng.draft_model.cfg
+    _log(f'build_engine({QWEN3!r}, spec_decode={k}, draft_model_name='
+         f'{QWEN3_DRAFT!r}): {cfg.num_params() / 1e9:.2f}B + '
+         f'{dcfg.num_params() / 1e9:.2f}B params (vocab {cfg.vocab_size} '
+         f'both), {time.perf_counter() - t0:.1f}s; {moved} bias and norm '
+         f'leaves randomised; draft cache '
+         f'{list(eng._draft_cache["k"].shape)}')
+    res = {'draft_0_6b': family_serve(eng, card, f'{QWEN3} + {QWEN3_DRAFT} '
+                                      'draft', repeat=True)}
+    model = eng.model
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, draft in (('ngram', None), ('self', model)):
+        eng = engine_lib.InferenceEngine(
+            model, num_slots=8, max_seq_len=2048,
+            decode_chunk=FAMILY_SPEC_CHUNK, page_size=64, spec_decode=k,
+            draft_model=draft)
+        res[label] = family_serve(eng, card, f'{QWEN3} {label} draft',
+                                  repeat=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    with peaked(model, SEED + 73):
+        eng = engine_lib.InferenceEngine(
+            model, num_slots=8, max_seq_len=2048,
+            decode_chunk=FAMILY_SPEC_CHUNK, page_size=64, spec_decode=k,
+            draft_model=model)
+        run = family_serve(eng, card, f'{QWEN3} self draft, peaked copy',
+                           greedy=True)
+        steps = run['spec_verify_steps']
+        accepted = eng.perf['spec_accepted']
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert steps > 0 and accepted == k * steps, (accepted, steps)
+    res['self_peaked'] = run
+    for label, r in res.items():
+        assert r['launches']['flash_fwd'] > 0, (label, r['launches'])
+        assert r['launches']['paged_decode_mq'] > 0, (label, r['launches'])
+    _log(f'{QWEN3} spec_decode={k} [{card}]: drafts accepted per step / ms '
+         f'per token (lone): ' + '; '.join(
+             f'{label} {r["spec_accept_per_step"]:.3f} / '
+             f'{r["lone_ms_per_token"]:.3f}' for label, r in res.items()))
+    res['logits'] = check_logits(model, res['ngram']['lone_prompt'],
+                                 f'{QWEN3} lone')
+    res['step_rel_kernel_plain'] = check_step(model, False, k + 1)['rel']
+    return res
+
+
+def run_one_burst(card, name):
+    """gemma2-2b or phi3-mini: one burst and the lone prompt through a
+    bf16 engine. Gemma-2 (soft-caps, a scale, windows on every other
+    layer) and Phi-3 (head_dim 96, a window) attend through the plain
+    path everywhere: 0 flash and 0 paged launches. The engine's decode
+    logits vs a no-cache forward (decode_vs_forward)."""
+    import torch
+    from skypilot_tpu_torch.infer import server
+    t0 = time.perf_counter()
+    eng = server.build_engine(name, seed=SEED)
+    moved = randomise_family_leaves(eng.model, SEED + 74)
+    torch.cuda.synchronize()
+    cfg = eng.model.cfg
+    _log(f'build_engine({name!r}): {cfg.num_params() / 1e9:.2f}B params, '
+         f'head_dim {cfg.head_dim}, window {cfg.sliding_window} (pattern '
+         f'{cfg.window_pattern}), soft-caps {cfg.attn_softcap} / '
+         f'{cfg.final_softcap}, scale {cfg.attn_scale}, '
+         f'{time.perf_counter() - t0:.1f}s; {moved} bias and norm leaves '
+         'randomised')
+    assert cfg.needs_xla_attention
+    run = family_serve(eng, card, name)
+    assert all(n == 0 for n in run['launches'].values()), \
+        (name, run['launches'])
+    run['decode'] = decode_vs_forward(eng, run['lone_prompt'], card, name)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def run_families(card):
+    """The family phase: qwen2-7b (run_qwen2), qwen3-8b with its drafts
+    (run_qwen3), gemma2-2b and phi3-mini (run_one_burst), each model
+    freed before the next."""
+    import torch
+    res = {QWEN2: run_qwen2(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res[QWEN3] = run_qwen3(card)
+    for name in FAMILY_ONE_BURST:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[name] = run_one_burst(card, name)
+    return res
+
+
+def time_families(gen):
+    """Phase 4 at the Qwen head ratios (head_dim 128): the flash forward
+    on qwen2-7b's packed burst row (G = 7), qwen2-1.5b's (G = 6) and
+    qwen3-0.6b's (G = 2); the four paged kernels at qwen2-7b's decode
+    shape, kernels 2 and 3 at the other two."""
+    seg = packed_segments(BURST, 64, 2048)
+    res = {}
+    for shape, (hq, hkv, _) in (('qwen2_7b', PAGED_SHAPES['qwen2_7b']),
+                                ('qwen2_1_5b', PAGED_SHAPES['qwen2_1_5b']),
+                                ('qwen3_0_6b', PAGED_SHAPES['qwen3_0_6b'])):
+        res[f'flash_{shape}'] = time_flash(gen, 2048, seg, hq, hkv, 128)
+        kernels = PAGED_KERNELS if shape == 'qwen2_7b' else \
+            ('paged_decode', 'paged_decode_mq')
+        for k in kernels:
+            res[f'{k}_{shape}'] = time_paged(gen, k, shape)
+    return res
+
+
+def family_summary(card, fam_res):
+    """The family phase's numbers for the {"families": ...} line: each
+    engine's TTFTs, ms per token, drafts accepted per step and logit
+    checks, the qwen2-7b checkpoint's write, loads and entry point."""
+    keys = ('burst_ttft_max_s', 'lone_ttft_s', 'lone_ms_per_token',
+            'spec_accept_per_step', 'spec_verify_steps')
+
+    def run(r):
+        return {k: r.get(k, r.get('perf', {}).get(k)) for k in keys}
+    q2, q3 = fam_res[QWEN2], fam_res[QWEN3]
+    ck = q2['checkpoint']
+    return {
+        'card': card,
+        QWEN2: {'bf16': run(q2), **{label: run(r) for label, r in
+                                    q2['paths'].items()},
+                'prefill_rel_kernel_plain': q2['logits']['rel_kernel_plain'],
+                'step_rel_kernel_plain': q2['step_rel_kernel_plain'],
+                'checkpoint': {
+                    **{k: ck[k] for k in ('n_layers', 'bytes', 'write_s',
+                                          'model_type', 'disk_free_gib')},
+                    'bf16': ck['bf16'], 'int8': ck['int8'],
+                    'entry': {k: ck['entry'][k] for k in (
+                        'healthy_s', 'exit_code', 'model_id')}}},
+        QWEN3: {**{label: run(r) for label, r in q3.items()
+                   if isinstance(r, dict) and 'launches' in r},
+                'prefill_rel_kernel_plain': q3['logits']['rel_kernel_plain'],
+                'step_rel_kernel_plain': q3['step_rel_kernel_plain']},
+        **{name: {**run(fam_res[name]), **fam_res[name]['decode']}
+           for name in FAMILY_ONE_BURST}}
+
+
+def family_launches(fam_res):
+    """Each kernel's launches in every family run (counted from 0 just
+    before each): {kernel: {'<model>/<engine>': n}} for kernels 1-5."""
+    runs = {f'{QWEN2}/bf16': fam_res[QWEN2]}
+    runs.update({f'{QWEN2}/{label}': r
+                 for label, r in fam_res[QWEN2]['paths'].items()
+                 if isinstance(r, dict) and 'launches' in r})
+    runs.update({f'{QWEN3}/{label}': r for label, r in fam_res[QWEN3].items()
+                 if isinstance(r, dict) and 'launches' in r})
+    runs.update({name: fam_res[name] for name in FAMILY_ONE_BURST})
+    return {k: {label: r['launches'][k] for label, r in runs.items()}
+            for k in ('flash_fwd', *PAGED_KERNELS)}
+
+
+def family_kernels(card, fam_res, tq, fwd_res, verify_res):
+    """Log phase 4's Qwen timings; return their entries of the kernels
+    line: the flash forward and the four paged kernels at qwen2-7b's
+    shapes (G = 7), launches from the qwen2-7b engines' runs; the flash
+    forward's and kernels 2-3's entries also carry the G = 6 (qwen2-1.5b)
+    and G = 2 (qwen3-0.6b) timings, shapes no served model here runs."""
+    for label, t in tq.items():
+        lib = f'{t["library_ms"]:.4f}' if t['library_ms'] else 'none'
+        _log(f'{label} {t["shape"]} [{card}]: {t["ms"]:.4f} ms (eager '
+             f'{t["eager_ms"]:.4f}), plain {t["plain_ms"]:.4f} ms, library '
+             f'{lib} ms, bound {t["bound_ms"]:.4f} ms ({t["bound_by"]})'
+             + parts_text(t))
+    q2 = fam_res[QWEN2]
+    runs = {'paged_decode': q2, 'flash_fwd': q2,
+            **{kernel: q2['paths'][label] for label, _, kernel in PATHS}}
+    checks = {'flash_fwd': {'qwen2_7b': fwd_res['qwen2_7b_packed_g7'],
+                            'qwen2_1_5b': fwd_res['qwen2_1_5b_ragged_g6'],
+                            'qwen3_0_6b': fwd_res['qwen3_0_6b_packed_g2']}}
+    for shape, t1, tv in (('qwen2_7b', 't1_qwen2_7b_g7', 'qwen2_7b_t4_g7'),
+                          ('qwen2_1_5b', 't1_qwen2_1_5b_g6',
+                           'qwen2_1_5b_t4_g6'),
+                          ('qwen3_0_6b', 't1_qwen3_0_6b_g2',
+                           'qwen3_0_6b_t4_g2')):
+        for k, case in (('paged_decode', t1), ('paged_decode_q',
+                                                t1 + '_int8'),
+                        ('paged_decode_mq', tv),
+                        ('paged_decode_mq_q', tv + '_int8')):
+            checks.setdefault(k, {})[shape] = verify_res[case]
+    entries = []
+    for k in ('flash_fwd', *PAGED_KERNELS):
+        flash = k == 'flash_fwd'
+        t = tq[('flash' if flash else k) + '_qwen2_7b']
+        entry = {
+            'name': f'{k}_qwen2_7b', 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/' +
+            ('flash_fwd.cu' if flash else 'paged_decode.cu'),
+            'replaces': 'skypilot_tpu/ops/flash_attention.py:108 '
+            '_fwd_kernel' if flash else PAGED_KERNELS[k][3],
+            'launches': runs[k]['launches'][k],
+            'max_abs_err': checks[k]['qwen2_7b']['max_abs_err'],
+            'ms': t['ms'], 'kernel_ms': t['ms'], 'eager_ms': t['eager_ms'],
+            'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+            'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
+            'shape': t['shape'], 'head_dim': 128}
+        if not flash:
+            entry['profiler_ms'] = t['profiler_ms']
+        for shape, tag in (('qwen2_1_5b', 'g6'), ('qwen3_0_6b', 'g2')):
+            other = tq.get(('flash' if flash else k) + '_' + shape)
+            if other is None:
+                continue
+            entry.update({
+                f'{tag}_shape': other['shape'], f'{tag}_ms': other['ms'],
+                f'{tag}_plain_ms': other['plain_ms'],
+                f'{tag}_bound_ms': other['bound_ms'],
+                f'{tag}_library_ms': other['library_ms'],
+                f'{tag}_max_abs_err': checks[k][shape]['max_abs_err']})
+        entries.append(entry)
+    return entries
+
+
 # The phase-3 adapters: ranks, alphas (scaling 2 each) and their seed.
 LORA_RANKS = (16, 8, 16)
 LORA_ALPHAS = (32.0, 16.0, 32.0)
@@ -4056,6 +4642,23 @@ def main() -> int:
     kernels += gemma_kernels(card, gemma_res, td, d256_res)
     gc.collect()
     torch.cuda.empty_cache()
+    fam_res = run_families(card)
+    gen_fam = torch.Generator(device='cuda')
+    gen_fam.manual_seed(SEED + 46)
+    with torch.inference_mode():
+        tq = time_families(gen_fam)
+    kernels += family_kernels(card, fam_res, tq, fwd_res, verify_res)
+    # The backward at qwen2-7b's ratio (G = 7), which sft's
+    # --base-checkpoint takes (no run of it here: the sft run stays
+    # llama3-1b's).
+    tbq = time_bwd_at(gen_fam, 1, 2048, 28, 4, 128)
+    log_flash_bwd_timed(card, tbq)
+    fam_launches = family_launches(fam_res)
+    for entry in kernels:
+        if entry['name'] in fam_launches:
+            entry['family_launches'] = fam_launches[entry['name']]
+    gc.collect()
+    torch.cuda.empty_cache()
     train_res = run_train(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4187,6 +4790,8 @@ def main() -> int:
                     'checkpoint_512': ckpt_long_res, 'flash_bwd_timed': tb,
                     'mistral': mistral_res, 'mistral_grads': mistral_grads,
                     'gemma': gemma_res, 'd256_timed': td,
+                    'families': fam_res, 'family_timed': tq,
+                    'family_bwd_timed': tbq,
                     'gemma_train': gemma_train, 'gemma_grads': gemma_grads,
                     'gemma_bwd_timed': tg,
                     'sft_resume': resume_res, 'sft_ordered': ordered_res,
@@ -4220,6 +4825,7 @@ def main() -> int:
                   for label, r in hf['modes'].items()},
         'entry': {k: hf['entry'][k] for k in ('healthy_s', 'exit_code',
                                               'model_id')}}}))
+    print(json.dumps({'families': family_summary(card, fam_res)}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': device_kind,

@@ -45,6 +45,22 @@ skypilot_tpu/infer/engine.py in paged mode).
     rule of speculative_sample_step. Near max_seq_len, where a verify
     run no longer fits, chunks take the plain path, which keeps the
     history current.
+  * Draft-model speculation (draft_model=, with spec_decode=k): a small
+    model of the same vocab replaces the n-gram proposer. It keeps its
+    own dense KV cache [L, slots, max_seq_len, H, d] over the same
+    slots and positions; every admission route (ragged, single, a
+    prefix hit, the last chunk of a chunked prefill, a host-tier
+    promotion) ends by prefilling the WHOLE prompt through it and
+    rewriting the slot's row (the zeroed tail included), so nothing of a
+    released or cancelled request's row survives into the next. A verify
+    step makes k+1 greedy single-token rollouts over that cache (the
+    last one's logits unused: it writes the KV of draft k at lens + k,
+    where the target's verify writes too), then the target's s = k+1
+    verify and the n-gram path's accept-and-emit (_spec_verify_emit).
+    The draft attends through the dense-cache branch, the plain
+    reference (as in the JAX engine); the target's verify takes the
+    multi-query paged kernel. A chunk that takes the plain path leaves
+    the draft's cache stale there: that only lowers acceptance.
   * Multi-LoRA (lora_stack=, infer/lora.py): every request names its
     adapter by SamplingParams.lora_id (0: the base model). A ragged pack
     carries per-token ids (each segment its request's id, padding 0: the
@@ -76,10 +92,10 @@ skypilot_tpu/infer/engine.py in paged mode).
     traces (queued, prefill_start, first_token, done; a bounded FIFO),
     and the reference's engine metric families in metrics_registry.
 
-Not ported (raise): the draft model proposer, the fleet KV tier
-(SKYT_KV_TIER=fleet: it needs the /kv/prefix and /kv/index routes),
-meshes and multi-host lockstep. Not ported (absent): the dense
-(non-paged) cache mode, the padded batched admission, the capacity
+Not ported (raise): the fleet KV tier (SKYT_KV_TIER=fleet: it needs
+the /kv/prefix and /kv/index routes), meshes and multi-host lockstep.
+Not ported (absent): the dense (non-paged) cache mode (a draft model's
+own dense cache aside), the padded batched admission, the capacity
 ledger and the tick plane (and their metric families, with the weight
 version's, the virtual nodes' and the host-finish counter), tracing
 spans, warmup(), and the weight swap and reshard (only the adapter
@@ -410,13 +426,15 @@ class InferenceEngine:
         to the model dtype; anything else explicit raises ValueError.
         lora_stack: a multi-LoRA stack (infer/lora.py), validated against
         the model and placed on the engine's device in the model dtype
-        once. metrics_registry: where the engine's metric families live
-        (default: metrics.REGISTRY). mesh, lockstep and a draft model
+        once. draft_model (with spec_decode > 0): a LlamaModel on the
+        same device and of the same vocab (else ValueError) whose greedy
+        rollouts replace the n-gram proposer; it may be `model` itself
+        (self-drafting). metrics_registry: where the engine's metric
+        families live (default: metrics.REGISTRY). mesh and lockstep
         exist in the JAX engine and are not ported yet: anything but
         their defaults raises, as does SKYT_KV_TIER=fleet."""
         unported = {'mesh': mesh is not None,
-                    'lockstep': lockstep is not None,
-                    'draft_model': draft_model is not None}
+                    'lockstep': lockstep is not None}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
@@ -475,14 +493,35 @@ class InferenceEngine:
             (num_slots, pcfg.max_pages_per_slot), dtype=torch.int32,
             device=self.device)
         self.pool.pools = None   # tensors live in self.cache now
+        # The draft model (spec_decode > 0 only) and its dense cache over
+        # the same slots and positions as the target's pages.
+        self.draft_model = draft_model if self.spec_decode > 0 else None
+        self._draft_cache: Optional[Dict[str, torch.Tensor]] = None
+        if self.draft_model is not None:
+            dcfg = self.draft_model.cfg
+            if dcfg.vocab_size != self.cfg.vocab_size:
+                raise ValueError(
+                    f'draft/target vocab mismatch: verification compares '
+                    f'token ids ({dcfg.vocab_size} vs '
+                    f'{self.cfg.vocab_size})')
+            draft_dev = next(self.draft_model.parameters()).device
+            if draft_dev != self.device:
+                raise ValueError(f'draft weights are on {draft_dev}, the '
+                                 f'engine runs on {self.device}')
+            self.draft_model.eval()
+            dshape = (dcfg.n_layers, num_slots, self.max_seq_len,
+                      dcfg.n_kv_heads, dcfg.head_dim)
+            self._draft_cache = {
+                n: torch.zeros(dshape, dtype=self.draft_model.dtype,
+                               device=self.device) for n in ('k', 'v')}
         # Device token history per slot (prompt + generated), the n-gram
-        # proposer's haystack; invariant: hist[slot, lens[slot]] is the
-        # last token fed. The k+2 tail keeps a verify run's k+1-token
-        # write in bounds.
+        # proposer's haystack (a draft model replaces it); invariant:
+        # hist[slot, lens[slot]] is the last token fed. The k+2 tail
+        # keeps a verify run's k+1-token write in bounds.
         self._dev_hist = torch.zeros(
             (num_slots, self.max_seq_len + self.spec_decode + 2),
             dtype=torch.int32, device=self.device) \
-            if self.spec_decode > 0 else None
+            if self.spec_decode > 0 and self.draft_model is None else None
         self._deferred: Optional[_Request] = None
         # The one chunked prefill in progress: {req, slot, row, hashes,
         # start, n}. Its slot holds the reservation but stays out of the
@@ -846,7 +885,9 @@ class InferenceEngine:
         """Point a released slot's table row at the dummy page so its
         decode writes (an in-flight chunk's included: this write orders
         after it on the stream) can never land in pages a later
-        admission re-reserves or shares; its adapter id goes back to 0."""
+        admission re-reserves or shares; its adapter id goes back to 0.
+        A draft model's row needs nothing here: the next admission to
+        the slot rewrites all of it (_draft_prefill_impl)."""
         self.cache['tables'][slot] = 0
         self._d_lora[slot] = 0
 
@@ -1007,6 +1048,103 @@ class InferenceEngine:
         self._d_last, self._d_lens = last, lens
         return torch.stack(toks), (torch.stack(lps) if want_lp else None)
 
+    def _spec_verify_emit(self, logits: torch.Tensor, draft: torch.Tensor,
+                          k: int, sampled_slots: List[int],
+                          want_lp: bool):
+        """The verify half of every speculative step (n-gram and draft
+        model alike): accept a draft prefix against the target's logits
+        [S, k+1, V] and emit accepted+1 tokens. Greedy slots accept the
+        longest prefix equal to the argmax (the plain greedy stream);
+        sampled slots take speculative_sample_step's rejection rule
+        against the point-mass draft, with their own generators. Returns
+        (out [S, k+1] int32, acc [S] int32, the emitted rows' raw
+        logprobs or None)."""
+        logits = logits.float()
+        if sampled_slots:
+            vocab = logits.shape[-1]
+            u = torch.zeros((self.num_slots, k + vocab), device=self.device)
+            for i in sampled_slots:
+                u[i] = torch.rand(k + vocab, device=self.device,
+                                  generator=self._slot_gens[i])
+            out, acc = speculative_sample_step(
+                logits, draft, self._d_temps, self._d_topks,
+                self._d_topps, u[:, :k], u[:, k:])
+        else:
+            out = logits.argmax(dim=-1).to(torch.int32)
+            acc = torch.cumprod((draft == out[:, :k]).to(torch.int32),
+                                dim=1).sum(dim=1, dtype=torch.int32)
+        return out, acc, (raw_logprobs(logits, out) if want_lp else None)
+
+    def _draft_prefill_impl(self, slot: int, tokens: List[int]) -> None:
+        """Admission tail for the draft: the whole prompt, padded to its
+        bucket, through the draft model's dense-cache branch at positions
+        0.. (one logit position, unused), its cache copied into the
+        slot's row and the rest of the row zeroed. Bucket padding's KV
+        lands above the slot's length, where the feed-at-lens rule
+        overwrites it before any query can see it."""
+        dcfg = self.draft_model.cfg
+        n = len(tokens)
+        db = self._bucket_for(n)
+        padded = np.zeros((1, db), np.int64)
+        padded[0, :n] = tokens
+        toks = torch.as_tensor(padded, device=self.device)
+        shape = (dcfg.n_layers, 1, db, dcfg.n_kv_heads, dcfg.head_dim)
+        c1 = {name: torch.zeros(shape, dtype=self.draft_model.dtype,
+                                device=self.device) for name in ('k', 'v')}
+        positions = torch.arange(db, device=self.device)[None]
+        _, c1 = self.draft_model(
+            toks, positions=positions, cache=c1,
+            logit_positions=torch.zeros((1, 1), dtype=torch.long,
+                                        device=self.device))
+        w = min(db, self.max_seq_len)
+        for name in ('k', 'v'):
+            row = self._draft_cache[name][:, slot]
+            row[:, :w] = c1[name][:, 0, :w]
+            row[:, w:] = 0
+
+    def _decode_spec_draft_impl(self, n: int, k: int, sampling: bool,
+                                want_lp: bool = False):
+        """n draft-model speculative steps: per step, k+1 greedy
+        single-token rollouts of the draft over its dense cache from
+        (last, lens) — the (k+1)th only writes draft k's KV at lens + k,
+        so an all-accepted step leaves no hole — then the target's s = k+1
+        verify forward over [last, drafts] at lens..lens+k and
+        _spec_verify_emit. Draft-cache invariant (the target's): entries
+        below lens are settled; the token at lens is fed, and its KV
+        written, by the next step, so a rejected draft's KV above lens is
+        overwritten before a query can see it. Returns what
+        _decode_spec_impl returns."""
+        last, lens = self._d_last, self._d_lens
+        sampled_slots = self._sampled_slots(sampling)
+        dcache = self._draft_cache
+        ar = torch.arange(k + 1, device=self.device)
+        toks, counts, lps = [], [], []
+        for _ in range(n):
+            tok, pos, drafts = last, lens, []
+            for _ in range(k + 1):
+                dlogits, _ = self.draft_model(tok[:, None],
+                                              positions=pos[:, None],
+                                              cache=dcache)
+                tok = dlogits[:, 0].float().argmax(dim=-1).to(torch.int32)
+                drafts.append(tok)
+                pos = pos + 1
+            draft = torch.stack(drafts[:k], dim=1)
+            logits, _ = self.model(torch.cat([last[:, None], draft], 1),
+                                   positions=lens[:, None] + ar,
+                                   cache=self.cache,
+                                   **self._lora_kw(self._d_lora))
+            out, acc, lp = self._spec_verify_emit(logits, draft, k,
+                                                  sampled_slots, want_lp)
+            if want_lp:
+                lps.append(lp)
+            toks.append(out)
+            counts.append(acc + 1)
+            last = torch.gather(out, 1, acc.long()[:, None])[:, 0]
+            lens = lens + acc + 1
+        self._d_last, self._d_lens = last, lens
+        return torch.stack(toks), torch.stack(counts), \
+            (torch.stack(lps) if want_lp else None)
+
     def _decode_spec_impl(self, n: int, k: int, sampling: bool,
                           want_lp: bool = False):
         """n speculative verify steps: per slot, k n-gram drafts, one
@@ -1017,7 +1155,6 @@ class InferenceEngine:
         the device args and the history."""
         last, lens, hist = self._d_last, self._d_lens, self._dev_hist
         sampled_slots = self._sampled_slots(sampling)
-        vocab = self.cfg.vocab_size
         ar = torch.arange(k + 1, device=self.device)
         toks, counts, lps = [], [], []
         for _ in range(n):
@@ -1026,22 +1163,10 @@ class InferenceEngine:
                                    positions=lens[:, None] + ar,
                                    cache=self.cache,
                                    **self._lora_kw(self._d_lora))
-            logits = logits.float()
-            if sampled_slots:
-                u = torch.zeros((self.num_slots, k + vocab),
-                                device=self.device)
-                for i in sampled_slots:
-                    u[i] = torch.rand(k + vocab, device=self.device,
-                                      generator=self._slot_gens[i])
-                out, acc = speculative_sample_step(
-                    logits, draft, self._d_temps, self._d_topks,
-                    self._d_topps, u[:, :k], u[:, k:])
-            else:
-                out = logits.argmax(dim=-1).to(torch.int32)
-                acc = torch.cumprod((draft == out[:, :k]).to(torch.int32),
-                                    dim=1).sum(dim=1, dtype=torch.int32)
+            out, acc, lp = self._spec_verify_emit(logits, draft, k,
+                                                  sampled_slots, want_lp)
             if want_lp:
-                lps.append(raw_logprobs(logits, out))
+                lps.append(lp)
             # All k+1 candidates go to the history at lens+1; entries past
             # acc+1 are junk the proposer never matches (its window ends
             # at lens).
@@ -1801,6 +1926,12 @@ class InferenceEngine:
     def _complete_admission(self, req: _Request, slot: int, n: int,
                             first: int,
                             first_lp: Optional[float] = None) -> None:
+        """The tail of every admission route: the draft's prefill of the
+        whole prompt (draft speculation; a prefix hit or a chunked
+        prefill included) or the n-gram history, then the first token's
+        delivery and the slot's host bookkeeping."""
+        if self.draft_model is not None:
+            self._draft_prefill_impl(slot, req.tokens)
         if self._dev_hist is not None:
             self._hist_insert_impl(slot, req.tokens, first)
         req.first_token_at = time.time()
@@ -1947,8 +2078,10 @@ class InferenceEngine:
                     bound = max(1, min(self.decode_chunk,
                                        rem_space // (k + 1)))
                     chunk = 1 << (bound.bit_length() - 1)
-                    toks, counts, lps = self._decode_spec_impl(
-                        chunk, k, sampling, want_lp)
+                    spec = self._decode_spec_impl \
+                        if self.draft_model is None \
+                        else self._decode_spec_draft_impl
+                    toks, counts, lps = spec(chunk, k, sampling, want_lp)
                     new_pending = (toks, counts, lps, entries)
                     upper = chunk * (k + 1)
                 else:

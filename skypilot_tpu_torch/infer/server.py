@@ -33,24 +33,30 @@ its engine requests. Handler threads never touch the device: they see
 Python ints and floats from the engine's queues.
 
 Weights: an HF checkpoint dir (--checkpoint, or SKYT_WEIGHTS_CHECKPOINT
-over it; llama, mistral and gemma families, streamed in by
-models/weights.py) with its tokenizer.json (--tokenizer, default the
-checkpoint dir; the byte tokenizer with a warning when there is none),
-or a preset's random weights from a seed. --quantize int8 | int4 serves
-weight-only quantized projections, quantized as they load.
+over it; the llama, mistral, gemma, qwen2, qwen3, gemma2 and phi3
+families, streamed in by models/weights.py) with its tokenizer.json
+(--tokenizer, default the checkpoint dir; the byte tokenizer with a
+warning when there is none), or a preset's random weights from a seed.
+--quantize int8 | int4 serves weight-only quantized projections,
+quantized as they load.
+--spec-decode k with --draft-checkpoint (an HF checkpoint of a small
+model of the same vocab) or --draft-model (a preset, random weights; or
+'self', the served model drafting for itself) drafts with a model
+instead of the n-gram lookup.
 
 Not ported yet (ROADMAP queue 1): the fleet KV tier's /kv/prefix and
 /kv/index, /admin/* (weights, reshard, adapters, kv_prewarm) with the
 weight swap, /debug/* with the tracing plane, the SLO goodput and
-capacity counters, adapter dirs (--lora), draft models, tensor
-parallelism and multi-host replicas: their flags exit naming the queue
-item.
+capacity counters, adapter dirs (--lora), tensor parallelism and
+multi-host replicas: their flags exit naming the queue item.
 
 Run:
   python -m skypilot_tpu_torch.infer.server --checkpoint /ckpt/llama3-8b \
       --quantize int8 --port 8000
   python -m skypilot_tpu_torch.infer.server --model llama3-8b --port 8000
       (random weights from a seed, the byte tokenizer)
+  python -m skypilot_tpu_torch.infer.server --checkpoint /ckpt/qwen3-8b \
+      --spec-decode 4 --draft-checkpoint /ckpt/qwen3-0.6b --port 8000
 """
 import argparse
 import concurrent.futures
@@ -104,6 +110,7 @@ def build_engine(model_name: str = 'llama3-8b',
                  kv_dtype: str = 'auto',
                  prefill_chunk: int = 0,
                  draft_model_name: Optional[str] = None,
+                 draft_checkpoint: Optional[str] = None,
                  lora_stack: Optional[Dict[str, Any]] = None,
                  metrics_registry: Optional[
                      metrics_lib.MetricsRegistry] = None,
@@ -127,11 +134,16 @@ def build_engine(model_name: str = 'llama3-8b',
     (the page pool's size, prefix caching (on by default, as the JAX
     package's), chunked prefill, n-gram speculative decoding, int8 KV, a
     multi-LoRA stack from infer/lora.py, served by
-    SamplingParams.lora_id, where its metrics live). A draft model
-    (draft_model_name) is not ported and raises."""
-    if draft_model_name:
-        raise NotImplementedError('the draft-model proposer is not ported; '
-                                  'spec_decode uses the n-gram proposer')
+    SamplingParams.lora_id, where its metrics live).
+
+    draft_model_name / draft_checkpoint (with spec_decode > 0): a draft
+    model replaces the n-gram proposer: an HF checkpoint's (its own
+    config, in `dtype`), a preset's with random weights from seed + 1
+    (chance-level acceptance: a mechanism check, slower than no
+    speculation), or 'self', the served model itself (every greedy draft
+    the target's own argmax: the mechanism's upper bound, no speed-up).
+    Not quantized, but for 'self'. The engine refuses a draft whose
+    vocab is not the target's."""
     if quantize not in ('none',) + quant_lib.MODES:
         raise ValueError(f'unknown quantize mode {quantize!r}')
     if checkpoint and params is not None:
@@ -170,13 +182,47 @@ def build_engine(model_name: str = 'llama3-8b',
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed)
             model.init_weights(gen)
+    draft = None
+    if spec_decode > 0 and (draft_model_name or draft_checkpoint):
+        draft = _build_draft(model, draft_model_name, draft_checkpoint,
+                             dtype, dev, seed, model.cfg.max_seq_len)
     return engine_lib.InferenceEngine(
         model, num_slots=num_slots, max_seq_len=model.cfg.max_seq_len,
         decode_chunk=decode_chunk, page_size=page_size,
         pool_tokens=pool_tokens, prefix_caching=prefix_caching,
         prefill_chunk=prefill_chunk, spec_decode=spec_decode,
-        kv_dtype=kv_dtype, device=dev, lora_stack=lora_stack,
-        metrics_registry=metrics_registry)
+        kv_dtype=kv_dtype, device=dev, draft_model=draft,
+        lora_stack=lora_stack, metrics_registry=metrics_registry)
+
+
+def _build_draft(model, name: Optional[str], checkpoint: Optional[str],
+                 dtype: str, dev, seed: int, max_seq_len: int):
+    """build_engine's draft model: 'self', a checkpoint's, or a preset's
+    random weights (the reference's three routes)."""
+    if name == 'self':
+        return model
+    if checkpoint:
+        ckpt_len = weights_lib.load_config(checkpoint).max_seq_len
+        _, _, draft = weights_lib.load_checkpoint(
+            checkpoint, device=dev, remat=False, dtype=dtype,
+            param_dtype=dtype, max_seq_len=min(ckpt_len, max_seq_len))
+        return draft
+    if name not in llama.CONFIGS:
+        raise ValueError(f'unknown draft model {name!r}; presets: '
+                         f'{sorted(llama.CONFIGS)}')
+    dcfg = dataclasses.replace(llama.CONFIGS[name], dtype=dtype,
+                               param_dtype=dtype, remat=False,
+                               max_seq_len=max_seq_len)
+    draft = llama.LlamaModel(dcfg, device='meta').to_empty(device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    draft.init_weights(gen)
+    logger.warning(
+        'draft model %r has RANDOM weights (no draft checkpoint): its '
+        'drafts are accepted at chance, so decoding is slower than with '
+        'spec_decode 0; point --draft-checkpoint at a small model of the '
+        "same vocab for a speed-up", name)
+    return draft
 
 
 class _StopScanner:
@@ -1150,8 +1196,6 @@ def _make_handler(server: InferenceServer):
 # item each waits for, and the values that ask for nothing unported.
 _UNPORTED_FLAGS = {
     'lora': ('item 10 (the adapter plane)', (None,)),
-    'draft_model': ('item 9 (draft-model speculation)', (None,)),
-    'draft_checkpoint': ('item 9 (draft-model speculation)', (None,)),
     'tp': ('item 13 (parallelism, multi-host and comms)', (None, 1)),
     'multihost': ('item 13 (parallelism, multi-host and comms)',
                   (None, 'auto', 'off'))}
@@ -1185,8 +1229,16 @@ def main(argv=None) -> int:
     parser.add_argument('--no-prefix-caching', action='store_true',
                         help='disable KV prefix caching')
     parser.add_argument('--spec-decode', type=int, default=0,
-                        help='n-gram speculative decoding draft length k '
-                             '(0 = off)')
+                        help='speculative decoding draft length k (0 = '
+                             'off): n-gram lookup, or a draft model (see '
+                             '--draft-checkpoint, --draft-model)')
+    parser.add_argument('--draft-checkpoint', default=None,
+                        help='HF checkpoint dir of a small draft model of '
+                             'the same vocab (with --spec-decode)')
+    parser.add_argument('--draft-model', default=None,
+                        help="draft preset with random weights, or 'self' "
+                             'to draft with the served model (mechanism '
+                             'checks; with --spec-decode)')
     parser.add_argument('--kv-dtype', default='auto',
                         choices=['auto', 'int8'],
                         help='KV-cache dtype; auto defers to SKYT_KV_DTYPE, '
@@ -1237,6 +1289,8 @@ def main(argv=None) -> int:
                           dtype=args.dtype, device=args.device,
                           prefix_caching=not args.no_prefix_caching,
                           spec_decode=args.spec_decode,
+                          draft_model_name=args.draft_model,
+                          draft_checkpoint=args.draft_checkpoint,
                           kv_dtype=args.kv_dtype,
                           prefill_chunk=args.prefill_chunk,
                           checkpoint=args.checkpoint,

@@ -59,11 +59,23 @@ the counterparts of QuantDense and QuantDense4, in plain torch: the
 reference has no Pallas kernel there. The embedding and the norms stay
 float. models/quant.py makes the codes.
 
+The other families (the qwen2-*, qwen3-*, phi3-mini and gemma2-*
+presets) are this module with the JAX LlamaConfig's remaining knobs:
+attn_bias (Qwen2: float biases on q/k/v, added after the product and
+before a LoRA delta), qk_norm (Qwen3: an RMSNorm over head_dim of each q
+and k head, before RoPE), sandwich_norms (Gemma-2: attn_post_norm and
+mlp_post_norm on the residual branches), attn_softcap and attn_scale
+(Gemma-2: cap * tanh(logits / cap) and 1/sqrt(query_pre_attn_scalar) in
+every attention), final_softcap (Gemma-2's lm-head cap) and hf_layout
+(Phi-3's fused checkpoint tensors: I/O only, models/weights.py). The
+kernels compute neither a soft-cap nor a scale, so a model that
+needs_xla_attention (a window, a cap or a scale) attends through the
+plain reference on every branch that can see them: attention() routes
+the capped and scaled calls there, and the paged branch takes the gather
+view on every layer, window 0 included, as the JAX package does.
+
 Not ported here (raise NotImplementedError): remat_policy 'dots' and
-attn_impl 'ring'. The JAX LlamaConfig's other
-family knobs (attn_bias, qk_norm, the sandwich norms, the soft-caps and
-attn_scale) and the Qwen, Phi-3 and Gemma-2 presets wait for a later
-slice.
+attn_impl 'ring'.
 """
 import dataclasses
 import functools
@@ -122,10 +134,31 @@ class LlamaConfig:
     mlp_act: str = 'silu'            # 'silu' | 'gelu_tanh' (GeGLU)
     norm_zero_centered: bool = False  # norm weight applied as (1 + w)
     embed_scale: bool = False        # embeddings * sqrt(dim)
+    # Qwen / Phi-3 / Gemma-2 knobs (the JAX LlamaConfig's).
+    attn_bias: bool = False          # Qwen2: biases on q/k/v
+    qk_norm: bool = False            # Qwen3: RMSNorm over head_dim of q, k
+    attn_softcap: float = 0.0        # Gemma-2: 50.0 (tanh soft-cap)
+    final_softcap: float = 0.0       # Gemma-2: 30.0 (lm-head logits)
+    # Softmax scale; 0 = 1/sqrt(head_dim) (Gemma-2:
+    # 1/sqrt(query_pre_attn_scalar)).
+    attn_scale: float = 0.0
+    sandwich_norms: bool = False     # Gemma-2: post-attn / post-mlp norms
+    # HF tensor layout: 'llama' or 'phi3' (fused qkv_proj, gate_up_proj);
+    # checkpoint I/O only, the module math is the same.
+    hf_layout: str = 'llama'
 
     @property
     def head_dim(self) -> int:
         return self.head_dim_override or self.dim // self.n_heads
+
+    @property
+    def needs_xla_attention(self) -> bool:
+        """A window, a soft-cap or a scale override: attention the paged
+        kernels do not compute, so every layer's decode takes the gather
+        view and the plain reference (the JAX package's rule of the same
+        name)."""
+        return (self.sliding_window > 0 or self.attn_softcap > 0.0 or
+                self.attn_scale != 0.0)
 
     def layer_window(self, i: int) -> int:
         """Layer i's sliding window (0: none), the counterpart of the
@@ -138,13 +171,18 @@ class LlamaConfig:
         """Analytic parameter count (embedding counted once if tied)."""
         d, v, hd = self.dim, self.vocab_size, self.head_dim
         attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-        per_layer = attn + 3 * d * self.mlp_dim + 2 * d
+        if self.attn_bias:
+            attn += (self.n_heads + 2 * self.n_kv_heads) * hd
+        if self.qk_norm:
+            attn += 2 * hd
+        per_layer = attn + 3 * d * self.mlp_dim + \
+            (4 if self.sandwich_norms else 2) * d
         embeds = v * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + embeds + d
 
 
-# Presets: 'debug' for unit tests; the others follow the Llama-3.x
-# released shapes (the same values as the JAX package's CONFIGS).
+# Presets: 'debug' for unit tests; the others follow the released shapes
+# (the same values as the JAX package's CONFIGS).
 CONFIGS = {
     'debug': LlamaConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4,
                          n_kv_heads=2, mlp_dim=128, max_seq_len=128,
@@ -156,6 +194,38 @@ CONFIGS = {
     'llama3-8b': LlamaConfig(),  # the defaults above are 8B
     'llama3-70b': LlamaConfig(dim=8192, n_layers=80, n_heads=64,
                               n_kv_heads=8, mlp_dim=28672),
+    # Qwen2.5 released shapes (HF Qwen2Config: q/k/v biases, rope 1e6).
+    'qwen2-1.5b': LlamaConfig(vocab_size=151936, dim=1536, n_layers=28,
+                              n_heads=12, n_kv_heads=2, mlp_dim=8960,
+                              max_seq_len=32768, rope_theta=1e6,
+                              use_llama31_rope=False, norm_eps=1e-6,
+                              tie_embeddings=True, attn_bias=True),
+    'qwen2-7b': LlamaConfig(vocab_size=152064, dim=3584, n_layers=28,
+                            n_heads=28, n_kv_heads=4, mlp_dim=18944,
+                            max_seq_len=32768, rope_theta=1e6,
+                            use_llama31_rope=False, norm_eps=1e-6,
+                            attn_bias=True),
+    # Qwen3 released shapes (HF Qwen3Config: per-head q/k RMSNorm, no
+    # attention biases, decoupled head_dim 128).
+    'qwen3-0.6b': LlamaConfig(vocab_size=151936, dim=1024, n_layers=28,
+                              n_heads=16, n_kv_heads=8, mlp_dim=3072,
+                              head_dim_override=128, max_seq_len=32768,
+                              rope_theta=1e6, use_llama31_rope=False,
+                              norm_eps=1e-6, tie_embeddings=True,
+                              qk_norm=True),
+    'qwen3-8b': LlamaConfig(vocab_size=151936, dim=4096, n_layers=36,
+                            n_heads=32, n_kv_heads=8, mlp_dim=12288,
+                            head_dim_override=128, max_seq_len=32768,
+                            rope_theta=1e6, use_llama31_rope=False,
+                            norm_eps=1e-6, qk_norm=True),
+    # Phi-3-mini (HF Phi3Config): llama math behind fused qkv_proj /
+    # gate_up_proj checkpoint tensors; the -4k variant's 2047-token
+    # sliding window.
+    'phi3-mini': LlamaConfig(vocab_size=32064, dim=3072, n_layers=32,
+                             n_heads=32, n_kv_heads=32, mlp_dim=8192,
+                             max_seq_len=4096, rope_theta=10000.0,
+                             use_llama31_rope=False, norm_eps=1e-5,
+                             sliding_window=2047, hf_layout='phi3'),
     # Mistral-7B-v0.1 (HF MistralConfig): llama + sliding-window
     # attention on every layer.
     'mistral-7b': LlamaConfig(vocab_size=32000, dim=4096, n_layers=32,
@@ -163,6 +233,32 @@ CONFIGS = {
                               max_seq_len=32768, sliding_window=4096,
                               rope_theta=10000.0,
                               use_llama31_rope=False, norm_eps=1e-6),
+    # Gemma-2 released shapes (HF Gemma2Config): Gemma's conventions plus
+    # sandwich norms, tanh soft-caps (attention 50, lm-head 30), the
+    # 1/sqrt(query_pre_attn_scalar) scale and a 4096 window on every
+    # other layer (pattern 2, starting with a windowed layer).
+    'gemma2-2b': LlamaConfig(vocab_size=256000, dim=2304, n_layers=26,
+                             n_heads=8, n_kv_heads=4, mlp_dim=9216,
+                             head_dim_override=256, max_seq_len=8192,
+                             rope_theta=10000.0, use_llama31_rope=False,
+                             norm_eps=1e-6, tie_embeddings=True,
+                             mlp_act='gelu_tanh', norm_zero_centered=True,
+                             embed_scale=True, sliding_window=4096,
+                             window_pattern=2, attn_softcap=50.0,
+                             final_softcap=30.0,
+                             attn_scale=256.0 ** -0.5,
+                             sandwich_norms=True),
+    'gemma2-9b': LlamaConfig(vocab_size=256000, dim=3584, n_layers=42,
+                             n_heads=16, n_kv_heads=8, mlp_dim=14336,
+                             head_dim_override=256, max_seq_len=8192,
+                             rope_theta=10000.0, use_llama31_rope=False,
+                             norm_eps=1e-6, tie_embeddings=True,
+                             mlp_act='gelu_tanh', norm_zero_centered=True,
+                             embed_scale=True, sliding_window=4096,
+                             window_pattern=2, attn_softcap=50.0,
+                             final_softcap=30.0,
+                             attn_scale=256.0 ** -0.5,
+                             sandwich_norms=True),
     # Gemma released shapes (HF GemmaConfig: GeGLU, 1+w norms,
     # sqrt(dim) embed scale, head_dim 256, tied embeddings).
     'gemma-2b': LlamaConfig(vocab_size=256000, dim=2048, n_layers=18,
@@ -182,31 +278,49 @@ CONFIGS = {
 }
 
 
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The projection's float bias (Qwen2's q/k/v), cast to the compute
+    dtype and added after the product, as flax's Dense and the
+    reference's QuantDense add it."""
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 class Linear(nn.Linear):
-    """Bias-free projection y = x @ W^T (W [out, in]; flax Dense keeps
-    the transpose), W stored in param_dtype and cast to the compute dtype
-    at use (a no-op when the two agree, as when serving)."""
+    """Projection y = x @ W^T (W [out, in]; flax Dense keeps the
+    transpose), plus a bias where asked (zero at init), W stored in
+    param_dtype and cast to the compute dtype at use (a no-op when the
+    two agree, as when serving)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 cfg: LlamaConfig, device=None) -> None:
-        super().__init__(in_features, out_features, bias=False,
+                 cfg: LlamaConfig, device=None, bias: bool = False) -> None:
+        super().__init__(in_features, out_features, bias=bias,
                          device=device, dtype=torch_dtype(cfg.param_dtype))
         self.compute_dtype = torch_dtype(cfg.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(self.compute_dtype))
+        return _add_bias(F.linear(x, self.weight.to(self.compute_dtype)),
+                         self.bias)
+
+
+def _bias_buffer(module: nn.Module, out_features: int, cfg: LlamaConfig,
+                 bias: bool, device) -> None:
+    """A quantized projection's bias: float (param_dtype), never
+    quantized, a buffer like its codes (None without one)."""
+    module.register_buffer('bias', torch.zeros(
+        (out_features,), dtype=torch_dtype(cfg.param_dtype),
+        device=device) if bias else None)
 
 
 class QuantLinear(nn.Module):
     """Weight-only int8 projection (QuantDense): `weight` int8 [out, in]
-    and a per-output-channel f32 `scale` [out], both buffers.
-    y = (x @ W^T) * scale with W cast to the compute dtype, in the
-    reference's order (an exact rewrite for per-column scales). Eager
-    torch fuses nothing: the cast writes and reads a compute-dtype copy
-    of W every call."""
+    and a per-output-channel f32 `scale` [out], both buffers, and an
+    optional float `bias`. y = (x @ W^T) * scale (+ bias) with W cast to
+    the compute dtype, in the reference's order (an exact rewrite for
+    per-column scales). Eager torch fuses nothing: the cast writes and
+    reads a compute-dtype copy of W every call."""
 
     def __init__(self, in_features: int, out_features: int,
-                 cfg: LlamaConfig, device=None) -> None:
+                 cfg: LlamaConfig, device=None, bias: bool = False) -> None:
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         self.compute_dtype = torch_dtype(cfg.dtype)
@@ -214,10 +328,12 @@ class QuantLinear(nn.Module):
             (out_features, in_features), dtype=torch.int8, device=device))
         self.register_buffer('scale', torch.ones(
             (out_features,), dtype=torch.float32, device=device))
+        _bias_buffer(self, out_features, cfg, bias, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x, self.weight.to(dt)) * self.scale.to(dt)
+        return _add_bias(F.linear(x, self.weight.to(dt)) * self.scale.to(dt),
+                         self.bias)
 
 
 class QuantLinear4(nn.Module):
@@ -232,7 +348,7 @@ class QuantLinear4(nn.Module):
     the end, as QuantDense4 does."""
 
     def __init__(self, in_features: int, out_features: int,
-                 cfg: LlamaConfig, device=None) -> None:
+                 cfg: LlamaConfig, device=None, bias: bool = False) -> None:
         super().__init__()
         if in_features % 2:
             raise ValueError(f'int4 packs two inputs a byte: in_features '
@@ -246,6 +362,7 @@ class QuantLinear4(nn.Module):
         self.register_buffer('scale', torch.ones(
             (in_features // self.group, out_features), dtype=torch.float32,
             device=device))
+        _bias_buffer(self, out_features, cfg, bias, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -256,22 +373,25 @@ class QuantLinear4(nn.Module):
         wg = w.view(self.out_features, n_g, g).permute(1, 2, 0)  # [n_g, g, out]
         partial = torch.bmm(xg, wg)                           # [n_g, N, out]
         y = (partial.float() * self.scale[:, None, :]).sum(0)
-        return y.to(dt).reshape(*lead, self.out_features)
+        return _add_bias(y.to(dt).reshape(*lead, self.out_features),
+                         self.bias)
 
 
 _QUANT_LINEARS = {'none': Linear, 'int8': QuantLinear, 'int4': QuantLinear4}
 
 
 def _linear(in_features: int, out_features: int, cfg: LlamaConfig,
-            device=None) -> nn.Module:
+            device=None, bias: bool = False) -> nn.Module:
     """A projection of cfg.quant's kind (the reference's _dense)."""
-    return _QUANT_LINEARS[cfg.quant](in_features, out_features, cfg, device)
+    return _QUANT_LINEARS[cfg.quant](in_features, out_features, cfg, device,
+                                     bias)
 
 
 def _proj(linear: nn.Linear, x: torch.Tensor, lora, name: str):
-    """A projection plus its multi-LoRA delta (counterpart of _proj /
-    _lora_delta): lora is None or (stack, 'layers.<i>.', ids, scale); a
-    projection the stack does not adapt is the plain matmul."""
+    """A projection (its bias included) plus its multi-LoRA delta
+    (counterpart of _proj / _lora_delta): lora is None or (stack,
+    'layers.<i>.', ids, scale); a projection the stack does not adapt is
+    the plain matmul."""
     y = linear(x)
     if lora is None:
         return y
@@ -289,6 +409,8 @@ _ACTS = {'silu': F.silu,
 
 
 class RMSNorm(nn.Module):
+    """RMSNorm over the last dim (dim: the model width, or head_dim for
+    Qwen3's q_norm / k_norm)."""
 
     def __init__(self, dim: int, cfg: LlamaConfig, device=None) -> None:
         super().__init__()
@@ -329,10 +451,16 @@ class LlamaAttention(nn.Module):
         self.cfg = cfg
         self.window = window
         h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.wq = _linear(cfg.dim, h * hd, cfg, device)
-        self.wk = _linear(cfg.dim, hk * hd, cfg, device)
-        self.wv = _linear(cfg.dim, hk * hd, cfg, device)
+        self.wq = _linear(cfg.dim, h * hd, cfg, device, cfg.attn_bias)
+        self.wk = _linear(cfg.dim, hk * hd, cfg, device, cfg.attn_bias)
+        self.wv = _linear(cfg.dim, hk * hd, cfg, device, cfg.attn_bias)
         self.wo = _linear(h * hd, cfg.dim, cfg, device)
+        self.q_norm = RMSNorm(hd, cfg, device) if cfg.qk_norm else None
+        self.k_norm = RMSNorm(hd, cfg, device) if cfg.qk_norm else None
+        # What the kernels do not compute: soft-cap and scale (None: the
+        # default 1/sqrt(head_dim)).
+        self.softcap = cfg.attn_softcap
+        self.scale = cfg.attn_scale or None
 
     def forward(self, x, cos, sin, segment_ids=None, cache=None,
                 positions=None, lora=None):
@@ -344,20 +472,26 @@ class LlamaAttention(nn.Module):
         cfg, window = self.cfg, self.window
         h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         b, s, _ = x.shape
-        q = rope.apply_rope(
-            _proj(self.wq, x, lora, 'attn.wq').view(b, s, h, hd), cos, sin)
-        k = rope.apply_rope(
-            _proj(self.wk, x, lora, 'attn.wk').view(b, s, hk, hd), cos, sin)
+        fam = dict(logit_softcap=self.softcap, softmax_scale=self.scale)
+        q = _proj(self.wq, x, lora, 'attn.wq').view(b, s, h, hd)
+        k = _proj(self.wk, x, lora, 'attn.wk').view(b, s, hk, hd)
+        if self.q_norm is not None:
+            # Qwen3: each head's q and k normed over head_dim, before RoPE.
+            q, k = self.q_norm(q), self.k_norm(k)
+        q = rope.apply_rope(q, cos, sin)
+        k = rope.apply_rope(k, cos, sin)
         v = _proj(self.wv, x, lora, 'attn.wv').view(b, s, hk, hd)
 
         if cache is None:
             out = attention_ops.attention(q, k, v, causal=True,
                                           segment_ids=segment_ids,
-                                          window=window, impl=cfg.attn_impl)
+                                          window=window, impl=cfg.attn_impl,
+                                          **fam)
         elif len(cache) in (3, 5):
             if positions is None:
                 raise ValueError('the paged cache path needs positions')
-            out = self._paged(q, k, v, cache, positions, window)
+            out = self._paged(q, k, v, cache, positions, window,
+                              cfg.needs_xla_attention, **fam)
         elif len(cache) == 2:
             k_cache, v_cache = cache
             if positions is None:
@@ -378,26 +512,29 @@ class LlamaAttention(nn.Module):
                 # cache.
                 out = attention_ops.attention(q, k, v, causal=True,
                                               segment_ids=segment_ids,
-                                              window=window)
+                                              window=window, **fam)
             elif positions is None:
                 # Queries at 0..s-1 over a cache written from 0: causal
                 # attention over the fresh k/v.
                 out = attention_ops.attention(q, k, v, causal=True,
-                                              window=window)
+                                              window=window, **fam)
             else:
                 out = attention_ops.mha_reference(
                     q, k_cache, v_cache, q_positions=positions,
-                    window=window)
+                    window=window, **fam)
         else:
             raise ValueError(f'a layer cache has 2, 3 or 5 entries, got '
                              f'{len(cache)}')
         return _proj(self.wo, out.reshape(b, s, h * hd), lora, 'attn.wo')
 
     @staticmethod
-    def _paged(q, k, v, cache, positions, window=0):
+    def _paged(q, k, v, cache, positions, window=0, plain=False,
+               logit_softcap=0.0, softmax_scale=None):
         """Append the s new tokens of every slot (token j at
         positions[:, 0] + j) into the pools, then attend the slot's pages:
-        a paged kernel, or with a window the gather view and the
+        a paged kernel, or with a window — or for any layer of a model
+        whose attention the kernels cannot compute (plain: a window, a
+        soft-cap or a scale on the model) — the gather view and the
         reference attention (the JAX package's _xla_gather)."""
         s = q.shape[1]
         pos = positions[:, 0].to(torch.int32).contiguous()
@@ -418,7 +555,7 @@ class LlamaAttention(nn.Module):
         else:
             PagePool.append_tokens_layer(k_pool, k, tables, pos)
             PagePool.append_tokens_layer(v_pool, v, tables, pos)
-        if window > 0:
+        if window > 0 or plain:
             if quantized:
                 k_view = PagePool.gather_view_layer_q(k_pool, k_scale,
                                                       tables, q.dtype)
@@ -427,9 +564,9 @@ class LlamaAttention(nn.Module):
             else:
                 k_view = PagePool.gather_view_layer(k_pool, tables)
                 v_view = PagePool.gather_view_layer(v_pool, tables)
-            return attention_ops.mha_reference(q, k_view, v_view,
-                                               q_positions=positions,
-                                               window=window)
+            return attention_ops.mha_reference(
+                q, k_view, v_view, q_positions=positions, window=window,
+                logit_softcap=logit_softcap, softmax_scale=softmax_scale)
         if quantized and s == 1:
             return paged_attention.paged_decode_attention_q(
                 q[:, 0].contiguous(), k_pool, v_pool, k_scale, v_scale,
@@ -454,12 +591,24 @@ class LlamaBlock(nn.Module):
         self.attn = LlamaAttention(cfg, device, cfg.layer_window(layer_idx))
         self.mlp_norm = RMSNorm(cfg.dim, cfg, device)
         self.mlp = LlamaMLP(cfg, device)
+        # Gemma-2's sandwich norms: each residual branch normed again.
+        sandwich = cfg.sandwich_norms
+        self.attn_post_norm = RMSNorm(cfg.dim, cfg, device) if sandwich \
+            else None
+        self.mlp_post_norm = RMSNorm(cfg.dim, cfg, device) if sandwich \
+            else None
 
     def forward(self, x, cos, sin, segment_ids=None, cache=None,
                 positions=None, lora=None):
-        x = x + self.attn(self.attn_norm(x), cos, sin, segment_ids, cache,
-                          positions, lora)
-        return x + self.mlp(self.mlp_norm(x), lora)
+        a = self.attn(self.attn_norm(x), cos, sin, segment_ids, cache,
+                      positions, lora)
+        if self.attn_post_norm is not None:
+            a = self.attn_post_norm(a)
+        x = x + a
+        m = self.mlp(self.mlp_norm(x), lora)
+        if self.mlp_post_norm is not None:
+            m = self.mlp_post_norm(m)
+        return x + m
 
 
 class LlamaModel(nn.Module):
@@ -499,9 +648,12 @@ class LlamaModel(nn.Module):
         each projection is drawn in param_dtype from the same generator
         in the same order as the float model's, then quantized: the
         quantized version of the float model's random weights (the
-        reference's fused init-then-quantize)."""
+        reference's fused init-then-quantize). Biases start at 0, as
+        flax's zeros_init."""
         self.tok_embed.normal_(0.0, 0.02, generator=generator)
         for mod in self.modules():
+            if getattr(mod, 'bias', None) is not None:
+                mod.bias.zero_()
             if isinstance(mod, nn.Linear):
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
                                    generator=generator)
@@ -587,4 +739,9 @@ class LlamaModel(nn.Module):
             logits = x @ self.tok_embed.to(self.dtype).t()
         else:
             logits = self.lm_head(x)
+        if cfg.final_softcap > 0.0:
+            # Gemma-2's lm-head soft-cap, in the logits' dtype.
+            cap = torch.tensor(cfg.final_softcap, dtype=logits.dtype,
+                               device=logits.device)
+            logits = cap * torch.tanh(logits / cap)
         return (logits, cache) if cache is not None else logits

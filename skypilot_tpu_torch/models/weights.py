@@ -14,10 +14,15 @@ stored (the model applies 1 + w), and projections between dim and
 heads*head_dim, which differ there (gemma-7b: 3072 and 4096). A
 quantized tree (the reference's quantize_params: int8 `kernel` + `scale`,
 or ml_dtypes int4 kernels with group scales) maps to the QuantLinear /
-QuantLinear4 layout, int4 codes read through a numpy int8 cast.
+QuantLinear4 layout, int4 codes read through a numpy int8 cast. The
+family leaves cross too: Qwen2's q/k/v biases (a float `bias` beside a
+kernel, quantized or not), Qwen3's attn q_norm / k_norm and Gemma-2's
+attn_post_norm / mlp_post_norm.
 
 HF checkpoints (the counterparts of skypilot_tpu/models/weights.py's
-functions of the same names, for the llama, mistral and gemma families):
+functions of the same names, for the llama, mistral, gemma, qwen2, qwen3,
+gemma2 and phi3 families; Phi-3's fused qkv_proj and gate_up_proj are
+split on load by row reads of the fused tensor and fused again on save):
 config_from_hf / config_to_hf / load_config / checkpoint_model_type,
 load_llama_params (safetensors -> the port's state_dict on a device;
 with quantize, each projection quantized as it leaves the reader, so the
@@ -29,7 +34,9 @@ The safetensors format is read and written by models/safetensors_io.py.
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple, Union
+import re
+from typing import (Any, Dict, Iterator, List, Mapping, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -88,8 +95,15 @@ def params_from_jax(tree: Mapping[str, Any],
             sd.update(_projection(f'{pre}attn.{name}.', blk['attn'][name]))
         for name in _MLP:
             sd.update(_projection(f'{pre}mlp.{name}.', blk['mlp'][name]))
-        sd[f'{pre}attn_norm.weight'] = to_tensor(blk['attn_norm']['weight'])
-        sd[f'{pre}mlp_norm.weight'] = to_tensor(blk['mlp_norm']['weight'])
+        for name in ('q_norm', 'k_norm'):
+            if cfg.qk_norm:
+                sd[f'{pre}attn.{name}.weight'] = to_tensor(
+                    blk['attn'][name]['weight'])
+        norms = ('attn_norm', 'mlp_norm') + (
+            ('attn_post_norm', 'mlp_post_norm') if cfg.sandwich_norms
+            else ())
+        for name in norms:
+            sd[f'{pre}{name}.weight'] = to_tensor(blk[name]['weight'])
     sd['final_norm.weight'] = to_tensor(tree['final_norm']['weight'])
     if not cfg.tie_embeddings:
         sd.update(_projection('lm_head.', tree['lm_head']))
@@ -99,19 +113,25 @@ def params_from_jax(tree: Mapping[str, Any],
 def _projection(prefix: str, node: Mapping[str, Any]
                 ) -> Dict[str, torch.Tensor]:
     """A JAX Dense / QuantDense / QuantDense4 scope ({'kernel': [in,
-    out]} plus 'scale' when quantized) -> the port's '<prefix>weight'
-    [out, in] (and '<prefix>scale'). int4 kernels (ml_dtypes int4) are
-    read through a numpy int8 cast and packed two a byte."""
+    out]} plus 'scale' when quantized, 'bias' where the projection has
+    one) -> the port's '<prefix>weight' [out, in] (and '<prefix>scale',
+    '<prefix>bias'). int4 kernels (ml_dtypes int4) are read through a
+    numpy int8 cast and packed two a byte."""
     kernel = np.asarray(node['kernel'])
+    out = {}
+    if 'bias' in node:
+        out[prefix + 'bias'] = to_tensor(node['bias'])
     if 'scale' not in node:
-        return {prefix + 'weight': to_tensor(kernel.T)}
-    scale = to_tensor(np.asarray(node['scale'], np.float32))
+        out[prefix + 'weight'] = to_tensor(kernel.T)
+        return out
+    out[prefix + 'scale'] = to_tensor(np.asarray(node['scale'], np.float32))
     if kernel.dtype.name == 'int4':
         codes = torch.from_numpy(np.ascontiguousarray(
             kernel.astype(np.int8).T))
-        return {prefix + 'weight': quant_lib.pack_int4(codes),
-                prefix + 'scale': scale}
-    return {prefix + 'weight': to_tensor(kernel.T), prefix + 'scale': scale}
+        out[prefix + 'weight'] = quant_lib.pack_int4(codes)
+    else:
+        out[prefix + 'weight'] = to_tensor(kernel.T)
+    return out
 
 
 def lora_stack_from_jax(stack: Mapping[str, Any],
@@ -164,13 +184,27 @@ _LAYER_MAP = {
     'mlp.w_up.weight': 'mlp.up_proj.weight',
     'mlp.w_down.weight': 'mlp.down_proj.weight',
 }
-# Families whose LlamaConfig knobs the port lacks, and MoE checkpoints:
-# the ROADMAP queue 1 item each waits for.
+# Qwen2's q/k/v biases (the reference's _ATTN_BIAS_MAP).
+_ATTN_BIAS_MAP = {
+    'attn.wq.bias': 'self_attn.q_proj.bias',
+    'attn.wk.bias': 'self_attn.k_proj.bias',
+    'attn.wv.bias': 'self_attn.v_proj.bias',
+}
+# Qwen3's per-head q/k norms, [head_dim] (the reference's _QK_NORM_MAP).
+_QK_NORM_MAP = {
+    'attn.q_norm.weight': 'self_attn.q_norm.weight',
+    'attn.k_norm.weight': 'self_attn.k_norm.weight',
+}
+# Gemma-2's four per-layer norms: HF's post_attention_layernorm is the
+# post-attention sandwich norm there (Llama's pre-MLP norm), and the MLP
+# has pre/post feedforward norms.
+_SANDWICH_MAP = {
+    'attn_post_norm.weight': 'post_attention_layernorm.weight',
+    'mlp_norm.weight': 'pre_feedforward_layernorm.weight',
+    'mlp_post_norm.weight': 'post_feedforward_layernorm.weight',
+}
+# MoE checkpoints: the ROADMAP queue 1 item they wait for.
 _UNPORTED_FAMILIES = {
-    'qwen2': 'item 7 (model family knobs: attn_bias)',
-    'qwen3': 'item 7 (model family knobs: qk_norm)',
-    'gemma2': 'item 7 (model family knobs: sandwich norms, soft-caps)',
-    'phi3': 'item 7 (model family knobs: the fused qkv_proj split)',
     'mixtral': 'item 11 (MoE)',
     'qwen3_moe': 'item 11 (MoE)'}
 MOE_TYPES = ('mixtral', 'qwen3_moe')
@@ -180,25 +214,101 @@ _LLAMA31_ROPE = {'factor': 8.0, 'low_freq_factor': 1.0,
                  'original_max_position_embeddings': 8192}
 
 
+def _layer_map(cfg: LlamaConfig) -> Dict[str, str]:
+    """A layer's state_dict suffixes -> HF suffixes for cfg's family."""
+    m = dict(_LAYER_MAP)
+    if cfg.attn_bias:
+        m.update(_ATTN_BIAS_MAP)
+    if cfg.qk_norm:
+        m.update(_QK_NORM_MAP)
+    if cfg.sandwich_norms:
+        m.update(_SANDWICH_MAP)
+    return m
+
+
 def hf_names(cfg: LlamaConfig) -> Iterator[Tuple[str, str]]:
     """(state_dict key, HF name) for every tensor of cfg's model, layer by
-    layer in file order; no lm_head when the embeddings are tied."""
+    layer in file order; no lm_head when the embeddings are tied. Phi-3's
+    q/k/v and gate/up keep Llama's per-projection names here: the reader
+    splits the fused tensors (_FusedSplitView), the writer fuses them."""
     yield 'tok_embed', _TOP_MAP['tok_embed']
+    layer_map = _layer_map(cfg)
     for i in range(cfg.n_layers):
-        for ours, suffix in _LAYER_MAP.items():
+        for ours, suffix in layer_map.items():
             yield f'layers.{i}.{ours}', f'model.layers.{i}.{suffix}'
     yield 'final_norm.weight', _TOP_MAP['final_norm.weight']
     if not cfg.tie_embeddings:
         yield 'lm_head.weight', _TOP_MAP['lm_head.weight']
 
 
+class _FusedSplitView:
+    """A reader for hf_layout 'phi3': q/k/v_proj are row ranges of
+    self_attn.qkv_proj (q, then k, then v) and gate/up_proj the halves of
+    mlp.gate_up_proj, read by rows so the unneeded rows never leave the
+    map (the reference's _FusedSplitView); every other name passes
+    through."""
+
+    _RE = re.compile(r'(model\.layers\.\d+\.)'
+                     r'(?:self_attn\.(q|k|v)_proj|mlp\.(gate|up)_proj)'
+                     r'\.weight$')
+
+    def __init__(self, reader: safetensors_io.ShardReader,
+                 cfg: LlamaConfig) -> None:
+        self._r = reader
+        self._cfg = cfg
+
+    def _split(self, name: str) -> Optional[Tuple[str, int, int]]:
+        m = self._RE.match(name)
+        if m is None:
+            return None
+        cfg = self._cfg
+        if m.group(2):
+            q_rows = cfg.n_heads * cfg.head_dim
+            kv_rows = cfg.n_kv_heads * cfg.head_dim
+            lo = {'q': 0, 'k': q_rows, 'v': q_rows + kv_rows}[m.group(2)]
+            hi = lo + (q_rows if m.group(2) == 'q' else kv_rows)
+            return m.group(1) + 'self_attn.qkv_proj.weight', lo, hi
+        lo = 0 if m.group(3) == 'gate' else cfg.mlp_dim
+        return m.group(1) + 'mlp.gate_up_proj.weight', lo, lo + cfg.mlp_dim
+
+    def __contains__(self, name: str) -> bool:
+        split = self._split(name)
+        return (split[0] if split else name) in self._r
+
+    def get(self, name: str) -> torch.Tensor:
+        split = self._split(name)
+        return self._r.get(name) if split is None else \
+            self._r.get_rows(*split)
+
+
+def _fuse_phi3(tensors: List[Tuple[str, torch.Tensor]],
+               cfg: LlamaConfig) -> List[Tuple[str, torch.Tensor]]:
+    """Phi-3's checkpoint layout from Llama-named tensors: each layer's
+    q/k/v_proj rows concatenated into qkv_proj and gate/up_proj into
+    gate_up_proj (HF [out, in]: along the rows), as the reference's save
+    fuses them."""
+    out = dict(tensors)
+    for i in range(cfg.n_layers):
+        pre = f'model.layers.{i}.'
+        out[pre + 'self_attn.qkv_proj.weight'] = torch.cat(
+            [out.pop(pre + f'self_attn.{p}_proj.weight') for p in 'qkv'])
+        out[pre + 'mlp.gate_up_proj.weight'] = torch.cat(
+            [out.pop(pre + f'mlp.{p}_proj.weight') for p in ('gate', 'up')])
+    return list(out.items())
+
+
 def config_from_hf(hf_config: Mapping[str, Any], **overrides) -> LlamaConfig:
     """HF config.json dict -> LlamaConfig: model_type 'llama' maps 1:1
     (Llama-3.1 rope_scaling checked against ops/rope.py's constants),
-    'mistral' adds the sliding window, 'gemma' GeGLU, zero-centred norms,
-    the sqrt(dim) embedding scale, a decoupled head_dim and tied
-    embeddings. Families the port's config cannot express yet raise
-    NotImplementedError naming their ROADMAP queue 1 item."""
+    'qwen2' adds the q/k/v biases (and ignores sliding_window), 'qwen3'
+    the q/k norms (attention_bias from the config), 'mistral' the sliding
+    window, 'phi3' the fused layout and its window, 'gemma' GeGLU,
+    zero-centred norms, the sqrt(dim) embedding scale and tied
+    embeddings, 'gemma2' those plus the sandwich norms, the soft-caps,
+    the 1/sqrt(query_pre_attn_scalar) scale and windows on every other
+    layer; a head_dim that is not dim / heads becomes head_dim_override.
+    MoE checkpoints raise NotImplementedError naming their ROADMAP queue
+    1 item."""
     model_type = hf_config.get('model_type', 'llama')
     if model_type in _UNPORTED_FAMILIES:
         raise NotImplementedError(
@@ -236,14 +346,35 @@ def config_from_hf(hf_config: Mapping[str, Any], **overrides) -> LlamaConfig:
         norm_eps=hf_config.get('rms_norm_eps', 1e-5),
         tie_embeddings=hf_config.get('tie_word_embeddings', False),
     )
-    if model_type == 'mistral':
+    if model_type == 'qwen2':
+        # HF Qwen2Attention always has q/k/v biases (no config field).
+        kw['attn_bias'] = True
+    elif model_type == 'qwen3':
+        kw['qk_norm'] = True
+        kw['attn_bias'] = hf_config.get('attention_bias', False)
+    elif model_type == 'mistral':
         # Llama with sliding-window attention on every layer.
         kw['sliding_window'] = hf_config.get('sliding_window') or 0
-    elif model_type == 'gemma':
+    elif model_type == 'phi3':
+        # Llama math behind fused tensors; the -4k minis carry a window.
+        kw['hf_layout'] = 'phi3'
+        kw['sliding_window'] = hf_config.get('sliding_window') or 0
+    elif model_type in ('gemma', 'gemma2'):
         kw['mlp_act'] = 'gelu_tanh'
         kw['norm_zero_centered'] = True
         kw['embed_scale'] = True
         kw['tie_embeddings'] = hf_config.get('tie_word_embeddings', True)
+    if model_type == 'gemma2':
+        kw['sandwich_norms'] = True
+        kw['sliding_window'] = hf_config.get('sliding_window') or 0
+        # HF Gemma2: even layers windowed, odd ones global.
+        kw['window_pattern'] = 2
+        kw['attn_softcap'] = hf_config.get('attn_logit_softcapping') or 0.0
+        kw['final_softcap'] = hf_config.get('final_logit_softcapping') \
+            or 0.0
+        qpas = hf_config.get('query_pre_attn_scalar')
+        if qpas:
+            kw['attn_scale'] = float(qpas) ** -0.5
     head_dim = hf_config.get('head_dim') or 0
     if head_dim and head_dim != kw['dim'] // kw['n_heads']:
         kw['head_dim_override'] = head_dim
@@ -253,11 +384,20 @@ def config_from_hf(hf_config: Mapping[str, Any], **overrides) -> LlamaConfig:
 
 def config_to_hf(cfg: LlamaConfig) -> Dict[str, Any]:
     """LlamaConfig -> HF config.json dict (what save_hf_checkpoint
-    writes): norm_zero_centered -> gemma, a sliding window -> mistral,
-    else llama — the inverse of config_from_hf, equal to the reference's
-    dict for these families."""
-    if cfg.norm_zero_centered:
+    writes): sandwich_norms -> gemma2, norm_zero_centered -> gemma,
+    qk_norm -> qwen3, attn_bias -> qwen2, hf_layout 'phi3' -> phi3, a
+    sliding window -> mistral, else llama — the inverse of
+    config_from_hf, equal to the reference's dict."""
+    if cfg.sandwich_norms:
+        model_type, arch = 'gemma2', 'Gemma2ForCausalLM'
+    elif cfg.norm_zero_centered:
         model_type, arch = 'gemma', 'GemmaForCausalLM'
+    elif cfg.qk_norm:
+        model_type, arch = 'qwen3', 'Qwen3ForCausalLM'
+    elif cfg.attn_bias:
+        model_type, arch = 'qwen2', 'Qwen2ForCausalLM'
+    elif cfg.hf_layout == 'phi3':
+        model_type, arch = 'phi3', 'Phi3ForCausalLM'
     elif cfg.sliding_window > 0:
         model_type, arch = 'mistral', 'MistralForCausalLM'
     else:
@@ -280,11 +420,26 @@ def config_to_hf(cfg: LlamaConfig) -> Dict[str, Any]:
                        if cfg.mlp_act == 'gelu_tanh' else 'silu'),
         'torch_dtype': 'float32',
     }
-    if model_type == 'gemma':
+    if model_type in ('gemma', 'gemma2'):
         # GemmaConfig reads 'hidden_activation' (hidden_act is legacy).
         out['hidden_activation'] = out['hidden_act']
-    if model_type == 'mistral':
+    if model_type == 'qwen3':
+        # HF defaults attention_bias to False: written, so a biased qwen3
+        # checkpoint keeps its biases on reload.
+        out['attention_bias'] = cfg.attn_bias
+    if model_type in ('mistral', 'phi3'):
         out['sliding_window'] = cfg.sliding_window or None
+    if model_type == 'phi3':
+        # Phi3Config's default pad_token_id 32000 breaks smaller vocabs.
+        out['pad_token_id'] = None
+    if model_type == 'gemma2':
+        out['sliding_window'] = cfg.sliding_window
+        out['attn_logit_softcapping'] = cfg.attn_softcap or None
+        out['final_logit_softcapping'] = cfg.final_softcap or None
+        # Always written: HF's default of 256 would change the scale of a
+        # model that uses 1/sqrt(head_dim).
+        out['query_pre_attn_scalar'] = round(
+            (cfg.attn_scale or cfg.head_dim ** -0.5) ** -2)
     if cfg.use_llama31_rope:
         out['rope_scaling'] = {'rope_type': 'llama3', **_LLAMA31_ROPE}
     return out
@@ -315,13 +470,16 @@ def iter_llama_params(cfg: LlamaConfig, ckpt_dir: str, *,
     quantize, each projection and lm_head quantized on `device` from the
     checkpoint's own values (the reference's host-side stream quantizer
     quantizes the stored array), yielding its codes and then its
-    '.scale'. The reader's maps are closed when the iteration ends."""
+    '.scale'; biases and norms stay float. The reader's maps are closed
+    when the iteration ends."""
     from skypilot_tpu_torch.models import llama
     if quantize not in ('none',) + quant_lib.MODES:
         raise ValueError(f'unknown quantize mode {quantize!r}')
     dtype = llama.torch_dtype(param_dtype or cfg.param_dtype)
     device = torch.device(device)
-    with safetensors_io.ShardReader(ckpt_dir) as reader:
+    with safetensors_io.ShardReader(ckpt_dir) as shards:
+        reader = _FusedSplitView(shards, cfg) if cfg.hf_layout == 'phi3' \
+            else shards
         for key, hf_name in hf_names(cfg):
             if hf_name not in reader and key == 'lm_head.weight':
                 # A tied checkpoint loaded into an untied config: the
@@ -432,6 +590,8 @@ def save_hf_checkpoint(cfg: LlamaConfig,
             'cleanly (config flag / state_dict mismatch?): %s%s',
             len(missing), out_dir, ', '.join(missing[:8]),
             ' ...' if len(missing) > 8 else '')
+    if cfg.hf_layout == 'phi3':
+        tensors = _fuse_phi3(tensors, cfg)
     n = safetensors_io.save_file(
         tensors, os.path.join(out_dir, 'model.safetensors'),
         metadata={'format': 'pt'})

@@ -12,8 +12,9 @@ metrics, MFU at log boundaries, checkpoint/resume and the preemption
 exit (code 75) at a step boundary (train/checkpoint.py). Synthetic or
 JSONL data, the same batches as the JAX entrypoint for the same seed:
 'text' rows byte-level, or through --data-tokenizer's tokenizer.json.
---base-checkpoint starts from an HF checkpoint's weights (llama, mistral
-and gemma families; models/weights.py), checked against --model's sizes
+--base-checkpoint starts from an HF checkpoint's weights (the llama,
+mistral, gemma, qwen2, qwen3, gemma2 and phi3 families;
+models/weights.py), checked against --model's sizes and family knobs
 before a weight is read and streamed into the f32 masters one tensor at
 a time; a resume skips it.
 
@@ -157,7 +158,9 @@ def load_data_tokenizer(path: Optional[str]):
 def check_base_checkpoint(path: str, model_name: str):
     """Fail fast on a checkpoint that does not fit --model, before the
     model is built or a weight is read: the family (MoE or dense), then
-    the sizes the loader takes from the checkpoint."""
+    the sizes the loader takes from the checkpoint, then the knobs that
+    decide which tensors it reads (a Qwen2 checkpoint's biases would
+    otherwise be dropped under a Llama preset of its sizes)."""
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.models import weights as weights_lib
     if not os.path.isfile(os.path.join(path, 'config.json')):
@@ -178,7 +181,8 @@ def check_base_checkpoint(path: str, model_name: str):
         raise SystemExit(f'--base-checkpoint {path}: {e}') from None
     cfg = llama.CONFIGS[model_name]
     for f in ('dim', 'n_layers', 'n_heads', 'n_kv_heads', 'mlp_dim',
-              'vocab_size'):
+              'vocab_size', 'head_dim', 'attn_bias', 'qk_norm',
+              'sandwich_norms'):
         if getattr(ckpt_cfg, f) != getattr(cfg, f):
             raise SystemExit(
                 f'--base-checkpoint {f}={getattr(ckpt_cfg, f)} does not '

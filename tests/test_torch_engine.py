@@ -258,7 +258,6 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
 @pytest.mark.parametrize('kw,env,exc', [
     ({}, {'SKYT_KV_TIER': 'fleet'}, NotImplementedError),
     ({'kv_dtype': 'fp8'}, {}, ValueError),
-    ({'spec_decode': 2, 'draft_model': object()}, {}, NotImplementedError),
     ({'mesh': object()}, {}, NotImplementedError),
     ({'lockstep': object()}, {}, NotImplementedError)])
 def test_unported_engine_options_raise(kw, env, exc, monkeypatch):
@@ -286,9 +285,3 @@ def test_prefix_options_construct(kw, attr, want):
     built = torch_server.build_engine('debug', device='cpu', page_size=16,
                                       **kw)
     assert getattr(built, attr) == want
-
-
-def test_build_engine_refuses_a_draft_model():
-    with pytest.raises(NotImplementedError, match='draft'):
-        torch_server.build_engine('debug', device='cpu', spec_decode=2,
-                                  draft_model_name='debug')

@@ -134,6 +134,7 @@ def test_paged_prefill_then_three_decode_steps(models):
     decode steps of three slots through the paged pools — slot 2 is a
     released slot (dummy table row, stale length)."""
     jm, jp, pm = models
+    apply = jax.jit(jm.apply)   # traced once a shape, not op by op
     cfg = pm.cfg
     rng = np.random.default_rng(3)
     page, n_pages, mp, bucket = 8, 10, 4, 16
@@ -149,7 +150,7 @@ def test_paged_prefill_then_three_decode_steps(models):
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = rng.integers(1, 256, n)
         lp = np.array([[n - 1]], np.int32)
-        jl, jc = jm.apply(
+        jl, jc = apply(
             jp, jnp.asarray(toks),
             positions=jnp.arange(bucket)[None, :],
             cache={'k': jnp.zeros(shape), 'v': jnp.zeros(shape)},
@@ -170,7 +171,7 @@ def test_paged_prefill_then_three_decode_steps(models):
     last = np.array(last + [5], np.int32)
     positions = np.array(lens + [41], np.int32)
     for _ in range(3):
-        jl, jc = jm.apply(
+        jl, jc = apply(
             jp, jnp.asarray(last)[:, None],
             positions=jnp.asarray(positions)[:, None],
             cache={**j_pool, 'tables': jnp.asarray(tables)})

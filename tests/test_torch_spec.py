@@ -165,6 +165,7 @@ def prefill_then_step(jm, jp, pm, quantized, s):
     per slot at positions lens + 0..s-1 (s = 4: the verify step; s = 1: a
     decode step). Returns (JAX logits, port logits)."""
     cfg = pm.cfg
+    apply = jax.jit(jm.apply)   # traced once a shape, not op by op
     rng = np.random.default_rng(3)
     page, n_pages, bucket = 8, 10, 16
     lens = [13, 6]
@@ -186,7 +187,7 @@ def prefill_then_step(jm, jp, pm, quantized, s):
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = rng.integers(1, 256, n)
         lp = np.array([[n - 1]], np.int32)
-        jl, jc = jm.apply(
+        jl, jc = apply(
             jp, jnp.asarray(toks), positions=jnp.arange(bucket)[None, :],
             cache={'k': jnp.zeros(shape), 'v': jnp.zeros(shape)},
             logit_positions=jnp.asarray(lp))
@@ -215,7 +216,7 @@ def prefill_then_step(jm, jp, pm, quantized, s):
         [np.array(last + [5], np.int32)[:, None],
          rng.integers(1, 256, (3, s - 1)).astype(np.int32)], 1)
     positions = np.array(lens + [41], np.int32)[:, None] + np.arange(s)
-    jl, _ = jm.apply(jp, jnp.asarray(toks), positions=jnp.asarray(positions),
+    jl, _ = apply(jp, jnp.asarray(toks), positions=jnp.asarray(positions),
                      cache={**jc_all, 'tables': jnp.asarray(tables)})
     with torch.no_grad():
         tl, _ = pm(torch.from_numpy(toks).long(),
@@ -409,7 +410,7 @@ def test_speculative_sample_step_greedy_rows_match_jax():
     topks = np.zeros((3,), np.int32)
     topps = np.ones((3,), np.float32)
     keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(3))
-    out_j, acc_j = jax_engine.speculative_sample_step(
+    out_j, acc_j = jax.jit(jax_engine.speculative_sample_step)(
         *(jnp.asarray(a) for a in (logits, draft, temps, topks, topps)),
         keys)
     u = torch.from_numpy(rng.random((3, k + vocab)).astype(np.float32))

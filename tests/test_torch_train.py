@@ -119,7 +119,7 @@ def test_model_grads_match_jax(scan, remat, with_seg):
                           else jnp.asarray(seg))
         return jax_trainer.cross_entropy_loss(
             logits, jnp.asarray(batch['targets']))[0]
-    jloss, jgrads = jax.value_and_grad(loss_fn)(jp['params'])
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jp['params'])
 
     pm = _port_model(jp, remat=remat)
     tb = _torch_batch(batch)

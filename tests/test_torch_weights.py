@@ -9,8 +9,9 @@ written once per module by the reference's save_hf_checkpoint.
     reference's load_llama_params (logits within 1e-5);
   * config_from_hf / config_to_hf equal to the reference's for llama
     (with and without the Llama-3.1 rope), mistral and gemma; the
-    reference's rope_scaling errors; the families that wait (ROADMAP
-    queue 1 items 7 and 11) raise naming their item;
+    reference's rope_scaling errors; MoE checkpoints (ROADMAP queue 1
+    item 11) raise naming their item (the other families:
+    tests/test_torch_families.py);
   * load_llama_params against the reference's (logits within 1e-5), a
     tied checkpoint into an untied config, build_engine(checkpoint=)'s
     greedy streams equal to the reference engine's;
@@ -252,8 +253,7 @@ def test_bad_rope_scaling_raises_the_reference_error(rope_scaling):
 
 
 @pytest.mark.parametrize('model_type,item', [
-    ('qwen2', 'item 7'), ('qwen3', 'item 7'), ('gemma2', 'item 7'),
-    ('phi3', 'item 7'), ('mixtral', 'item 11'), ('qwen3_moe', 'item 11')])
+    ('mixtral', 'item 11'), ('qwen3_moe', 'item 11')])
 def test_unported_families_name_their_roadmap_item(model_type, item,
                                                    tmp_path):
     hf = dict(jax_weights.config_to_hf(_DEBUG), model_type=model_type)
@@ -505,8 +505,7 @@ def test_sft_resume_skips_the_base_load(ckpts, tmp_path, monkeypatch):
                           'vocab_size=256'),
     ({'intermediate_size': 96}, 'mlp_dim=96 does not match'),
     ({'model_type': 'mixtral'},
-     "--base-checkpoint is 'mixtral' but --model 'debug' is dense"),
-    ({'model_type': 'qwen2'}, 'item 7')])
+     "--base-checkpoint is 'mixtral' but --model 'debug' is dense")])
 def test_sft_base_checkpoint_mismatch_exits(hf_over, match, tmp_path):
     """Before any weight is read (the dir holds only config.json)."""
     hf = dict(jax_weights.config_to_hf(_DEBUG), **hf_over)

@@ -178,6 +178,7 @@ def test_paged_steps(models):
     a released third slot, then two decode steps and one verify step of 3
     tokens per slot. (The int8 engine stream below holds int8 pools.)"""
     jm, jp, pm = models
+    apply = jax.jit(jm.apply)   # traced once a shape, not op by op
     cfg = pm.cfg
     rng = np.random.default_rng(3)
     page, n_pages, bucket = 8, 12, 32
@@ -195,7 +196,7 @@ def test_paged_steps(models):
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = rng.integers(1, 256, n)
         lp = np.array([[n - 1]], np.int32)
-        jl, jc = jm.apply(
+        jl, jc = apply(
             jp, jnp.asarray(toks), positions=jnp.arange(bucket)[None, :],
             cache={'k': jnp.zeros(shape), 'v': jnp.zeros(shape)},
             logit_positions=jnp.asarray(lp))
@@ -216,7 +217,7 @@ def test_paged_steps(models):
     base = np.array(lens + [41], np.int32)[:, None]
     for step, s in enumerate((1, 1, 3)):
         positions = base + np.arange(s)
-        jl, jc = jm.apply(jp, jnp.asarray(toks),
+        jl, jc = apply(jp, jnp.asarray(toks),
                           positions=jnp.asarray(positions),
                           cache={**jc_all, 'tables': jnp.asarray(tables)})
         jc_all.update({n: jc[n] for n in jc_all})
@@ -320,7 +321,7 @@ def test_train_step_matches_jax():
         logits = jm.apply({'params': params}, jnp.asarray(batch['tokens']))
         return jax_trainer.cross_entropy_loss(
             logits, jnp.asarray(batch['targets']))[0]
-    jloss, jgrads = jax.value_and_grad(loss_fn)(jstate.params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jstate.params)
     pm = llama.LlamaModel(pcfg)
     pm.load_state_dict(weights.params_from_jax(
         _tree({'params': jstate.params}), pcfg))
