@@ -78,7 +78,10 @@ Phases (any failure exits non-zero and prints no result line):
      the flash forward and backward at G = 7 (qwen2-7b's packed burst
      row), 6 and 2; the paged kernel at T = 1 and at verify T = 4 with
      G = 7 (28 rows: two m-tiles), 6 and 2 and T = 5 with G = 4, bf16
-     and int8; the LoRA gather kernel at 3584 -> 18944;
+     and int8; the LoRA gather kernel at 3584 -> 18944; qwen3-30b-a3b's
+     G = 8 (32 q / 4 kv heads): flash on its packed burst row, the paged
+     kernel at T = 1 and at verify T = 5 (40 rows: three m-tiles), bf16
+     and int8;
   3. llama3-8b at full width (random weights from a seed) served through
      build_engine -> InferenceEngine.submit/generate on the paged cache:
      a burst of mixed-length prompts submitted before start() (packed
@@ -149,8 +152,9 @@ Phases (any failure exits non-zero and prints no result line):
      kernels line.
      Then HF checkpoints on the same weights (run_checkpoint): the model
      written by weights.save_hf_checkpoint to a temporary directory
-     (bytes, seconds; fewer layers at full width only if the disk cannot
-     hold 32, logged), with a tokenizer.json when `tokenizers` is there;
+     (bytes, seconds; its first CKPT_LAYERS = 8 layers at full width,
+     fewer if the disk cannot hold them, logged), with a tokenizer.json
+     when `tokenizers` is there;
      build_engine(checkpoint=) in bf16: a 512-token prompt's last logits
      bit-equal to the in-memory model's and the same greedy stream; with
      quantize int8 and int4: codes made on the card byte-equal to the
@@ -187,13 +191,15 @@ Phases (any failure exits non-zero and prints no result line):
      randomised, llama3-8b's engine settings and traffic: qwen2-7b (28
      q / 4 kv heads, G = 7, q/k/v biases) through bf16, int8 KV,
      spec_decode=3 and both (kernels 1-5), prefill, decode-step and
-     verify-step logits vs plain; its HF checkpoint (model_type qwen2)
-     written, loaded in bf16 (logits bit-equal) and int8 (seconds, peak
-     and resident GiB), and served by examples/qwen_serve.yaml's command
-     line without --tp (a subprocess: /health, /generate, SIGTERM ->
-     0), then deleted; qwen3-8b (q/k norms) at spec_decode=4 with a
-     full-width qwen3-0.6b draft (build_engine(draft_model_name=);
-     random weights: acceptance at chance), the n-gram engine and the
+     verify-step logits vs plain; its HF checkpoint (model_type qwen2;
+     CKPT_LAYERS layers at full width) written, loaded in bf16 (logits
+     bit-equal) and int8 (seconds, peak and resident GiB), and served
+     by examples/qwen_serve.yaml's command line without --tp (a
+     subprocess: /health, /generate, SIGTERM -> 0), then deleted;
+     qwen3-8b (q/k norms) at spec_decode=4 with a full-width qwen3-0.6b
+     draft (build_engine(draft_model_name=); both cut to
+     FAMILY_SPEC_LAYERS = 12 layers at full width; random weights:
+     acceptance at chance), the n-gram engine and the
      self-draft on the same model (drafts accepted per step and ms per
      token of each), then the self-draft on a peaked copy of the weights
      (embeddings x 4096, an output head of permuted embedding rows: no
@@ -203,7 +209,29 @@ Phases (any failure exits non-zero and prints no result line):
      0 paged launches, and the engine's decode logits within
      LOGIT_REL_L2 of a no-cache forward of the same tokens; then the
      head-ratio timings (time_families: G = 7, 6, 2 at head_dim 128)
-     and the backward at qwen2-7b's [1, 2048, 28, 128] (time_bwd_at);
+     and the backward at qwen2-7b's [1, 2048, 28, 128] (time_bwd_at).
+     Then Mixture-of-Experts (run_moe), each model freed before the
+     next: qwen3-30b-a3b at full width in bf16 (48 layers, 128 experts
+     top-8, 32 q / 4 kv heads: G = 8; random weights from the seed,
+     every norm leaf randomised) serving llama3-8b's traffic (kernels 1
+     and 2 launch), prefill logits and a decode step vs plain within
+     LOGIT_REL_L2 with the routing pinned to the kernel pass's
+     (RoutingPin: a bf16 near-tie at the k-th choice falls the other way
+     on the plain pass; the tokens whose own top-k differed are counted),
+     a spec_decode=4 n-gram engine on the same model (kernel 3 at 40
+     query rows a kv head) and its verify step vs plain; the MoE layer's
+     eager and device ms at decode (8 tokens) and on the packed 2048-token
+     row against its bound (time_moe_layer); a 2-layer cut at full width
+     written by save_hf_mixtral_checkpoint, loaded by
+     build_engine(checkpoint=) in bf16 (logits bit-equal) and int8
+     (within LOGIT_REL_L2 of the cut quantized in memory); then
+     mixtral-8x7b with quantize='int8' (attention, lm_head and experts;
+     the router float): a burst and the lone prompt (kernels 1-2),
+     prefill logits vs plain, resident GiB, the MoE layer's times, and a
+     bf16 2-layer mixtral-8x7b at full width through the same round
+     trip and examples/mixtral_serve.yaml's command line without --tp
+     (a subprocess: /health, /generate, SIGTERM -> 0); a {"moe": ...}
+     line before the kernels line;
   4. kernel timings (the kernels line's flash_fwd, paged_decode and
      paged_decode_q entries also carry prefix_launches, the prefix
      phase's launches by part): device time per call from CUDA events around a
@@ -252,7 +280,9 @@ Phases (any failure exits non-zero and prints no result line):
      the {"kernels": [...]} line (all nine kernels, the windowed forward
      and backward, the head_dim-256 entries *_gemma7b and *_gemma2b,
      and the qwen2-7b entries *_qwen2_7b with the G = 6 and G = 2 times
-     as g6_* and g2_* fields; flash_fwd and paged_decode carry
+     as g6_* and g2_* fields, and qwen3-30b-a3b's *_qwen3_30b (G = 8;
+     flash on its packed row, paged at T = 1, verify at T = 5) with
+     mixtral_launches; flash_fwd and paged_decode carry
      http_launches, with paged_decode_mq ckpt_launches, and kernels 1-5
      family_launches, each family engine's launches), after a
      {"families": {...}} line;
@@ -585,6 +615,8 @@ FWD_CASES = (
     ('qwen2_1_5b_ragged_g6', 2, 300, 300, 12, 2, 128, True, None, 0),
     ('qwen3_0_6b_packed_g2', 1, 700, 700, 16, 8, 128, True,
      ((300, 250, 129),), 0),
+    # qwen3-30b-a3b's 32 q / 4 kv heads (G = 8) on its packed burst row.
+    ('qwen3_30b_packed_g8', 1, 2048, 2048, 32, 4, 128, True, (BURST,), 0),
 )
 
 
@@ -793,7 +825,8 @@ def check_flash_bwd(gen, cases=BWD_CASES):
 # heads share 1 kv head (the verify step's T = 4 makes 32 query rows).
 PAGED_SHAPES = {'slice': (32, 8, 128), 'gemma7b': (16, 16, 256),
                 'gemma2b': (8, 1, 256), 'qwen2_7b': (28, 4, 128),
-                'qwen2_1_5b': (12, 2, 128), 'qwen3_0_6b': (16, 8, 128)}
+                'qwen2_1_5b': (12, 2, 128), 'qwen3_0_6b': (16, 8, 128),
+                'qwen3_30b': (32, 4, 128)}
 
 
 def paged_inputs(gen, t=1, quant=False, shape='slice'):
@@ -983,6 +1016,9 @@ VERIFY_CASES = (
     ('qwen2_1_5b_t4_g6', 4, 12, 2, 128, 64),
     ('qwen3_8b_t5_g4', 5, 32, 8, 128, 64),
     ('qwen3_0_6b_t4_g2', 4, 16, 8, 128, 64),
+    # qwen3-30b-a3b's verify step at spec_decode=4: T = 5 at G = 8 (40
+    # rows a kv head: three m-tiles).
+    ('qwen3_30b_t5_g8', 5, 32, 4, 128, 64),
 )
 DECODE_CASES = (
     ('t1_p8_g4_d128', 1, 32, 8, 128, 8),
@@ -997,6 +1033,7 @@ DECODE_CASES = (
     ('t1_qwen2_7b_g7', 1, 28, 4, 128, 64),
     ('t1_qwen2_1_5b_g6', 1, 12, 2, 128, 64),
     ('t1_qwen3_0_6b_g2', 1, 16, 8, 128, 64),
+    ('t1_qwen3_30b_g8', 1, 32, 4, 128, 64),
 )
 
 
@@ -1311,7 +1348,7 @@ def plain_block(model, i, x, cos, sin, attend, lora):
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     layer = model.layers[i]
-    a, m = layer.attn, layer.mlp
+    a = layer.attn
     hn = layer.attn_norm(x)
     q = plain_proj(lora, i, 'attn.wq', a.wq, hn).view(b, s, h, hd)
     k = plain_proj(lora, i, 'attn.wk', a.wk, hn).view(b, s, hk, hd)
@@ -1322,10 +1359,14 @@ def plain_block(model, i, x, cos, sin, attend, lora):
     v = plain_proj(lora, i, 'attn.wv', a.wv, hn).view(b, s, hk, hd)
     out = plain_proj(lora, i, 'attn.wo', a.wo, attend(q, k, v).to(
         model.dtype).reshape(b, s, h * hd))
-    if layer.attn_post_norm is not None:     # Gemma-2's sandwich norms
+    if getattr(layer, 'attn_post_norm', None) is not None:  # Gemma-2
         out = layer.attn_post_norm(out)
     x = x + out
     hn = layer.mlp_norm(x)
+    if hasattr(layer, 'moe_mlp'):
+        # A MoE layer's routed MLP: plain torch, no kernel.
+        return x + layer.moe_mlp(hn)
+    m = layer.mlp
     hidden = m.act(plain_proj(lora, i, 'mlp.w_gate', m.w_gate, hn)) * \
         plain_proj(lora, i, 'mlp.w_up', m.w_up, hn)
     out = plain_proj(lora, i, 'mlp.w_down', m.w_down, hidden)
@@ -1409,19 +1450,89 @@ def kernel_last_logits(model, tokens, lora=None):
     return logits[:, 0].float()
 
 
+class RoutingPin:
+    """A MoE model's routing (models/moe.py's route, patched while a
+    block runs): record() keeps each layer's experts and kept
+    assignments of a forward, replay() makes a later forward take them,
+    with gates from its own router probabilities. The kernel path and
+    its plain version then send every token to the same experts, and
+    their logits differ by the attention's rounding and the gates'
+    values alone, as a dense model's do: in bf16 a near-tie at the k-th
+    choice falls the other way on a path that rounds differently, and
+    one such flip moves the logits far more than rounding (the
+    reference's own int8 MoE test says as much, tests/test_quant.py).
+    replay() also counts the tokens whose own top-k would have differed.
+    A no-op on a dense model."""
+
+    def __init__(self, model):
+        self.active = hasattr(model, 'moe')
+        self.calls = []
+        self.tokens = self.flipped = 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        from skypilot_tpu_torch.models import moe
+        if not self.active:
+            yield self
+            return
+        real = moe.route
+        moe.route = functools.partial(fn, real)
+        try:
+            yield self
+        finally:
+            moe.route = real
+
+    def record(self):
+        self.calls = []
+
+        def fn(real, logits, k, cap):
+            out = real(logits, k, cap)
+            self.calls.append(out[1:3])
+            return out
+        return self._patched(fn)
+
+    def replay(self):
+        import torch
+        it = iter(list(self.calls))
+        self.tokens = self.flipped = 0
+
+        def fn(real, logits, k, cap):
+            experts, keep = next(it)
+            own = real(logits, k, cap)[1]
+            self.tokens += own[..., 0].numel()
+            self.flipped += int((own.sort(-1).values !=
+                                 experts.sort(-1).values).any(-1).sum())
+            g = torch.softmax(logits, -1).gather(-1, experts)
+            g = g / g.sum(-1, keepdim=True).clamp_min(1e-9)
+            b, e = logits.shape[0], logits.shape[-1]
+            kept = torch.zeros((b, e), dtype=torch.int32,
+                               device=logits.device).scatter_add_(
+                1, experts.reshape(b, -1), keep.reshape(b, -1).int())
+            return g * keep, experts, keep, kept
+        return self._patched(fn)
+
+
 def check_logits(model, prompt, label='lone'):
     """One prefill's last-token logits through the kernel path against
     the same model with the plain attention. 32 random-weight bf16
     layers amplify rounding, so the check has two parts: kernel vs plain
     within LOGIT_REL_L2 (relative L2), and the kernel no further from
-    f32-attention logits than 1.5x the plain version's distance + 5e-3."""
+    f32-attention logits than 1.5x the plain version's distance + 5e-3.
+    A MoE model's plain and f32 passes take the kernel pass's routing
+    (RoutingPin); the tokens whose own routing would have differed are
+    counted and logged."""
     import torch
+    pin = RoutingPin(model)
     with torch.inference_mode():
         toks = torch.as_tensor([prompt],
                                device=next(model.parameters()).device)
-        got = kernel_last_logits(model, toks)
-        ref = plain_last_logits(model, toks)
-        exact = plain_last_logits(model, toks, exact=True)
+        with pin.record():
+            got = kernel_last_logits(model, toks)
+        with pin.replay():
+            ref = plain_last_logits(model, toks)
+        flips = (pin.flipped, pin.tokens)
+        with pin.replay():
+            exact = plain_last_logits(model, toks, exact=True)
         torch.cuda.synchronize()
 
     def rel(a, b):
@@ -1431,6 +1542,12 @@ def check_logits(model, prompt, label='lone'):
            'rel_plain_exact': rel(ref, exact),
            'max_abs_kernel_plain': max_abs(got, ref),
            'argmax_equal': int(got.argmax()) == int(ref.argmax())}
+    if pin.active:
+        res['routing_flips_plain'] = list(flips)
+        res['routing_flips_exact'] = [pin.flipped, pin.tokens]
+        _log(f'{label}: routing pinned to the kernel pass\'s; the plain '
+             f'pass\'s own top-k differs on {flips[0]} of {flips[1]} '
+             f'token-layers, the f32 pass\'s on {pin.flipped}')
     _log(f'{label} prefill last-token logits (rel L2): kernel vs plain '
          f'{res["rel_kernel_plain"]:.3e} (limit {LOGIT_REL_L2}), kernel '
          f'vs f32-attention {res["rel_kernel_exact"]:.3e}, plain vs '
@@ -1883,7 +2000,6 @@ def run_chunked(model, card):
     receiving tokens. Asserts >= 3 chunks, tokens of the other request
     delivered between chunks, and the final chunk's logits against the
     plain full forward."""
-    import threading
     import numpy as np
     import torch
     from skypilot_tpu_torch.infer import engine as engine_lib
@@ -1896,26 +2012,32 @@ def run_chunked(model, card):
     long = rng.integers(1, vocab, CHUNK_PROMPT).tolist()
     warm_up(eng, np.random.default_rng(SEED + 2))
     rec = record_suffix_logits(eng)
-    marks = []     # prefill_chunks as each of the other's tokens arrives
+    # prefill_chunks as each of the other's decoded tokens is delivered,
+    # read on the engine's thread as it delivers them (a reader thread
+    # would see the count whenever the GIL let it run).
+    marks = []
+    real_put_many = engine_lib._put_many
+    _, q_other = eng.submit(other, engine_lib.SamplingParams(
+        max_new_tokens=CHUNK_OTHER[1]))
+
+    def put_many(q, items):
+        if q is q_other:
+            marks.extend([eng.perf['prefill_chunks']] * len(items))
+        real_put_many(q, items)
+    engine_lib._put_many = put_many
     reset_counters()
     eng.start()
     try:
-        _, q_other = eng.submit(other, engine_lib.SamplingParams(
-            max_new_tokens=CHUNK_OTHER[1]))
         assert q_other.get(timeout=600) is not None
-
-        def watch():
-            while q_other.get(timeout=600) is not None:
-                marks.append(eng.perf['prefill_chunks'])
-        watcher = threading.Thread(target=watch)
-        watcher.start()
         t0 = time.perf_counter()
         out = eng.generate(long, engine_lib.SamplingParams(
             max_new_tokens=MAX_NEW))
         long_s = time.perf_counter() - t0
-        watcher.join(timeout=600)
+        while q_other.get(timeout=600) is not None:
+            pass
     finally:
         eng.stop()
+        engine_lib._put_many = real_put_many
     launches = read_counters()
     chunks = eng.perf['prefill_chunks']
     between = sorted({m for m in marks if 0 < m < chunks})
@@ -2437,6 +2559,10 @@ CKPT_COST_NEW = 64
 CKPT_QUANT = ('int8', 'int4')
 CKPT_CODES_OF = ('layers.0.attn.wq', 'lm_head')
 CKPT_DISK_MARGIN = 1.1         # free disk wanted over the weights' bytes
+# The llama3-8b and qwen2-7b checkpoints hold their first CKPT_LAYERS
+# layers at full width (fewer if the disk cannot hold them): the smoke
+# keeps inside its time limit with the MoE phase.
+CKPT_LAYERS = 8
 
 
 def ckpt_tokenizer(d):
@@ -2458,6 +2584,24 @@ def ckpt_tokenizer(d):
     with open(os.path.join(d, 'tokenizer_config.json'), 'w') as f:
         json.dump({'bos_token': '<s>', 'eos_token': '</s>'}, f)
     return True
+
+
+def ckpt_source(model, d, label):
+    """The model a checkpoint phase writes to the directory d: its first
+    CKPT_LAYERS layers at full width, fewer when the disk under d cannot
+    hold them (CKPT_DISK_MARGIN), sharing the model's tensors; the cut is
+    logged. Returns (the model, GiB free under d)."""
+    import shutil
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in model.state_dict().values())
+    free = shutil.disk_usage(d).free
+    per_layer = weight_bytes / model.cfg.n_layers
+    n = min(CKPT_LAYERS, model.cfg.n_layers,
+            int(free / CKPT_DISK_MARGIN / per_layer) - 2)
+    assert n >= 1, f'{free / 2**30:.1f} GiB free holds no layer'
+    _log(f'{label} checkpoint: {n} of {model.cfg.n_layers} layers at full '
+         f'width ({free / 2**30:.1f} GiB free under {d})')
+    return cut_model(model, n), free / 2**30
 
 
 def cut_model(model, n_layers):
@@ -2585,10 +2729,9 @@ def same_bits(a, b):
 def run_checkpoint(model, card):
     """HF checkpoint I/O and weight-only quantization on llama3-8b's
     weights (the phase's seconds, bytes and memory printed):
-      * write: weights.save_hf_checkpoint of the model to a temporary
-        directory (fewer layers at full width if the disk cannot hold 32;
-        the cut is logged), with a tokenizer.json when `tokenizers` is
-        there;
+      * write: weights.save_hf_checkpoint of the model's first
+        CKPT_LAYERS layers at full width (ckpt_source) to a temporary
+        directory, with a tokenizer.json when `tokenizers` is there;
       * bf16: build_engine(checkpoint=) — last logits of a 512-token
         prompt bit-equal to the in-memory model's, the same greedy
         stream as an engine on the in-memory model;
@@ -2614,19 +2757,8 @@ def run_checkpoint(model, card):
     res = {'card': card}
     d = tempfile.mkdtemp(prefix='skyt_ckpt_')
     try:
-        weight_bytes = sum(t.numel() * t.element_size()
-                           for t in model.state_dict().values())
-        free = shutil.disk_usage(d).free
-        src = model
-        if free < CKPT_DISK_MARGIN * weight_bytes:
-            per_layer = weight_bytes / model.cfg.n_layers
-            n = int(free / CKPT_DISK_MARGIN / per_layer) - 2
-            assert n >= 1, f'{free / 2**30:.1f} GiB free holds no layer'
-            src = cut_model(model, n)
-            _log(f'checkpoint: {free / 2**30:.1f} GiB free under {d} holds '
-                 f'{n} of {model.cfg.n_layers} layers: the checkpoint is '
-                 f'llama3-8b at full width cut to {n} layers')
-        res.update({'disk_free_gib': free / 2**30,
+        src, free_gib = ckpt_source(model, d, 'llama3-8b')
+        res.update({'disk_free_gib': free_gib,
                     'n_layers': src.cfg.n_layers})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2636,7 +2768,7 @@ def run_checkpoint(model, card):
         res['tokenizer'] = ckpt_tokenizer(d)
         _log(f'checkpoint write [{card}]: {n_bytes} bytes '
              f'({n_bytes / 2**30:.2f} GiB, {src.cfg.n_layers} layers) in '
-             f'{res["write_s"]:.2f} s to {d} ({free / 2**30:.1f} GiB '
+             f'{res["write_s"]:.2f} s to {d} ({free_gib:.1f} GiB '
              f'free before); tokenizer.json '
              f'{"written" if res["tokenizer"] else "not written (no tokenizers package)"}')
 
@@ -2910,6 +3042,11 @@ FAMILY_SPEC_K = 4
 # request's end (seconds each chunk with a draft) are thrown away.
 FAMILY_SPEC_CHUNK = 4
 FAMILY_ONE_BURST = ('gemma2-2b', 'phi3-mini')
+# qwen3-8b and its qwen3-0.6b draft serve their first FAMILY_SPEC_LAYERS
+# layers (of 36 and 28) at full width: four spec_decode=4 engines, a
+# verify step with the draft five eager draft forwards, were the family
+# phase's longest part, and the MoE phase needs the time.
+FAMILY_SPEC_LAYERS = 12
 FAMILY_LEAF_STD = 0.1
 # The self-draft's peaked copy of qwen3-8b: embeddings x 2^12 keep the
 # residual stream on the current token's embedding, and the output head
@@ -3047,8 +3184,8 @@ def decode_vs_forward(eng, prompt, card, label):
 
 def family_checkpoint(model, card):
     """qwen2-7b's HF checkpoint (model_type qwen2, biases included):
-    written by save_hf_checkpoint (fewer layers at full width only if the
-    disk cannot hold the file; the cut is logged), loaded by
+    its first CKPT_LAYERS layers at full width (ckpt_source) written by
+    save_hf_checkpoint, loaded by
     build_engine(checkpoint=) in bf16 (last logits bit-equal to the
     in-memory model's) and int8 (seconds, peak and resident GiB), then
     served by examples/qwen_serve.yaml's command line (QWEN_SERVE_ARGV)
@@ -3063,19 +3200,8 @@ def family_checkpoint(model, card):
     res = {'card': card}
     d = tempfile.mkdtemp(prefix='skyt_qwen_')
     try:
-        weight_bytes = sum(t.numel() * t.element_size()
-                           for t in model.state_dict().values())
-        free = shutil.disk_usage(d).free
-        src = model
-        if free < CKPT_DISK_MARGIN * weight_bytes:
-            per_layer = weight_bytes / model.cfg.n_layers
-            n = int(free / CKPT_DISK_MARGIN / per_layer) - 2
-            assert n >= 1, f'{free / 2**30:.1f} GiB free holds no layer'
-            src = cut_model(model, n)
-            _log(f'{QWEN2} checkpoint: {free / 2**30:.1f} GiB free under '
-                 f'{d} holds {n} of {model.cfg.n_layers} layers: the '
-                 f'checkpoint is {QWEN2} at full width cut to {n} layers')
-        res.update({'disk_free_gib': free / 2**30,
+        src, free_gib = ckpt_source(model, d, QWEN2)
+        res.update({'disk_free_gib': free_gib,
                     'n_layers': src.cfg.n_layers})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3165,10 +3291,26 @@ def run_qwen2(card):
     return run
 
 
+@contextlib.contextmanager
+def cut_presets(names, n_layers):
+    """llama.CONFIGS[name] for each of `names` cut to n_layers layers at
+    full width while the block runs (build_engine reads the presets)."""
+    import dataclasses
+    from skypilot_tpu_torch.models import llama
+    keep = {name: llama.CONFIGS[name] for name in names}
+    try:
+        for name, cfg in keep.items():
+            llama.CONFIGS[name] = dataclasses.replace(cfg, n_layers=n_layers)
+        yield
+    finally:
+        llama.CONFIGS.update(keep)
+
+
 def run_qwen3(card):
     """qwen3-8b at spec_decode=4 (FAMILY_SPEC_CHUNK steps a chunk) through
     build_engine with a full-width qwen3-0.6b draft (random weights:
-    acceptance at chance), then on the
+    acceptance at chance), both cut to FAMILY_SPEC_LAYERS layers, then on
+    the
     same model the n-gram engine and the self-draft (draft_model = the
     model), each serving the traffic; the self-draft again on the peaked
     copy (greedy traffic), where it must accept exactly 4 drafts every
@@ -3178,15 +3320,17 @@ def run_qwen3(card):
     from skypilot_tpu_torch.infer import server
     k = FAMILY_SPEC_K
     t0 = time.perf_counter()
-    eng = server.build_engine(QWEN3, seed=SEED, spec_decode=k,
-                              decode_chunk=FAMILY_SPEC_CHUNK,
-                              draft_model_name=QWEN3_DRAFT)
+    with cut_presets((QWEN3, QWEN3_DRAFT), FAMILY_SPEC_LAYERS):
+        eng = server.build_engine(QWEN3, seed=SEED, spec_decode=k,
+                                  decode_chunk=FAMILY_SPEC_CHUNK,
+                                  draft_model_name=QWEN3_DRAFT)
     moved = randomise_family_leaves(eng.model, SEED + 71)
     moved += randomise_family_leaves(eng.draft_model, SEED + 72)
     torch.cuda.synchronize()
     cfg, dcfg = eng.model.cfg, eng.draft_model.cfg
     _log(f'build_engine({QWEN3!r}, spec_decode={k}, draft_model_name='
-         f'{QWEN3_DRAFT!r}): {cfg.num_params() / 1e9:.2f}B + '
+         f'{QWEN3_DRAFT!r}), {cfg.n_layers} + {dcfg.n_layers} layers at '
+         f'full width: {cfg.num_params() / 1e9:.2f}B + '
          f'{dcfg.num_params() / 1e9:.2f}B params (vocab {cfg.vocab_size} '
          f'both), {time.perf_counter() - t0:.1f}s; {moved} bias and norm '
          f'leaves randomised; draft cache '
@@ -3399,6 +3543,427 @@ def family_kernels(card, fam_res, tq, fwd_res, verify_res):
                 f'{tag}_bound_ms': other['bound_ms'],
                 f'{tag}_library_ms': other['library_ms'],
                 f'{tag}_max_abs_err': checks[k][shape]['max_abs_err']})
+        entries.append(entry)
+    return entries
+
+
+# Phase 3's MoE models (run_moe), each freed before the next:
+# qwen3-30b-a3b at full width in bf16 and mixtral-8x7b at full width with
+# int8 experts (its bf16 weights, ~93 GB, do not fit one card), random
+# weights from SEED; their checkpoints on MOE_CUT_LAYERS-layer cuts at
+# full width.
+MOE_QWEN = 'qwen3-30b-a3b'
+MOE_MIXTRAL = 'mixtral-8x7b'
+MOE_SPEC_K = 4
+MOE_CUT_LAYERS = 2
+# examples/mixtral_serve.yaml's command line, without --tp 8 (ROADMAP
+# queue 1 item 13).
+MIXTRAL_SERVE_ARGV = ('--num-slots', '16', '--max-seq-len', '4096',
+                      '--quantize', 'int8')
+# The MoE layer's timed inputs: a decode step of 8 slots and the packed
+# 2048-token burst row.
+MOE_TIMED = (('decode', 8, 1), ('packed', 1, 2048))
+
+
+def weight_gib(model):
+    """The bytes of the model's weights (codes and scales included)."""
+    return sum(t.numel() * t.element_size() for t in
+               model.state_dict().values()) / 2**30
+
+
+def moe_build(name, card, **kw):
+    """build_engine(name, seed=SEED, **kw) with every norm leaf
+    randomised; logs the weights' GiB and the device memory resident."""
+    import torch
+    from skypilot_tpu_torch.infer import server
+    t0 = time.perf_counter()
+    eng = server.build_engine(name, seed=SEED, **kw)
+    moved = randomise_family_leaves(eng.model, SEED + 80)
+    torch.cuda.synchronize()
+    cfg, moe_cfg = eng.model.cfg, eng.model.moe
+    res = {'build_s': time.perf_counter() - t0,
+           'weight_gib': weight_gib(eng.model),
+           'resident_gib': torch.cuda.memory_allocated() / 2**30,
+           'quant': cfg.quant, 'n_layers': cfg.n_layers,
+           'experts': moe_cfg.num_experts,
+           'experts_per_token': moe_cfg.experts_per_token,
+           'capacity_factor': moe_cfg.capacity_factor}
+    quant = f', quantize={cfg.quant!r}' if cfg.quant != 'none' else ''
+    _log(f'build_engine({name!r}{quant}) [{card}]: {cfg.n_layers} layers, '
+         f'dim {cfg.dim}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads '
+         f'(G = {cfg.n_heads // cfg.n_kv_heads}), '
+         f'{moe_cfg.num_experts} experts top-{moe_cfg.experts_per_token} '
+         f'of mlp_dim {cfg.mlp_dim}, capacity factor '
+         f'{moe_cfg.capacity_factor}; weights {res["weight_gib"]:.2f} GiB, '
+         f'{res["resident_gib"]:.2f} GiB resident with the page pool '
+         f'{list(eng.cache["k"].shape)}; {res["build_s"]:.1f} s; {moved} '
+         'norm leaves randomised')
+    return eng, res
+
+
+def time_moe_layer(model, card, label):
+    """Layer 0's MoeMLP (plain torch: the router, the routing, three
+    grouped products) on MOE_TIMED's inputs: eager ms a call (the engine
+    runs it eagerly; CUDA events, launch overhead included) and the
+    device ms of its kernels (torch.profiler). The bound is the larger of
+    the bytes it must move (the weights of the experts that this input's
+    routing reaches, with their scales, the router, x and the output)
+    over HBM and its flops (2 * 3 * kept assignments * dim * mlp_dim,
+    plus the router's) over the bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.models import moe
+    mlp = model.layers[0].moe_mlp
+    cfg, mc = model.cfg, mlp.moe
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED + 81)
+    expert_bytes = sum(
+        getattr(mlp, n)[0].numel() * getattr(mlp, n).element_size() +
+        (getattr(mlp, n + '_scale')[0].numel() * 4 if mlp.quantized else 0)
+        for n in ('w_gate', 'w_up', 'w_down'))
+    res = {}
+    for part, b, s in MOE_TIMED:
+        x = torch.randn((b, s, cfg.dim), generator=gen, device='cuda',
+                        dtype=model.dtype)
+        with torch.inference_mode():
+            ms = eager_ms(lambda: mlp(x), 20)
+            dev = device_ms_by_kernel(lambda: mlp(x), ('',))['']
+            _, _, keep, kept = moe.route(
+                F.linear(x.float(), mlp.router.float()),
+                mc.experts_per_token, moe.capacity(mc, s))
+            hit = int((kept.sum(0) > 0).sum())
+            assigned = int(keep.sum())
+        nbytes = hit * expert_bytes + mlp.router.numel() * \
+            mlp.router.element_size() + 2 * x.numel() * x.element_size()
+        flops = 6.0 * assigned * cfg.dim * cfg.mlp_dim + \
+            2.0 * b * s * cfg.dim * mc.num_experts
+        bb = nbytes / HBM_BYTES_PER_S * 1e3
+        bf = flops / BF16_FLOPS_PER_S * 1e3
+        res[part] = {'shape': [b, s, cfg.dim], 'ms': ms, 'device_ms': dev,
+                     'experts_hit': hit, 'assignments': assigned,
+                     'bytes': nbytes, 'flops': flops,
+                     'bound_ms': max(bb, bf),
+                     'bound_by': 'bytes' if bb >= bf else 'operations'}
+        _log(f'{label} MoE layer {part} {[b, s, cfg.dim]} [{card}]: '
+             f'{ms:.4f} ms a layer eager, device {dev:.4f} ms (profiler), '
+             f'bound {res[part]["bound_ms"]:.4f} ms ({res[part]["bound_by"]}'
+             f': {hit} of {mc.num_experts} experts hit, {assigned} '
+             f'assignments kept), x{cfg.n_layers} layers = '
+             f'{ms * cfg.n_layers:.2f} ms a forward')
+    return res
+
+
+def moe_checkpoint(cut, card, label, entry_argv=None):
+    """A MOE_CUT_LAYERS-layer cut of a MoE model at full width (float
+    weights): written by save_hf_mixtral_checkpoint to a temporary
+    directory, loaded by build_engine(checkpoint=) in bf16 (last logits
+    of a CKPT_PROMPT-token prompt bit-equal to the in-memory cut's) and
+    in int8 (within LOGIT_REL_L2 of the in-memory cut quantized by
+    quantize_params; seconds, peak and resident GiB), each loaded engine
+    serving one greedy request (flash and paged counters risen); with
+    entry_argv, the server's command line on the directory (a
+    subprocess: /health, /generate, SIGTERM -> 0). The directory is
+    removed in a finally."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import moe, quant, weights
+    res = {'card': card, 'n_layers': cut.cfg.n_layers}
+    d = tempfile.mkdtemp(prefix='skyt_moe_')
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res['bytes'] = weights.save_hf_mixtral_checkpoint(
+            cut.cfg, cut.moe, cut.state_dict(), d)
+        res['write_s'] = time.perf_counter() - t0
+        res['tokenizer'] = ckpt_tokenizer(d)
+        res['model_type'] = weights.checkpoint_model_type(d)
+        _log(f'{label} checkpoint write [{card}]: {res["bytes"]} bytes '
+             f'({res["bytes"] / 2**30:.2f} GiB, {cut.cfg.n_layers} of the '
+             f'model\'s layers at full width, model_type '
+             f'{res["model_type"]}) in {res["write_s"]:.2f} s')
+        prompt = np.random.default_rng(SEED + 82).integers(
+            1, cut.cfg.vocab_size, CKPT_PROMPT).tolist()
+        toks = torch.as_tensor([prompt], device='cuda')
+        qcut = moe.MixtralModel(dataclasses.replace(cut.cfg, quant='int8'),
+                                cut.moe, device='meta')
+        qcut.load_state_dict(quant.quantize_params(cut.state_dict(),
+                                                   'int8'), assign=True)
+        with torch.inference_mode():
+            want = {'none': kernel_last_logits(cut, toks),
+                    'int8': kernel_last_logits(qcut, toks)}
+        del qcut
+        loads = []
+        for mode in ('none', 'int8'):
+            tag = 'bf16' if mode == 'none' else mode
+            with timed_loads(loads):
+                eng = server_lib.build_engine(
+                    checkpoint=d, num_slots=8, max_seq_len=2048,
+                    page_size=64, quantize=mode, dtype=cut.cfg.dtype)
+            out = dict(loads[-1])
+            assert isinstance(eng.model, moe.MixtralModel)
+            assert eng.model.moe.capacity_factor == \
+                server_lib.MOE_SERVE_CAPACITY
+            with torch.inference_mode():
+                got = kernel_last_logits(eng.model, toks)
+            if mode == 'none':
+                assert same_bits(got, want['none']), \
+                    f'{label} round trip: logits differ from the cut\'s'
+                out['logits_bit_equal'] = True
+            else:
+                assert eng.model.layers[0].moe_mlp.w_up.dtype == torch.int8
+                out['rel_vs_quantized_cut'] = rel_l2(got, want['int8'])
+                assert out['rel_vs_quantized_cut'] <= LOGIT_REL_L2, out
+            reset_counters()
+            eng.start()
+            try:
+                out['tokens'] = eng.generate(prompt, engine_lib.SamplingParams(
+                    max_new_tokens=8))
+            finally:
+                eng.stop()
+            out['launches'] = read_counters()
+            assert out['launches']['flash_fwd'] > 0 and \
+                out['launches']['paged_decode'] > 0, out['launches']
+            _log(f'{label} checkpoint load {tag} [{card}]: '
+                 f'{out["load_s"]:.2f} s, peak {out["peak_gib"]:.2f} GiB '
+                 f'over the allocation before it, '
+                 f'{out["resident_gib"]:.2f} GiB resident; '
+                 + ('last logits bit-equal to the in-memory cut\'s'
+                    if mode == 'none' else
+                    f'last logits rel L2 vs the quantized cut '
+                    f'{out["rel_vs_quantized_cut"]:.4e} (limit '
+                    f'{LOGIT_REL_L2})') + f'; launches {out["launches"]}')
+            res[tag] = out
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        if entry_argv is not None:
+            res['entry'] = run_server_entry(
+                card, argv=('--checkpoint', d) + (
+                    ('--tokenizer', d) if res['tokenizer'] else ()) +
+                tuple(entry_argv), text=res['tokenizer'])
+            assert res['entry']['model_id'] == os.path.basename(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def moe_cut(name, seed):
+    """A MOE_CUT_LAYERS-layer model of preset `name` at full width in
+    bf16, its weights drawn from `seed` and its norm leaves randomised:
+    the checkpoint round trip's model, built after the full-depth model
+    is freed (a cut sharing the full model's tensors would keep all of
+    them resident through the loads)."""
+    import dataclasses
+    import torch
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import moe
+    cfg, moe_cfg = moe.MIXTRAL_CONFIGS[name]
+    cut = moe.MixtralModel(
+        dataclasses.replace(cfg, n_layers=MOE_CUT_LAYERS, remat=False,
+                            param_dtype='bfloat16', max_seq_len=2048),
+        dataclasses.replace(moe_cfg,
+                            capacity_factor=server_lib.MOE_SERVE_CAPACITY),
+        device='meta').to_empty(device='cuda')
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    cut.init_weights(gen)
+    randomise_family_leaves(cut, seed)
+    return cut
+
+
+def live_cuda_gib():
+    """GiB allocated on the card, and the five largest live CUDA tensors
+    (shape, dtype, GiB): what an earlier phase left resident."""
+    import torch
+    big = []
+    for obj in gc.get_objects():
+        if torch.is_tensor(obj) and obj.is_cuda:
+            big.append((obj.numel() * obj.element_size() / 2**30,
+                        list(obj.shape), str(obj.dtype)))
+    big.sort(key=lambda t: -t[0])
+    return torch.cuda.memory_allocated() / 2**30, big[:5]
+
+
+def run_qwen3_moe(card):
+    """qwen3-30b-a3b in bf16: a burst and the lone prompt (kernels 1-2),
+    prefill logits (check_logits) and a decode step (check_step) vs
+    plain; a spec_decode=4 n-gram engine on the same model (kernel 3) and
+    its verify step vs plain; the MoE layer's time; the checkpoint round
+    trip on a MOE_CUT_LAYERS-layer qwen3-30b-a3b at full width
+    (moe_cut)."""
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    k = MOE_SPEC_K
+    eng, build = moe_build(MOE_QWEN, card)
+    run = family_serve(eng, card, MOE_QWEN)
+    run['build'] = build
+    assert run['launches']['flash_fwd'] > 0, run['launches']
+    assert run['launches']['paged_decode'] > 0, run['launches']
+    model = eng.model
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    run['logits'] = check_logits(model, run['lone_prompt'],
+                                 f'{MOE_QWEN} lone')
+    step = check_step(model, False, 1)
+    run['step_rel_kernel_plain'] = step['rel']
+    run['step_routing_flips'] = step['routing_flips']
+    eng = engine_lib.InferenceEngine(model, num_slots=8, max_seq_len=2048,
+                                     page_size=64, spec_decode=k)
+    run['spec'] = family_serve(eng, card, f'{MOE_QWEN} spec_decode={k}',
+                               repeat=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert run['spec']['launches']['paged_decode_mq'] > 0, \
+        run['spec']['launches']
+    step = check_step(model, False, k + 1)
+    run['verify_rel_kernel_plain'] = step['rel']
+    run['verify_routing_flips'] = step['routing_flips']
+    run['layer'] = time_moe_layer(model, card, MOE_QWEN)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = moe_cut(MOE_QWEN, SEED + 84)
+    run['checkpoint'] = moe_checkpoint(cut, card, MOE_QWEN)
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def run_mixtral(card):
+    """mixtral-8x7b with int8 experts (quantize='int8': attention,
+    lm_head and experts; the router float): a burst and the lone prompt
+    (kernels 1-2), prefill logits vs plain, the weights' and the card's
+    resident GiB, the MoE layer's time; then a bf16 MOE_CUT_LAYERS-layer
+    mixtral-8x7b at full width (moe_cut) through moe_checkpoint and
+    examples/mixtral_serve.yaml's command line."""
+    import torch
+    eng, build = moe_build(MOE_MIXTRAL, card, quantize='int8')
+    run = family_serve(eng, card, f'{MOE_MIXTRAL} int8')
+    run['build'] = build
+    assert run['launches']['flash_fwd'] > 0, run['launches']
+    assert run['launches']['paged_decode'] > 0, run['launches']
+    model = eng.model
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    run['logits'] = check_logits(model, run['lone_prompt'],
+                                 f'{MOE_MIXTRAL} int8 lone')
+    run['layer'] = time_moe_layer(model, card, f'{MOE_MIXTRAL} int8')
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = moe_cut(MOE_MIXTRAL, SEED + 83)
+    run['checkpoint'] = moe_checkpoint(cut, card, MOE_MIXTRAL,
+                                       MIXTRAL_SERVE_ARGV)
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def run_moe(card):
+    """The MoE phase: qwen3-30b-a3b (run_qwen3_moe), then mixtral-8x7b
+    (run_mixtral), each model freed before the next. Logs what the card
+    holds before it starts (live_cuda_gib)."""
+    import torch
+    gib, big = live_cuda_gib()
+    _log(f'MoE phase [{card}]: {gib:.2f} GiB allocated before it; the '
+         f'largest live CUDA tensors (GiB, shape, dtype): {big}')
+    res = {MOE_QWEN: run_qwen3_moe(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res[MOE_MIXTRAL] = run_mixtral(card)
+    return res
+
+
+def time_moe_kernels(gen):
+    """Phase 4 at qwen3-30b-a3b's shapes (G = 8, head_dim 128): the flash
+    forward on its packed burst row, kernel 2 at decode and kernel 3 at
+    its verify step's T = 5 (40 rows a kv head)."""
+    return {'flash_qwen3_30b': time_flash(gen, 2048,
+                                          packed_segments(BURST, 64, 2048),
+                                          32, 4, 128),
+            'paged_decode_qwen3_30b': time_paged(gen, 'paged_decode',
+                                                 'qwen3_30b'),
+            'paged_decode_mq_qwen3_30b': time_paged(
+                gen, 'paged_decode_mq', 'qwen3_30b', MOE_SPEC_K + 1)}
+
+
+def moe_summary(card, moe_res):
+    """The {"moe": ...} line: each model's build, engine runs, logit
+    checks, MoE layer times and checkpoint round trip."""
+    keys = ('burst_ttft_max_s', 'lone_ttft_s', 'lone_ms_per_token',
+            'spec_accept_per_step', 'spec_verify_steps', 'launches')
+    out = {'card': card}
+    for name, r in moe_res.items():
+        ck = r['checkpoint']
+        out[name] = {
+            'build': r['build'], **{k: r[k] for k in keys},
+            'prefill_rel_kernel_plain': r['logits']['rel_kernel_plain'],
+            'prefill_routing_flips': r['logits']['routing_flips_plain'],
+            'layer': r['layer'],
+            'checkpoint': {
+                **{k: ck[k] for k in ('n_layers', 'bytes', 'write_s',
+                                      'model_type')},
+                **{tag: {k: v for k, v in ck[tag].items() if k != 'tokens'}
+                   for tag in ('bf16', 'int8')},
+                **({'entry': {k: ck['entry'][k] for k in (
+                    'healthy_s', 'exit_code', 'model_id')}}
+                   if 'entry' in ck else {})}}
+        if 'spec' in r:
+            out[name].update({
+                'spec': {k: r['spec'][k] for k in keys},
+                'step_rel_kernel_plain': r['step_rel_kernel_plain'],
+                'verify_rel_kernel_plain': r['verify_rel_kernel_plain'],
+                'step_routing_flips': r['step_routing_flips'],
+                'verify_routing_flips': r['verify_routing_flips']})
+    return out
+
+
+def moe_kernels(card, moe_res, tm, fwd_res, verify_res):
+    """Log phase 4's qwen3-30b-a3b timings; return their entries of the
+    kernels line (flash_fwd, paged_decode, paged_decode_mq at G = 8),
+    launches from the qwen3-30b-a3b runs, and mixtral-8x7b's (its int8
+    engine's) beside them."""
+    for label, t in tm.items():
+        lib = f'{t["library_ms"]:.4f}' if t['library_ms'] else 'none'
+        _log(f'{label} {t["shape"]} [{card}]: {t["ms"]:.4f} ms (eager '
+             f'{t["eager_ms"]:.4f}), plain {t["plain_ms"]:.4f} ms, library '
+             f'{lib} ms, bound {t["bound_ms"]:.4f} ms ({t["bound_by"]})'
+             + parts_text(t))
+    q3, mx = moe_res[MOE_QWEN], moe_res[MOE_MIXTRAL]
+    entries = []
+    for k, t, run, check in (
+            ('flash_fwd', tm['flash_qwen3_30b'], q3,
+             fwd_res['qwen3_30b_packed_g8']),
+            ('paged_decode', tm['paged_decode_qwen3_30b'], q3,
+             verify_res['t1_qwen3_30b_g8']),
+            ('paged_decode_mq', tm['paged_decode_mq_qwen3_30b'], q3['spec'],
+             verify_res['qwen3_30b_t5_g8'])):
+        flash = k == 'flash_fwd'
+        entry = {
+            'name': f'{k}_qwen3_30b', 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/' +
+            ('flash_fwd.cu' if flash else 'paged_decode.cu'),
+            'replaces': 'skypilot_tpu/ops/flash_attention.py:108 '
+            '_fwd_kernel' if flash else PAGED_KERNELS[k][3],
+            'launches': run['launches'][k],
+            'max_abs_err': check['max_abs_err'], 'ms': t['ms'],
+            'kernel_ms': t['ms'], 'eager_ms': t['eager_ms'],
+            'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+            'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
+            'shape': t['shape'], 'head_dim': 128,
+            'mixtral_launches': mx['launches'].get(k, 0)}
+        if not flash:
+            entry['profiler_ms'] = t['profiler_ms']
         entries.append(entry)
     return entries
 
@@ -3661,11 +4226,16 @@ def check_step(model, quant, s, lora=None, page=64, exact=False):
             base_cache = {k: v.clone() for k, v in cache.items()}
         exact_cache = {k: v.clone() for k, v in cache.items()} \
             if exact else None
-        got, _ = model(toks, positions=positions, cache=cache, **kw)
-        ref = plain_step_logits(model, toks, positions, copy, plain_lora)
+        pin = RoutingPin(model)
+        with pin.record():
+            got, _ = model(toks, positions=positions, cache=cache, **kw)
+        with pin.replay():
+            ref = plain_step_logits(model, toks, positions, copy,
+                                    plain_lora)
         if exact:
-            f32 = plain_step_logits(model, toks, positions, exact_cache,
-                                    exact=True)
+            with pin.replay():
+                f32 = plain_step_logits(model, toks, positions,
+                                        exact_cache, exact=True)
         if lora is not None:
             base, _ = model(toks, positions=positions, cache=base_cache)
         torch.cuda.synchronize()
@@ -3678,9 +4248,14 @@ def check_step(model, quant, s, lora=None, page=64, exact=False):
         (f', {page}-token pages' if page != 64 else '')
     _log(f'{label} paged step s={s}: logits kernel vs '
          f'plain rel L2 {r:.3e} (limit {LOGIT_REL_L2}), argmax equal '
-         f'{agree:.3f}')
+         f'{agree:.3f}' + (f'; routing pinned (the plain pass\'s own '
+                           f'top-k differs on {pin.flipped} of '
+                           f'{pin.tokens} token-layers)'
+                           if pin.active else ''))
     assert r <= LOGIT_REL_L2, r
     res = {'rel': r, 'logits': got, 'agree': agree}
+    if pin.active:
+        res['routing_flips'] = [pin.flipped, pin.tokens]
     if exact:
         f32 = f32[:live]
         top = f32.topk(2, dim=-1).values
@@ -3797,13 +4372,15 @@ def time_flash(gen, s, seg_np=None, hq=32, hkv=8, d=128):
             else 'bytes', 'flops': flops, 'bytes': nbytes}
 
 
-def time_paged(gen, kname, shape='slice'):
+def time_paged(gen, kname, shape='slice', t=None):
     """One of PAGED_KERNELS (kernel 2 or 3-5) at the decode
-    shapes of PAGED_SHAPES[shape]. The bound counts each visible K/V row
+    shapes of PAGED_SHAPES[shape] (t: the verify step's T in place of the
+    kernel's default 4). The bound counts each visible K/V row
     (and its scales) once, q and out once, and 4*d flops per query head
     and visible (token, key) pair."""
     from skypilot_tpu_torch.ops import paged_attention as pa
-    fn, t, quant, _ = PAGED_KERNELS[kname]
+    fn, t_default, quant, _ = PAGED_KERNELS[kname]
+    t = t or t_default
     args = paged_inputs(gen, t, quant, shape)
     wrapper = getattr(pa, fn)
     plain = getattr(pa, fn + '_reference')
@@ -4629,17 +5206,30 @@ def main() -> int:
             'count': torch.cuda.device_count()}}))
         return 0
 
+    phase_s = {'build_and_checks': time.perf_counter() - t0}
+    lap = [time.perf_counter()]
+
+    def phase(label):
+        now = time.perf_counter()
+        phase_s[label] = now - lap[0]
+        lap[0] = now
+        _log(f'phase {label}: {phase_s[label]:.1f} s (smoke at '
+             f'{now - t0:.1f} s)')
+
     kernels, details = run_serving(
         args, card, gen, {'flash': flash_res, 'paged': paged_res,
                           'family': family_res, 'lora': lora_res})
-    details.update({'card': card, 'build_s': build_s})
+    details.update({'card': card, 'build_s': build_s, 'phase_s': phase_s})
+    phase('serving')
     gc.collect()
     torch.cuda.empty_cache()
     mistral_res = run_mistral(card)
+    phase('mistral')
     gemma_res = run_gemma(card)
     with torch.inference_mode():
         td = time_d256(gen_d256)
     kernels += gemma_kernels(card, gemma_res, td, d256_res)
+    phase('gemma')
     gc.collect()
     torch.cuda.empty_cache()
     fam_res = run_families(card)
@@ -4657,6 +5247,16 @@ def main() -> int:
     for entry in kernels:
         if entry['name'] in fam_launches:
             entry['family_launches'] = fam_launches[entry['name']]
+    phase('families')
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_res = run_moe(card)
+    gen_moe = torch.Generator(device='cuda')
+    gen_moe.manual_seed(SEED + 47)
+    with torch.inference_mode():
+        tm = time_moe_kernels(gen_moe)
+    kernels += moe_kernels(card, moe_res, tm, fwd_res, verify_res)
+    phase('moe')
     gc.collect()
     torch.cuda.empty_cache()
     train_res = run_train(card)
@@ -4682,6 +5282,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gemma_grads = check_gemma_grads(card)
+    phase('training')
     tw = time_window(gen)
     log_window_timed(card, tw)
     tb = time_flash_bwd(gen)
@@ -4785,7 +5386,9 @@ def main() -> int:
                           'ordered_ms': tw['bwd_ordered_ms'],
                           'eager_ms': tw['bwd_eager_ms']})
         kernels.append(entry)
+    phase('timings')
     details.update({'train': train_res, 'train_grads': grads_res,
+                    'moe': moe_res, 'moe_timed': tm,
                     'checkpoint': ckpt_res,
                     'checkpoint_512': ckpt_long_res, 'flash_bwd_timed': tb,
                     'mistral': mistral_res, 'mistral_grads': mistral_grads,
@@ -4826,6 +5429,7 @@ def main() -> int:
         'entry': {k: hf['entry'][k] for k in ('healthy_s', 'exit_code',
                                               'model_id')}}}))
     print(json.dumps({'families': family_summary(card, fam_res)}))
+    print(json.dumps({'moe': moe_summary(card, moe_res)}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': device_kind,

@@ -414,7 +414,8 @@ class InferenceEngine:
                  lora_stack=None,
                  metrics_registry: Optional[
                      metrics_lib.MetricsRegistry] = None) -> None:
-        """model: a models.llama.LlamaModel holding its weights on
+        """model: a models.llama.LlamaModel, or a models.moe.MixtralModel
+        (the same forward and cache contract), holding its weights on
         `device` (None -> 'cuda'; raises without CUDA unless 'cpu').
         pool_tokens: the page pool's size in tokens (default num_slots *
         max_seq_len). prefix_caching: share published prompt pages (see
@@ -426,11 +427,12 @@ class InferenceEngine:
         to the model dtype; anything else explicit raises ValueError.
         lora_stack: a multi-LoRA stack (infer/lora.py), validated against
         the model and placed on the engine's device in the model dtype
-        once. draft_model (with spec_decode > 0): a LlamaModel on the
-        same device and of the same vocab (else ValueError) whose greedy
-        rollouts replace the n-gram proposer; it may be `model` itself
-        (self-drafting). metrics_registry: where the engine's metric
-        families live (default: metrics.REGISTRY). mesh and lockstep
+        once. draft_model (with spec_decode > 0): a LlamaModel (or
+        MixtralModel) on the same device and of the same vocab (else
+        ValueError) whose greedy rollouts replace the n-gram proposer; it
+        may be `model` itself (self-drafting). metrics_registry: where the
+        engine's metric families live (default: metrics.REGISTRY). mesh
+        and lockstep
         exist in the JAX engine and are not ported yet: anything but
         their defaults raises, as does SKYT_KV_TIER=fleet."""
         unported = {'mesh': mesh is not None,

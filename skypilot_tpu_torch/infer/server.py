@@ -34,11 +34,13 @@ Python ints and floats from the engine's queues.
 
 Weights: an HF checkpoint dir (--checkpoint, or SKYT_WEIGHTS_CHECKPOINT
 over it; the llama, mistral, gemma, qwen2, qwen3, gemma2 and phi3
-families, streamed in by models/weights.py) with its tokenizer.json
-(--tokenizer, default the checkpoint dir; the byte tokenizer with a
-warning when there is none), or a preset's random weights from a seed.
+families and the MoE types mixtral and qwen3_moe, streamed in by
+models/weights.py) with its tokenizer.json (--tokenizer, default the
+checkpoint dir; the byte tokenizer with a warning when there is none),
+or a preset's random weights from a seed (llama.CONFIGS, or
+moe.MIXTRAL_CONFIGS: debug-moe, mixtral-8x7b, qwen3-30b-a3b).
 --quantize int8 | int4 serves weight-only quantized projections,
-quantized as they load.
+quantized as they load (a MoE model: int8 only, its experts too).
 --spec-decode k with --draft-checkpoint (an HF checkpoint of a small
 model of the same vocab) or --draft-model (a preset, random weights; or
 'self', the served model drafting for itself) drafts with a model
@@ -55,6 +57,9 @@ Run:
       --quantize int8 --port 8000
   python -m skypilot_tpu_torch.infer.server --model llama3-8b --port 8000
       (random weights from a seed, the byte tokenizer)
+  python -m skypilot_tpu_torch.infer.server --model qwen3-30b-a3b --port 8000
+  python -m skypilot_tpu_torch.infer.server --checkpoint /ckpt/mixtral-8x7b \
+      --quantize int8 --port 8000
   python -m skypilot_tpu_torch.infer.server --checkpoint /ckpt/qwen3-8b \
       --spec-decode 4 --draft-checkpoint /ckpt/qwen3-0.6b --port 8000
 """
@@ -79,6 +84,7 @@ import torch
 from skypilot_tpu_torch.infer import engine as engine_lib
 from skypilot_tpu_torch.infer import tokenizer as tokenizer_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.models import quant as quant_lib
 from skypilot_tpu_torch.models import weights as weights_lib
 from skypilot_tpu_torch.serve import qos as qos_lib
@@ -93,6 +99,9 @@ logger = log_utils.init_logger(__name__)
 _ENGINE_SILENCE_S = 300.0
 # Between two looks at the client's socket while waiting on the engine.
 _POLL_S = 0.5
+# A MoE model's capacity factor when serving (the reference's): finite
+# capacity drops assignments as a function of the batch's shape.
+MOE_SERVE_CAPACITY = 8.0
 
 
 def build_engine(model_name: str = 'llama3-8b',
@@ -122,7 +131,8 @@ def build_engine(model_name: str = 'llama3-8b',
 
     checkpoint: an HF checkpoint dir (config.json + *.safetensors): its
     config (max_seq_len capped) and its weights, streamed in
-    (model_name is then unused). Otherwise preset `model_name` with
+    (model_name is then unused). Otherwise preset `model_name` (of
+    llama.CONFIGS or moe.MIXTRAL_CONFIGS) with
     params, a state_dict to load (for example
     models.weights.params_from_jax of a JAX tree), or random weights
     drawn from a torch.Generator seeded with `seed` on the device.
@@ -143,25 +153,45 @@ def build_engine(model_name: str = 'llama3-8b',
     speculation), or 'self', the served model itself (every greedy draft
     the target's own argmax: the mechanism's upper bound, no speed-up).
     Not quantized, but for 'self'. The engine refuses a draft whose
-    vocab is not the target's."""
+    vocab is not the target's.
+
+    A MoE model (a MIXTRAL_CONFIGS preset, a mixtral or qwen3_moe
+    checkpoint) routes at capacity factor MOE_SERVE_CAPACITY, as the
+    reference serves it; quantize 'int8' covers its experts, 'int4'
+    raises, and so does lora_stack (the reference model takes no
+    adapters)."""
     if quantize not in ('none',) + quant_lib.MODES:
         raise ValueError(f'unknown quantize mode {quantize!r}')
     if checkpoint and params is not None:
         raise ValueError('pass checkpoint or params, not both')
+    moe_cfg = None
+    if not checkpoint:
+        if model_name in moe_lib.MIXTRAL_CONFIGS:
+            preset, moe_cfg = moe_lib.MIXTRAL_CONFIGS[model_name]
+            moe_cfg = dataclasses.replace(
+                moe_cfg, capacity_factor=MOE_SERVE_CAPACITY)
+        elif model_name in llama.CONFIGS:
+            preset = llama.CONFIGS[model_name]
+        else:
+            raise ValueError(f'unknown model {model_name!r}; presets: '
+                             f'{sorted(llama.CONFIGS)} and '
+                             f'{sorted(moe_lib.MIXTRAL_CONFIGS)}')
+    is_moe = moe_cfg is not None or bool(checkpoint) and (
+        weights_lib.checkpoint_model_type(checkpoint) in
+        weights_lib.MOE_TYPES)
+    if lora_stack is not None and is_moe:
+        raise ValueError('a MoE model takes no LoRA stack')
     dev = device_lib.resolve_device(device)
     if checkpoint:
         # The checkpoint's weights in the compute dtype, each projection
-        # quantized as it leaves the reader when asked.
+        # (and expert) quantized as it leaves the reader when asked.
         ckpt_len = weights_lib.load_config(checkpoint).max_seq_len
         _, _, model = weights_lib.load_checkpoint(
             checkpoint, quantize=quantize, device=dev, remat=False,
             dtype=dtype, param_dtype=dtype,
-            max_seq_len=min(ckpt_len, max_seq_len))
+            max_seq_len=min(ckpt_len, max_seq_len),
+            capacity_factor=MOE_SERVE_CAPACITY)
     else:
-        if model_name not in llama.CONFIGS:
-            raise ValueError(f'unknown model {model_name!r}; presets: '
-                             f'{sorted(llama.CONFIGS)}')
-        preset = llama.CONFIGS[model_name]
         cfg = dataclasses.replace(
             preset, dtype=dtype, remat=False, quant=quantize,
             max_seq_len=min(preset.max_seq_len, max_seq_len))
@@ -172,7 +202,9 @@ def build_engine(model_name: str = 'llama3-8b',
             cfg = dataclasses.replace(cfg, param_dtype='bfloat16')
         # Built on the meta device, then materialized once on the target:
         # no host copy of the weights and no default init to overwrite.
-        model = llama.LlamaModel(cfg, device='meta').to_empty(device=dev)
+        model = (llama.LlamaModel(cfg, device='meta') if moe_cfg is None
+                 else moe_lib.MixtralModel(cfg, moe_cfg, device='meta')
+                 ).to_empty(device=dev)
         if params is not None:
             if quantize != 'none':
                 # Float projections quantized; quantized ones kept.
@@ -205,7 +237,8 @@ def _build_draft(model, name: Optional[str], checkpoint: Optional[str],
         ckpt_len = weights_lib.load_config(checkpoint).max_seq_len
         _, _, draft = weights_lib.load_checkpoint(
             checkpoint, device=dev, remat=False, dtype=dtype,
-            param_dtype=dtype, max_seq_len=min(ckpt_len, max_seq_len))
+            param_dtype=dtype, max_seq_len=min(ckpt_len, max_seq_len),
+            capacity_factor=MOE_SERVE_CAPACITY)
         return draft
     if name not in llama.CONFIGS:
         raise ValueError(f'unknown draft model {name!r}; presets: '
@@ -1207,7 +1240,8 @@ def main(argv=None) -> int:
                     'checkpoint, or a preset with random weights from '
                     'seed 0 and the byte tokenizer.')
     parser.add_argument('--model', default='llama3-8b',
-                        help='config preset (without --checkpoint)')
+                        help='config preset (without --checkpoint): '
+                             'llama.CONFIGS or moe.MIXTRAL_CONFIGS')
     parser.add_argument('--checkpoint', default=None,
                         help='HF checkpoint dir (config.json + '
                              '*.safetensors); SKYT_WEIGHTS_CHECKPOINT '
@@ -1218,7 +1252,8 @@ def main(argv=None) -> int:
     parser.add_argument('--quantize', default='none',
                         choices=('none',) + quant_lib.MODES,
                         help='weight-only quantization of the '
-                             'projections, applied as they load')
+                             'projections (and MoE experts: int8 only), '
+                             'applied as they load')
     parser.add_argument('--port', type=int, default=8000)
     parser.add_argument('--num-slots', type=int, default=8)
     parser.add_argument('--max-seq-len', type=int, default=2048)

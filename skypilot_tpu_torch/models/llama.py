@@ -613,7 +613,10 @@ class LlamaBlock(nn.Module):
 
 class LlamaModel(nn.Module):
 
-    def __init__(self, cfg: LlamaConfig, device=None) -> None:
+    def __init__(self, cfg: LlamaConfig, device=None, block=LlamaBlock
+                 ) -> None:
+        """block(cfg, device, layer_idx): the layer's module (models/moe.py
+        passes its MoeBlock)."""
         super().__init__()
         if cfg.quant not in _QUANT_LINEARS:
             raise ValueError(f'unknown quant mode {cfg.quant!r}; '
@@ -634,7 +637,7 @@ class LlamaModel(nn.Module):
             (cfg.vocab_size, cfg.dim), device=device,
             dtype=self.param_dtype))
         self.layers = nn.ModuleList(
-            [LlamaBlock(cfg, device, i) for i in range(cfg.n_layers)])
+            [block(cfg, device, i) for i in range(cfg.n_layers)])
         self.final_norm = RMSNorm(cfg.dim, cfg, device)
         self.lm_head = None if cfg.tie_embeddings else _linear(
             cfg.dim, cfg.vocab_size, cfg, device)

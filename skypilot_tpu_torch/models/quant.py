@@ -20,6 +20,11 @@ f32 division and round-half-even on the CPU and on the card, so the
 codes and scales are byte-equal to the reference's wherever they are
 made. The embedding and the norm weights stay float; lm_head is
 quantized like any projection.
+
+A MoE model's expert weights (models/moe.py: `<layer>.moe_mlp.w_gate`,
+`w_up`, `w_down`, [E, out, in]) take int8 only, as the reference's
+quantize_params MoE branch: codes [E, out, in] and a scale per (expert,
+out-channel) under `<name>_scale`; the router stays float.
 """
 from typing import Dict, Mapping, Tuple, Union
 
@@ -29,6 +34,10 @@ from torch import nn
 # int4 group size along `in` (GPTQ/AWQ's standard grouping).
 INT4_GROUP = 128
 MODES = ('int8', 'int4')
+# MoE expert weights (models/moe.py MoeMLP); int8 only (the reference's
+# refusal, word for word).
+MOE_EXPERT_KEYS = ('w_gate', 'w_up', 'w_down')
+INT4_MOE = 'int4 is llama-family only; MoE expert weights support int8'
 
 
 def int4_group_size(din: int, group: int = INT4_GROUP) -> int:
@@ -124,21 +133,39 @@ def is_projection(key: str, t: torch.Tensor) -> bool:
         t.is_floating_point()
 
 
+def is_expert_weight(key: str, t: torch.Tensor) -> bool:
+    """A MoE expert weight of the state_dict: a floating [E, out, in]
+    `<layer>.moe_mlp.w_gate` / `w_up` / `w_down`."""
+    return key.rsplit('.', 1)[-1] in MOE_EXPERT_KEYS and t.dim() == 3 and \
+        t.is_floating_point()
+
+
+def scale_key(key: str) -> str:
+    """Where a quantized weight's scale lives: `<p>.weight` ->
+    `<p>.scale`, an expert weight `<p>.w_up` -> `<p>.w_up_scale`."""
+    return key[:-len('weight')] + 'scale' if key.endswith('.weight') \
+        else key + '_scale'
+
+
 def quantize_params(params: Union[Mapping[str, torch.Tensor], nn.Module],
                     mode: str = 'int8') -> Dict[str, torch.Tensor]:
     """A float state_dict (or a module's) -> the state_dict of the same
     model with quant=mode: each projection's `.weight` replaced by its
-    codes and a `.scale` added beside it; every other entry as it was.
-    Each weight is quantized on its own device."""
+    codes and a `.scale` added beside it, each MoE expert weight by its
+    codes and a `<name>_scale` (int8 only: int4 raises the reference's
+    NotImplementedError); every other entry as it was. Each weight is
+    quantized on its own device."""
     if mode not in MODES:
         raise ValueError(f'unknown quantize mode {mode!r}')
     sd = params.state_dict() if isinstance(params, nn.Module) else params
     out: Dict[str, torch.Tensor] = {}
     for key, t in sd.items():
-        if is_projection(key, t):
-            q, scale = quantize_weight(t, mode)
-            out[key] = q
-            out[key[:-len('weight')] + 'scale'] = scale
+        if is_expert_weight(key, t):
+            if mode != 'int8':
+                raise NotImplementedError(INT4_MOE)
+            out[key], out[scale_key(key)] = quantize_kernel(t)
+        elif is_projection(key, t):
+            out[key], out[scale_key(key)] = quantize_weight(t, mode)
         else:
             out[key] = t
     return out

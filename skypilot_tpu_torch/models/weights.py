@@ -17,7 +17,10 @@ or ml_dtypes int4 kernels with group scales) maps to the QuantLinear /
 QuantLinear4 layout, int4 codes read through a numpy int8 cast. The
 family leaves cross too: Qwen2's q/k/v biases (a float `bias` beside a
 kernel, quantized or not), Qwen3's attn q_norm / k_norm and Gemma-2's
-attn_post_norm / mlp_post_norm.
+attn_post_norm / mlp_post_norm. A MixtralModel tree (models/moe.py)
+maps the same way, each block's moe_mlp scope to the router [E, dim]
+and the expert weights [E, out, in] (their int8 codes and
+`<name>_scale` when quantized).
 
 HF checkpoints (the counterparts of skypilot_tpu/models/weights.py's
 functions of the same names, for the llama, mistral, gemma, qwen2, qwen3,
@@ -29,7 +32,12 @@ with quantize, each projection quantized as it leaves the reader, so the
 float model is never whole in memory), load_checkpoint (config + model,
 the family routing) and save_hf_checkpoint (config.json + one
 model.safetensors). The port keeps HF's [out, in] weights: no transpose.
-The safetensors format is read and written by models/safetensors_io.py.
+MoE checkpoints (model_type mixtral and qwen3_moe, the reference's two
+_MOE_SCHEMES): load_mixtral_config (with the reference's refusals),
+load_mixtral_params (each expert weight stacked from its E tensors on the
+device, int8 quantized there as it loads; the router stays float) and
+save_hf_mixtral_checkpoint. The safetensors format is read and written
+by models/safetensors_io.py.
 """
 import dataclasses
 import json
@@ -93,8 +101,12 @@ def params_from_jax(tree: Mapping[str, Any],
         pre = f'layers.{i}.'
         for name in _ATTN:
             sd.update(_projection(f'{pre}attn.{name}.', blk['attn'][name]))
-        for name in _MLP:
-            sd.update(_projection(f'{pre}mlp.{name}.', blk['mlp'][name]))
+        if 'moe_mlp' in blk:
+            sd.update(_moe_mlp(f'{pre}moe_mlp.', blk['moe_mlp']))
+        else:
+            for name in _MLP:
+                sd.update(_projection(f'{pre}mlp.{name}.',
+                                      blk['mlp'][name]))
         for name in ('q_norm', 'k_norm'):
             if cfg.qk_norm:
                 sd[f'{pre}attn.{name}.weight'] = to_tensor(
@@ -131,6 +143,21 @@ def _projection(prefix: str, node: Mapping[str, Any]
         out[prefix + 'weight'] = quant_lib.pack_int4(codes)
     else:
         out[prefix + 'weight'] = to_tensor(kernel.T)
+    return out
+
+
+def _moe_mlp(prefix: str, node: Mapping[str, Any]
+             ) -> Dict[str, torch.Tensor]:
+    """A JAX MoeMLP scope (router [dim, E]; experts [E, in, out], or
+    int8 with '<name>_scale' [E, out]) -> the port's router [E, dim] and
+    experts [E, out, in] (and their scales)."""
+    out = {prefix + 'router': to_tensor(np.asarray(node['router']).T)}
+    for name in quant_lib.MOE_EXPERT_KEYS:
+        out[prefix + name] = to_tensor(np.swapaxes(np.asarray(node[name]),
+                                                   -1, -2))
+        if name + '_scale' in node:
+            out[prefix + name + '_scale'] = to_tensor(
+                np.asarray(node[name + '_scale'], np.float32))
     return out
 
 
@@ -203,11 +230,16 @@ _SANDWICH_MAP = {
     'mlp_norm.weight': 'pre_feedforward_layernorm.weight',
     'mlp_post_norm.weight': 'post_feedforward_layernorm.weight',
 }
-# MoE checkpoints: the ROADMAP queue 1 item they wait for.
-_UNPORTED_FAMILIES = {
-    'mixtral': 'item 11 (MoE)',
-    'qwen3_moe': 'item 11 (MoE)'}
-MOE_TYPES = ('mixtral', 'qwen3_moe')
+# MoE tensor naming by model_type (the reference's _MOE_SCHEMES):
+# mixtral nests its experts under block_sparse_moe as w1/w3/w2, qwen3_moe
+# under mlp with llama's names; `<prefix>.gate.weight` is the router.
+_MOE_SCHEMES = {
+    'mixtral': ('block_sparse_moe', {'w_gate': 'w1', 'w_up': 'w3',
+                                     'w_down': 'w2'}),
+    'qwen3_moe': ('mlp', {'w_gate': 'gate_proj', 'w_up': 'up_proj',
+                          'w_down': 'down_proj'}),
+}
+MOE_TYPES = tuple(_MOE_SCHEMES)
 # ops/rope.py's Llama-3.1 constants.
 _LLAMA31_ROPE = {'factor': 8.0, 'low_freq_factor': 1.0,
                  'high_freq_factor': 4.0,
@@ -307,13 +339,9 @@ def config_from_hf(hf_config: Mapping[str, Any], **overrides) -> LlamaConfig:
     embeddings, 'gemma2' those plus the sandwich norms, the soft-caps,
     the 1/sqrt(query_pre_attn_scalar) scale and windows on every other
     layer; a head_dim that is not dim / heads becomes head_dim_override.
-    MoE checkpoints raise NotImplementedError naming their ROADMAP queue
-    1 item."""
+    The MoE types map their attention: 'mixtral' as llama, 'qwen3_moe' as
+    qwen3 (load_mixtral_config adds the expert sizes)."""
     model_type = hf_config.get('model_type', 'llama')
-    if model_type in _UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f'model_type {model_type!r} is not ported yet: ROADMAP queue 1 '
-            f'{_UNPORTED_FAMILIES[model_type]}')
     rope_scaling = hf_config.get('rope_scaling') or {}
     rs_type = rope_scaling.get('rope_type', rope_scaling.get('type'))
     if rs_type not in (None, 'default', 'llama3'):
@@ -349,7 +377,7 @@ def config_from_hf(hf_config: Mapping[str, Any], **overrides) -> LlamaConfig:
     if model_type == 'qwen2':
         # HF Qwen2Attention always has q/k/v biases (no config field).
         kw['attn_bias'] = True
-    elif model_type == 'qwen3':
+    elif model_type in ('qwen3', 'qwen3_moe'):
         kw['qk_norm'] = True
         kw['attn_bias'] = hf_config.get('attention_bias', False)
     elif model_type == 'mistral':
@@ -460,18 +488,41 @@ def load_config(ckpt_dir: str, **overrides) -> LlamaConfig:
     return config_from_hf(_read_config(ckpt_dir), **overrides)
 
 
-def iter_llama_params(cfg: LlamaConfig, ckpt_dir: str, *,
-                      param_dtype: Optional[str] = None,
-                      quantize: str = 'none',
-                      device: Union[str, torch.device] = 'cpu'
-                      ) -> Iterator[Tuple[str, torch.Tensor]]:
-    """(state_dict key, tensor on `device`) one tensor at a time, in file
-    order: floats cast to param_dtype (default cfg.param_dtype); with
-    quantize, each projection and lm_head quantized on `device` from the
-    checkpoint's own values (the reference's host-side stream quantizer
-    quantizes the stored array), yielding its codes and then its
-    '.scale'; biases and norms stay float. The reader's maps are closed
-    when the iteration ends."""
+def moe_hf_names(cfg: LlamaConfig, num_experts: int, model_type: str
+                 ) -> Iterator[Tuple[str, Union[str, Tuple[str, ...]]]]:
+    """hf_names for a MixtralModel of model_type 'mixtral' or
+    'qwen3_moe': the attention and norms as the dense families', then
+    each layer's router ('<prefix>.gate.weight') and its three expert
+    weights, each the tuple of its E per-expert HF names (stacked along
+    a leading E axis, HF's [out, in] kept)."""
+    prefix, experts = _MOE_SCHEMES[model_type]
+    dense = {k: v for k, v in _layer_map(cfg).items()
+             if not k.startswith('mlp.')}
+    yield 'tok_embed', _TOP_MAP['tok_embed']
+    for i in range(cfg.n_layers):
+        pre, hf = f'layers.{i}.', f'model.layers.{i}.{prefix}'
+        for ours, suffix in dense.items():
+            yield pre + ours, f'model.layers.{i}.{suffix}'
+        yield pre + 'moe_mlp.router', f'{hf}.gate.weight'
+        for ours, theirs in experts.items():
+            yield pre + 'moe_mlp.' + ours, tuple(
+                f'{hf}.experts.{e}.{theirs}.weight'
+                for e in range(num_experts))
+    yield 'final_norm.weight', _TOP_MAP['final_norm.weight']
+    yield 'lm_head.weight', _TOP_MAP['lm_head.weight']
+
+
+def _iter_params(cfg: LlamaConfig, ckpt_dir: str, names, param_dtype,
+                 quantize: str, device
+                 ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(state_dict key, tensor on `device`) one tensor at a time, in the
+    order of `names` ((key, HF name or a tuple of HF names to stack)):
+    floats cast to param_dtype (default cfg.param_dtype); with quantize,
+    each projection, lm_head and expert weight quantized on `device` from
+    the checkpoint's own values (the reference's host-side stream
+    quantizer quantizes the stored array), yielding its codes and then
+    its scale; the embedding, biases, norms and routers stay float. The
+    reader's maps are closed when the iteration ends."""
     from skypilot_tpu_torch.models import llama
     if quantize not in ('none',) + quant_lib.MODES:
         raise ValueError(f'unknown quantize mode {quantize!r}')
@@ -480,26 +531,54 @@ def iter_llama_params(cfg: LlamaConfig, ckpt_dir: str, *,
     with safetensors_io.ShardReader(ckpt_dir) as shards:
         reader = _FusedSplitView(shards, cfg) if cfg.hf_layout == 'phi3' \
             else shards
-        for key, hf_name in hf_names(cfg):
+        for key, hf_name in names:
             if hf_name not in reader and key == 'lm_head.weight':
                 # A tied checkpoint loaded into an untied config: the
                 # embedding is the head ([vocab, dim] on both sides).
                 hf_name = _TOP_MAP['tok_embed']
                 logger.info('lm_head tied to embeddings in checkpoint')
-            if hf_name not in reader:
-                raise KeyError(f'{ckpt_dir}: no tensor {hf_name} '
-                               f'(for {key})')
-            raw = reader.get(hf_name)
-            if quantize != 'none' and key != 'tok_embed' and raw.dim() == 2:
+            stack = isinstance(hf_name, tuple)
+            for name in (hf_name if stack else (hf_name,)):
+                if name not in reader:
+                    raise KeyError(f'{ckpt_dir}: no tensor {name} '
+                                   f'(for {key})')
+            raw = _stacked(reader, hf_name, device) if stack \
+                else reader.get(hf_name)
+            if quantize != 'none' and raw.dim() >= 2 and \
+                    key != 'tok_embed' and not key.endswith('.router'):
                 codes, scale = quant_lib.quantize_weight(
-                    raw.to(device), quantize)
+                    raw.to(device), quantize) if raw.dim() == 2 else \
+                    quant_lib.quantize_kernel(raw)
                 del raw
                 yield key, codes
-                yield key[:-len('weight')] + 'scale', scale
+                yield quant_lib.scale_key(key), scale
             else:
-                t = raw.to(device=device, dtype=dtype, copy=True)
+                t = raw.to(device=device, dtype=dtype, copy=not stack)
                 del raw
                 yield key, t
+
+
+def _stacked(reader, names: Tuple[str, ...], device) -> torch.Tensor:
+    """The tensors `names` (one shape) stacked along a new leading axis,
+    straight onto `device` one tensor at a time, in the file's dtype."""
+    first = reader.get(names[0])
+    out = torch.empty((len(names),) + tuple(first.shape), dtype=first.dtype,
+                      device=device)
+    for e, name in enumerate(names):
+        out[e].copy_(reader.get(name))
+    return out
+
+
+def iter_llama_params(cfg: LlamaConfig, ckpt_dir: str, *,
+                      param_dtype: Optional[str] = None,
+                      quantize: str = 'none',
+                      device: Union[str, torch.device] = 'cpu'
+                      ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """A dense checkpoint's state_dict, one tensor at a time in file
+    order (_iter_params): each projection and lm_head quantized as it
+    leaves the reader when asked."""
+    return _iter_params(cfg, ckpt_dir, hf_names(cfg), param_dtype,
+                        quantize, device)
 
 
 def load_llama_params(cfg: LlamaConfig, ckpt_dir: str, *,
@@ -527,32 +606,92 @@ def load_llama_params(cfg: LlamaConfig, ckpt_dir: str, *,
     return sd
 
 
+def load_mixtral_config(ckpt_dir: str, **overrides):
+    """config.json of a mixtral or qwen3_moe checkpoint -> (LlamaConfig,
+    MoeConfig), with the reference's refusals: a qwen3_moe checkpoint
+    must renormalise its top-k gates (norm_topk_prob) and route in every
+    layer (no decoder_sparse_step / mlp_only_layers); its experts are
+    sized by moe_intermediate_size."""
+    from skypilot_tpu_torch.models import moe as moe_lib
+    hf = _read_config(ckpt_dir)
+    if hf.get('model_type') == 'qwen3_moe':
+        if not hf.get('norm_topk_prob', False):
+            raise NotImplementedError(
+                'qwen3_moe with norm_topk_prob=false is not supported')
+        if hf.get('decoder_sparse_step', 1) != 1 or \
+                hf.get('mlp_only_layers'):
+            raise NotImplementedError(
+                'qwen3_moe with dense layers interleaved '
+                '(decoder_sparse_step/mlp_only_layers) is not '
+                'supported — every layer must be MoE')
+        overrides.setdefault('mlp_dim', hf['moe_intermediate_size'])
+    cfg = config_from_hf(hf, **overrides)
+    moe_cfg = moe_lib.MoeConfig(
+        num_experts=hf.get('num_experts', hf.get('num_local_experts', 8)),
+        experts_per_token=hf.get('num_experts_per_tok', 2))
+    return cfg, moe_cfg
+
+
+def load_mixtral_params(cfg: LlamaConfig, moe_cfg, ckpt_dir: str, *,
+                        param_dtype: Optional[str] = None,
+                        quantize: str = 'none',
+                        device: Union[str, torch.device, None] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """A mixtral or qwen3_moe checkpoint dir -> the port's MixtralModel
+    state_dict on `device` (None -> 'cuda'), floats in param_dtype.
+    quantize 'int8': the attention projections, lm_head and each expert
+    weight quantized on the device as it loads (a layer's expert weight
+    is the only float one resident), the router float; 'int4' raises, as
+    the reference's loader does."""
+    from skypilot_tpu_torch.utils import device as device_lib
+    if quantize == 'int4':
+        raise NotImplementedError(quant_lib.INT4_MOE)
+    dev = device_lib.resolve_device(device)
+    names = moe_hf_names(cfg, moe_cfg.num_experts,
+                         checkpoint_model_type(ckpt_dir))
+    sd = dict(_iter_params(cfg, ckpt_dir, names, param_dtype, quantize,
+                           dev))
+    logger.info('loaded %d-layer %d-expert mixtral params from %s '
+                '(quantize=%s, %s)', cfg.n_layers, moe_cfg.num_experts,
+                ckpt_dir, quantize, dev)
+    return sd
+
+
 def load_checkpoint(ckpt_dir: str, *, quantize: str = 'none',
                     param_dtype: Optional[str] = None,
                     device: Union[str, torch.device, None] = None,
+                    capacity_factor: Optional[float] = None,
                     **config_overrides):
-    """Family-dispatching loader -> (cfg, None, model): the config from
-    config.json (with quant=quantize), and a LlamaModel on `device`
+    """Family-dispatching loader -> (cfg, moe_cfg, model): the config
+    from config.json (with quant=quantize), and a model on `device`
     holding the checkpoint's weights (built on the meta device, the
-    loaded tensors assigned: one copy of the weights). The None is the
-    reference's MoE config slot: MoE checkpoints raise until ROADMAP
-    queue 1 item 11."""
+    loaded tensors assigned: one copy of the weights): a LlamaModel
+    (moe_cfg None), or a MixtralModel for mixtral / qwen3_moe, whose
+    MoeConfig takes capacity_factor when given (serving's 8.0)."""
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import moe as moe_lib
     from skypilot_tpu_torch.utils import device as device_lib
-    model_type = checkpoint_model_type(ckpt_dir)
-    if model_type in MOE_TYPES:
-        raise NotImplementedError(
-            f'{ckpt_dir} is a {model_type!r} (MoE) checkpoint: MoE is not '
-            f'ported yet: ROADMAP queue 1 {_UNPORTED_FAMILIES[model_type]}')
-    cfg = load_config(ckpt_dir, **config_overrides)
+    moe_cfg = None
+    if checkpoint_model_type(ckpt_dir) in MOE_TYPES:
+        cfg, moe_cfg = load_mixtral_config(ckpt_dir, **config_overrides)
+        if capacity_factor is not None:
+            moe_cfg = dataclasses.replace(moe_cfg,
+                                          capacity_factor=capacity_factor)
+    else:
+        cfg = load_config(ckpt_dir, **config_overrides)
     if param_dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
     cfg = dataclasses.replace(cfg, quant=quantize)
     dev = device_lib.resolve_device(device)
-    model = llama.LlamaModel(cfg, device='meta')
-    model.load_state_dict(load_llama_params(
-        cfg, ckpt_dir, quantize=quantize, device=dev), assign=True)
-    return cfg, None, model
+    if moe_cfg is None:
+        model = llama.LlamaModel(cfg, device='meta')
+        sd = load_llama_params(cfg, ckpt_dir, quantize=quantize, device=dev)
+    else:
+        model = moe_lib.MixtralModel(cfg, moe_cfg, device='meta')
+        sd = load_mixtral_params(cfg, moe_cfg, ckpt_dir, quantize=quantize,
+                                 device=dev)
+    model.load_state_dict(sd, assign=True)
+    return cfg, moe_cfg, model
 
 
 def save_hf_checkpoint(cfg: LlamaConfig,
@@ -572,17 +711,8 @@ def save_hf_checkpoint(cfg: LlamaConfig,
     sd = state_dict.state_dict() if isinstance(state_dict,
                                                torch.nn.Module) \
         else state_dict
-    scales = [k for k in sd if k.endswith('.scale')]
-    if scales:
-        raise ValueError(f'save_hf_checkpoint writes float weights; the '
-                         f'state_dict is quantized ({scales[0]}, ...)')
     os.makedirs(out_dir, exist_ok=True)
-    tensors, missing = [], []
-    for key, hf_name in hf_names(cfg):
-        if key in sd:
-            tensors.append((hf_name, sd[key]))
-        else:
-            missing.append(hf_name)
+    tensors, missing = _named_tensors(sd, hf_names(cfg))
     if missing:
         logger.warning(
             'save_hf_checkpoint: %d mapped tensor(s) missing from the '
@@ -592,10 +722,76 @@ def save_hf_checkpoint(cfg: LlamaConfig,
             ' ...' if len(missing) > 8 else '')
     if cfg.hf_layout == 'phi3':
         tensors = _fuse_phi3(tensors, cfg)
+    return _write(out_dir, tensors, config_to_hf(cfg))
+
+
+def _named_tensors(sd: Mapping[str, torch.Tensor], names
+                   ) -> Tuple[List[Tuple[str, torch.Tensor]], List[str]]:
+    """(HF name, tensor) for each (key, HF name or names) of `names` the
+    float state_dict holds (a tuple of names: the key's tensor split
+    along its leading axis), and the HF names it lacks. A quantized
+    state_dict raises: its codes under HF's float names would be a
+    broken checkpoint."""
+    scales = [k for k in sd if k.endswith('scale')]
+    if scales:
+        raise ValueError(f'the HF writers write float weights; the '
+                         f'state_dict is quantized ({scales[0]}, ...)')
+    tensors, missing = [], []
+    for key, hf_name in names:
+        if key not in sd:
+            missing.append(hf_name)
+        elif isinstance(hf_name, tuple):
+            tensors.extend(zip(hf_name, sd[key].unbind(0)))
+        else:
+            tensors.append((hf_name, sd[key]))
+    return tensors, missing
+
+
+def _write(out_dir: str, tensors: List[Tuple[str, torch.Tensor]],
+           hf_config: Dict[str, Any]) -> int:
+    """model.safetensors (each tensor copied to the host on its own) and
+    config.json; returns the bytes of model.safetensors."""
     n = safetensors_io.save_file(
         tensors, os.path.join(out_dir, 'model.safetensors'),
         metadata={'format': 'pt'})
     with open(os.path.join(out_dir, 'config.json'), 'w',
               encoding='utf-8') as f:
-        json.dump(config_to_hf(cfg), f, indent=2)
+        json.dump(hf_config, f, indent=2)
     return n
+
+
+def save_hf_mixtral_checkpoint(cfg: LlamaConfig, moe_cfg,
+                               state_dict: Union[Mapping[str, torch.Tensor],
+                                                 torch.nn.Module],
+                               out_dir: str) -> int:
+    """Inverse of load_mixtral_params: a MixtralModel's float state_dict
+    (or the module) as an HF checkpoint, model_type 'qwen3_moe' when the
+    config has q/k norms, else 'mixtral' (the reference's rule), with the
+    reference's config.json keys. Returns the bytes of
+    model.safetensors."""
+    sd = state_dict.state_dict() if isinstance(state_dict,
+                                               torch.nn.Module) \
+        else state_dict
+    moe_type = 'qwen3_moe' if cfg.qk_norm else 'mixtral'
+    tensors, missing = _named_tensors(
+        sd, moe_hf_names(cfg, moe_cfg.num_experts, moe_type))
+    if missing:
+        raise KeyError(f'state_dict lacks {len(missing)} mapped tensor(s): '
+                       f'{missing[:4]}')
+    hf = config_to_hf(cfg)
+    if moe_type == 'qwen3_moe':
+        hf.update({'architectures': ['Qwen3MoeForCausalLM'],
+                   'model_type': 'qwen3_moe',
+                   'num_experts': moe_cfg.num_experts,
+                   'num_experts_per_tok': moe_cfg.experts_per_token,
+                   'moe_intermediate_size': cfg.mlp_dim,
+                   'norm_topk_prob': True,
+                   'decoder_sparse_step': 1,
+                   'mlp_only_layers': []})
+    else:
+        hf.update({'architectures': ['MixtralForCausalLM'],
+                   'model_type': 'mixtral',
+                   'num_local_experts': moe_cfg.num_experts,
+                   'num_experts_per_tok': moe_cfg.experts_per_token})
+    os.makedirs(out_dir, exist_ok=True)
+    return _write(out_dir, tensors, hf)

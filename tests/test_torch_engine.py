@@ -181,7 +181,8 @@ def test_port_module_list_covers_every_slice():
     training: train/ and utils/metrics.py, utils/profiling.py; the host
     KV tier: infer/kv_tier.py; the HTTP front door: infer/server.py,
     infer/tokenizer.py, serve/qos.py; HF checkpoints and weight
-    quantization: models/safetensors_io.py, models/quant.py)."""
+    quantization: models/safetensors_io.py, models/quant.py; MoE:
+    models/moe.py)."""
     mods = _port_modules()
     for mod in ('skypilot_tpu_torch.infer.engine',
                 'skypilot_tpu_torch.infer.kv_tier',
@@ -194,6 +195,7 @@ def test_port_module_list_covers_every_slice():
                 'skypilot_tpu_torch.models.weights',
                 'skypilot_tpu_torch.models.safetensors_io',
                 'skypilot_tpu_torch.models.quant',
+                'skypilot_tpu_torch.models.moe',
                 'skypilot_tpu_torch.train.trainer',
                 'skypilot_tpu_torch.train.sft',
                 'skypilot_tpu_torch.train.prefetch',

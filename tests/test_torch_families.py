@@ -332,7 +332,8 @@ def test_qwen2_quantized_logits_match_the_reference(fams, mode):
     """The reference's quantize_params tree (int8 or int4 kernels, float
     biases) through params_from_jax into the quant-mode model."""
     jm, jp, pcfg = fams['qwen2']
-    qtree = jax_quant.quantize_params(jp, mode=mode)
+    qtree = jax.jit(jax_quant.quantize_params,
+                    static_argnames='mode')(jp, mode=mode)
     jq = jax_llama.LlamaModel(dataclasses.replace(FAMILIES['qwen2'],
                                                   quant=mode))
     qcfg = dataclasses.replace(pcfg, quant=mode)

@@ -183,7 +183,8 @@ def test_geglu_mlp_matches_jax():
             getattr(mlp, name).weight.copy_(
                 _t(np.asarray(jp['params'][name]['kernel']).T))
         got = mlp(_t(x))
-    _close(jm.apply(jp, jnp.asarray(x)), got, dict(atol=1e-5, rtol=1e-5))
+    _close(jax.jit(jm.apply)(jp, jnp.asarray(x)), got,
+           dict(atol=1e-5, rtol=1e-5))
 
 
 def test_embed_scale_rounds_the_normalizer_to_the_compute_dtype():
@@ -254,9 +255,10 @@ def test_params_from_jax_logits_match_jax(hkv):
     with torch.no_grad():
         got = pm(_t(tokens))
         got_seg = pm(_t(tokens), segment_ids=_t(seg))
-    _close(jm.apply(jp, jnp.asarray(tokens, jnp.int32)), got, LOGIT_TOL)
-    _close(jm.apply(jp, jnp.asarray(tokens, jnp.int32),
-                    segment_ids=jnp.asarray(seg)), got_seg, LOGIT_TOL)
+    apply = jax.jit(jm.apply)
+    _close(apply(jp, jnp.asarray(tokens, jnp.int32)), got, LOGIT_TOL)
+    _close(apply(jp, jnp.asarray(tokens, jnp.int32),
+                 segment_ids=jnp.asarray(seg)), got_seg, LOGIT_TOL)
 
 
 def test_presets_match_the_reference():

@@ -79,9 +79,10 @@ def _np_tree(tree):
 
 def _adapter(params, rank, alpha, seed):
     """A trained-looking adapter in the training layout: init_lora_params'
-    tree with A and B redrawn N(0, 0.1) (B = 0 would make it vacuous)."""
-    tree = jax_train_lora.init_lora_params(
-        params, jax_train_lora.LoRAConfig(rank=rank, alpha=alpha),
+    tree with A and B redrawn N(0, 0.1) (B = 0 would make it vacuous).
+    Only the tree's shapes are used: jax.eval_shape computes nothing."""
+    tree = jax.eval_shape(lambda key: jax_train_lora.init_lora_params(
+        params, jax_train_lora.LoRAConfig(rank=rank, alpha=alpha), key),
         jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_map(
@@ -404,7 +405,7 @@ def test_model_logits_match_jax(base, per_token):
     tokens = rng.integers(1, 256, (3, 12)).astype(np.int32)
     ids = (rng.integers(0, 3, (3, 12)) if per_token
            else np.array([1, 2, 0])).astype(np.int32)
-    want = base['jm'].apply(
+    want = jax.jit(base['jm'].apply)(
         {'params': nn.meta.unbox(base['jp'])['params'],
          'lora': base['jstack'],
          'lora_ids': {'ids': jnp.asarray(ids)}}, jnp.asarray(tokens))
@@ -434,7 +435,7 @@ def test_model_logits_match_jax_rank256_stack(base, per_token):
     tokens = rng.integers(1, 256, (3, 12)).astype(np.int32)
     ids = (rng.integers(0, 3, (3, 12)) if per_token
            else np.array([1, 2, 0])).astype(np.int32)
-    want = base['jm'].apply(
+    want = jax.jit(base['jm'].apply)(
         {'params': nn.meta.unbox(base['jp'])['params'], 'lora': jstack,
          'lora_ids': {'ids': jnp.asarray(ids)}}, jnp.asarray(tokens))
     model = base['port_model']()

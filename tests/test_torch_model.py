@@ -80,7 +80,7 @@ def test_params_from_jax_layouts(scan_layers, tie):
         pm.layers[1].attn.wq.weight.detach().numpy(), wq.T)
     assert (pm.lm_head is None) == tie
     tokens = np.random.default_rng(0).integers(0, 256, (2, 12))
-    _close(jm.apply(jp, jnp.asarray(tokens, jnp.int32)),
+    _close(jax.jit(jm.apply)(jp, jnp.asarray(tokens, jnp.int32)),
            pm(torch.from_numpy(tokens)).detach())
 
 
@@ -89,7 +89,7 @@ def test_logits_no_cache(models):
     tokens = np.random.default_rng(1).integers(0, 256, (2, 24))
     with torch.no_grad():
         out = pm(torch.from_numpy(tokens))
-    _close(jm.apply(jp, jnp.asarray(tokens, jnp.int32)), out)
+    _close(jax.jit(jm.apply)(jp, jnp.asarray(tokens, jnp.int32)), out)
 
 
 def test_packed_prefill_with_segments(models):
@@ -113,10 +113,11 @@ def test_packed_prefill_with_segments(models):
         off += span
     cfg = pm.cfg
     shape = (cfg.n_layers, 1, t, cfg.n_kv_heads, cfg.head_dim)
-    jl, jc = jm.apply(jp, jnp.asarray(tokens), positions=jnp.asarray(poss),
-                      segment_ids=jnp.asarray(segs),
-                      cache={'k': jnp.zeros(shape), 'v': jnp.zeros(shape)},
-                      logit_positions=jnp.asarray(logit_pos))
+    jl, jc = jax.jit(jm.apply)(
+        jp, jnp.asarray(tokens), positions=jnp.asarray(poss),
+        segment_ids=jnp.asarray(segs),
+        cache={'k': jnp.zeros(shape), 'v': jnp.zeros(shape)},
+        logit_positions=jnp.asarray(logit_pos))
     cache = {'k': torch.zeros(shape), 'v': torch.zeros(shape)}
     with torch.no_grad():
         tl, tc = pm(torch.from_numpy(tokens).long(),

@@ -155,9 +155,10 @@ def test_quant_linear_matches_quant_dense(mode, dtype):
 
 
 def _jax_quant_logits(params, mode, toks):
-    qp = jax_quant.quantize_params(params, mode=mode)
+    qp = jax.jit(jax_quant.quantize_params,
+                 static_argnames='mode')(params, mode=mode)
     model = jax_llama.LlamaModel(dataclasses.replace(_DEBUG, quant=mode))
-    return qp, np.asarray(model.apply(qp, jnp.asarray(toks)))
+    return qp, np.asarray(jax.jit(model.apply)(qp, jnp.asarray(toks)))
 
 
 @pytest.mark.parametrize('mode', MODES)

@@ -9,9 +9,8 @@ written once per module by the reference's save_hf_checkpoint.
     reference's load_llama_params (logits within 1e-5);
   * config_from_hf / config_to_hf equal to the reference's for llama
     (with and without the Llama-3.1 rope), mistral and gemma; the
-    reference's rope_scaling errors; MoE checkpoints (ROADMAP queue 1
-    item 11) raise naming their item (the other families:
-    tests/test_torch_families.py);
+    reference's rope_scaling errors (the other families:
+    tests/test_torch_families.py; MoE: tests/test_torch_moe_weights.py);
   * load_llama_params against the reference's (logits within 1e-5), a
     tied checkpoint into an untied config, build_engine(checkpoint=)'s
     greedy streams equal to the reference engine's;
@@ -203,8 +202,9 @@ def test_writer_loads_in_the_package_and_the_reference(ckpts, fam,
         assert json.load(f) == jax_weights.config_to_hf(cfg)
     toks = _tokens()
     model = jax_llama.LlamaModel(cfg)
-    ref = np.asarray(model.apply(params, jnp.asarray(toks)))
-    reloaded = np.asarray(model.apply(
+    apply = jax.jit(model.apply)
+    ref = np.asarray(apply(params, jnp.asarray(toks)))
+    reloaded = np.asarray(apply(
         jax_weights.load_llama_params(cfg, str(tmp_path)),
         jnp.asarray(toks)))
     np.testing.assert_allclose(reloaded, ref, atol=ATOL, rtol=0)
@@ -252,25 +252,12 @@ def test_bad_rope_scaling_raises_the_reference_error(rope_scaling):
     assert str(got.value) == str(ref.value)
 
 
-@pytest.mark.parametrize('model_type,item', [
-    ('mixtral', 'item 11'), ('qwen3_moe', 'item 11')])
-def test_unported_families_name_their_roadmap_item(model_type, item,
-                                                   tmp_path):
-    hf = dict(jax_weights.config_to_hf(_DEBUG), model_type=model_type)
-    with pytest.raises(NotImplementedError, match=item):
-        weights.config_from_hf(hf)
-    with open(tmp_path / 'config.json', 'w') as f:
-        json.dump(hf, f)
-    with pytest.raises(NotImplementedError, match=item):
-        weights.load_checkpoint(str(tmp_path), device='cpu')
-
-
 # ------------------------------------------------------------ the loader
 @pytest.mark.parametrize('fam', list(FAMILIES))
 def test_load_llama_params_logits_match_the_reference(ckpts, fam):
     cfg, _, d = ckpts[fam]
     toks = _tokens(1)
-    ref = np.asarray(jax_llama.LlamaModel(cfg).apply(
+    ref = np.asarray(jax.jit(jax_llama.LlamaModel(cfg).apply)(
         jax_weights.load_llama_params(cfg, d), jnp.asarray(toks)))
     got = _port_logits(_port_cfg(d),
                        weights.load_llama_params(_port_cfg(d), d,

@@ -122,7 +122,7 @@ def test_logits_no_cache(models):
     tokens = np.random.default_rng(1).integers(0, 256, (2, 40))
     with torch.no_grad():
         got = pm(torch.from_numpy(tokens))
-    _close(jm.apply(jp, jnp.asarray(tokens, jnp.int32)), got)
+    _close(jax.jit(jm.apply)(jp, jnp.asarray(tokens, jnp.int32)), got)
 
 
 def test_window_changes_the_logits(models):
@@ -160,10 +160,11 @@ def test_packed_prefill_with_segments(models):
         off += span
     cfg = pm.cfg
     shape = (cfg.n_layers, 1, t, cfg.n_kv_heads, cfg.head_dim)
-    jl, _ = jm.apply(jp, jnp.asarray(tokens), positions=jnp.asarray(poss),
-                     segment_ids=jnp.asarray(segs),
-                     cache={'k': jnp.zeros(shape), 'v': jnp.zeros(shape)},
-                     logit_positions=jnp.asarray(logit_pos))
+    jl, _ = jax.jit(jm.apply)(
+        jp, jnp.asarray(tokens), positions=jnp.asarray(poss),
+        segment_ids=jnp.asarray(segs),
+        cache={'k': jnp.zeros(shape), 'v': jnp.zeros(shape)},
+        logit_positions=jnp.asarray(logit_pos))
     with torch.no_grad():
         tl, _ = pm(torch.from_numpy(tokens).long(),
                    positions=torch.from_numpy(poss).long(),
