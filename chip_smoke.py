@@ -617,7 +617,13 @@ FWD_CASES = (
      ((300, 250, 129),), 0),
     # qwen3-30b-a3b's 32 q / 4 kv heads (G = 8) on its packed burst row.
     ('qwen3_30b_packed_g8', 1, 2048, 2048, 32, 4, 128, True, (BURST,), 0),
+    # The LoRA sft step on llama3-8b (batch 4 x 2048, 32 q / 8 kv heads,
+    # head_dim 128): also bit-equal over REPEATS calls (REPEAT_CASES).
+    ('llama3_8b_lora_sft', 4, 2048, 2048, 32, 8, 128, True, None, 0),
 )
+# Flash cases whose outputs (forward: out and lse; backward with ordered
+# adds: dq, dk and dv) must be bit-equal over REPEATS calls.
+REPEAT_CASES = ('llama3_8b_lora_sft',)
 
 
 def check_fwd(gen, cases=FWD_CASES):
@@ -649,6 +655,12 @@ def check_fwd(gen, cases=FWD_CASES):
         torch.testing.assert_close(lse, ref_lse, **TOL)
         same = bool(torch.equal(out, again[0]) and torch.equal(lse, again[1]))
         assert same, f'flash {name}: two calls differ'
+        if name in REPEAT_CASES:
+            same = all(all(torch.equal(a, b2) for a, b2 in zip(
+                fa.flash_attention_fwd_lse(q, k, v, causal=causal,
+                                           segment_ids=seg, window=window),
+                (out, lse))) for _ in range(REPEATS - 2))
+            assert same, f'flash {name}: {REPEATS} calls differ'
         unseen = ~seen_rows(sq, sk, causal, seg, window).expand(b, sq)
         n_unseen = int(unseen.sum())
         if n_unseen:
@@ -699,6 +711,9 @@ BWD_CASES = (
     ('qwen2_7b_packed_g7', 1, 2048, 28, 4, 128, True, BURST, 0),
     ('qwen2_1_5b_ragged_g6', 2, 300, 12, 2, 128, True, (90, 150, 40), 0),
     ('qwen3_0_6b_g2', 1, 1024, 16, 8, 128, True, None, 0),
+    # The LoRA sft step on llama3-8b (run_lora): batch 4 x 2048, 32 q / 8
+    # kv heads, head_dim 128, causal.
+    ('llama3_8b_lora_sft', 4, 2048, 32, 8, 128, True, None, 0),
 )
 # Head_dim 256, Gemma training (checked on a generator of its own, after
 # check_d256, so that every check above keeps its inputs): gemma-2b's sft
@@ -815,6 +830,18 @@ def check_flash_bwd(gen, cases=BWD_CASES):
                  + ', '.join(f'{g} {same[g]}' for g in ('dq', 'dk', 'dv')))
             assert same['dk'] and same['dv'], (key, same)
             assert same['dq'] or not ordered, (key, same)
+            if ordered and name in REPEAT_CASES:
+                with deterministic_algorithms():
+                    rep = all(all(torch.equal(a, b2) for a, b2 in zip(
+                        fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                               causal=causal,
+                                               segment_ids=seg,
+                                               window=window), got))
+                        for _ in range(REPEATS - 2))
+                _log(f'flash bwd {name} ordered adds: dq, dk, dv bit-equal '
+                     f'over {REPEATS} calls: {rep}')
+                assert rep, f'flash bwd {name}: {REPEATS} calls differ'
+                res[key]['bit_equal_repeats'] = REPEATS
         del q, k, v, out, lse, do, seg, ref, got, again
         torch.cuda.empty_cache()
     return res
@@ -2309,12 +2336,14 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_server_entry(card, model=MODEL, extra=(), argv=None, text=False):
+def run_server_entry(card, model=MODEL, extra=(), argv=None, text=False,
+                     probe=None):
     """`python -m skypilot_tpu_torch.infer.server --model llama3-8b
     --num-slots 8 --port <free>` in a subprocess: /health, /v1/models,
     one /generate, then SIGTERM must exit 0. extra: more flags; argv: the
     flags in place of --model/--num-slots; text: also one /generate on
-    text (a checkpoint's tokenizer)."""
+    text (a checkpoint's tokenizer); probe: probe(port) -> dict of more
+    checks while it serves (kept under 'probe')."""
     import signal
     port = free_port()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2354,6 +2383,7 @@ def run_server_entry(card, model=MODEL, extra=(), argv=None, text=False):
             assert status == 200, raw[:500]
             text_toks = json.loads(raw)['tokens']
             assert len(text_toks) == 8, text_toks
+        probed = None if probe is None else probe(port)
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
         out = proc.stdout.read()
@@ -2368,7 +2398,7 @@ def run_server_entry(card, model=MODEL, extra=(), argv=None, text=False):
          + ('' if text_toks is None else
             f' (and {len(text_toks)} on text)') + f', SIGTERM -> exit {rc}')
     return {'healthy_s': healthy, 'exit_code': rc, 'model_id': model_id,
-            'tokens': toks, 'text_tokens': text_toks}
+            'tokens': toks, 'text_tokens': text_toks, 'probe': probed}
 
 
 def run_http(model, card):
@@ -2812,7 +2842,10 @@ def run_checkpoint(model, card):
             else:
                 codes = {}
                 for name in CKPT_CODES_OF:
-                    w = src.get_submodule(name).weight
+                    # detach: quantizing a parameter that requires grad
+                    # records a graph that kept lm_head's f32 temporaries
+                    # (14 GiB) alive on the card into the later phases.
+                    w = src.get_submodule(name).weight.detach()
                     qd, sd = quant.quantize_weight(w, mode)
                     qc, sc = quant.quantize_weight(w.cpu(), mode)
                     loaded = eng.model.get_submodule(name)
@@ -3874,10 +3907,8 @@ def run_moe(card):
     (run_mixtral), each model freed before the next. Logs what the card
     holds before it starts (live_cuda_gib)."""
     import torch
-    gib, big = live_cuda_gib()
-    _log(f'MoE phase [{card}]: {gib:.2f} GiB allocated before it; the '
-         f'largest live CUDA tensors (GiB, shape, dtype): {big}')
-    res = {MOE_QWEN: run_qwen3_moe(card)}
+    res = {'live_gib_before': log_live(card, 'MoE phase'),
+           MOE_QWEN: run_qwen3_moe(card)}
     gc.collect()
     torch.cuda.empty_cache()
     res[MOE_MIXTRAL] = run_mixtral(card)
@@ -3902,8 +3933,10 @@ def moe_summary(card, moe_res):
     checks, MoE layer times and checkpoint round trip."""
     keys = ('burst_ttft_max_s', 'lone_ttft_s', 'lone_ms_per_token',
             'spec_accept_per_step', 'spec_verify_steps', 'launches')
-    out = {'card': card}
+    out = {'card': card, 'live_gib_before': moe_res['live_gib_before']}
     for name, r in moe_res.items():
+        if name == 'live_gib_before':
+            continue
         ck = r['checkpoint']
         out[name] = {
             'build': r['build'], **{k: r[k] for k in keys},
@@ -4030,7 +4063,7 @@ def check_lora_logits(model, stack, prompt):
     return {'rel': r}
 
 
-def run_lora(card, bf16_res, profile=False):
+def run_multilora(card, bf16_res, profile=False):
     """The fifth engine: build_engine(..., lora_stack=) with three random
     adapters (LORA_RANKS, padded to 16) on the same weights (the same
     seed) as the bf16 run. The burst runs on adapters BURST_LORA in one
@@ -4101,6 +4134,629 @@ def run_lora(card, bf16_res, profile=False):
             'prefill_rel_kernel_plain': prefill['rel'], 'profile': prof}
 
 
+# ------------------------------------------------ phase 3: LoRA lifecycle
+# sft --lora-rank on llama3-8b at full width and depth (f32 masters,
+# bf16 compute, remat; random base from SEED) at the largest of these
+# batches x 2048 that fits, LORA_STEPS steps, a checkpoint every
+# LORA_EVERY; the rank of examples/lora_pipeline.yaml.
+LORA_MODEL = 'llama3-8b'
+LORA_RANK = 16
+LORA_SFT_BATCHES = (4, 2, 1)
+LORA_SEQ = 2048
+LORA_STEPS = 6
+LORA_EVERY = 3
+# The round trip's sft on the CKPT_LAYERS-layer cut: a few short steps
+# at an lr high enough (the schedule's 100-step warmup runs them at 0-3%
+# of it) that the adapter moves the logits past LOGIT_REL_L2.
+LORA_RT_ARGV = ('--batch', '2', '--seq', '512', '--steps', '4',
+                '--log-every', '2', '--lr', '0.3')
+LORA_RT_PROMPT = 512
+# examples/multilora_serve.yaml's flags but --tp 8 (item 13).
+MULTILORA_ARGV = ('--num-slots', '16', '--max-seq-len', '4096')
+ADMIN_TOKEN = 'smoke-admin-token'
+
+
+def log_live(card, label):
+    """live_cuda_gib at a phase's start (what earlier phases left on the
+    card), logged with its largest tensors."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib, big = live_cuda_gib()
+    _log(f'{label} [{card}]: live_cuda_gib {gib:.2f} GiB allocated before '
+         f'it; the largest live CUDA tensors (GiB, shape, dtype): {big}')
+    return gib
+
+
+def fingerprint(model):
+    """{name: (the sum of its 32-bit words, as int64)} of each base
+    parameter (a parametrized weight under its own name): any change of
+    a bit changes its sum."""
+    import torch
+    out = {}
+    for name, p in model.named_parameters():
+        if '.parametrizations.weight.0.' in name:
+            continue
+        name = name.replace('.parametrizations.weight.original', '.weight')
+        w = p.detach()
+        words = w.view(torch.int32) if w.element_size() == 4 else \
+            w.view(torch.int16).to(torch.int32)
+        out[name] = int(words.sum(dtype=torch.int64))
+    return out
+
+
+def lora_data(path, batch):
+    """A JSONL of exactly LORA_EVERY batches of [batch, LORA_SEQ] tokens:
+    sft restarts its stream on resume, so a run resumed at step
+    LORA_EVERY reads what the unbroken run reads there."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 13)
+    with open(path, 'w') as f:
+        f.write(json.dumps({'tokens': rng.integers(
+            1, 128256, LORA_EVERY * batch * (LORA_SEQ + 1) - 1).tolist()})
+            + '\n')
+
+
+def lora_host_state(state):
+    """The adapters and AdamW moments of a LoRA train state, on the host."""
+    opt = state.optimizer.state_dict()['state']
+    return ({k: (a.detach().cpu(), b.detach().cpu())
+             for k, (a, b) in state.adapters.items()},
+            {i: {m: opt[i][m].cpu() for m in ('exp_avg', 'exp_avg_sq')}
+             for i in opt})
+
+
+def run_lora_train(card, out_dir):
+    """(a) sft.main --lora-rank LORA_RANK on llama3-8b at full width and
+    depth at the largest of LORA_SFT_BATCHES x LORA_SEQ that fits,
+    LORA_STEPS steps (run_train: 64 flash forward and 32 backward
+    launches a step, finite losses, s/step, tokens/s, MFU, peak memory);
+    the base bit-unchanged (fingerprint at build and after the run); the
+    last checkpoint holds only the adapter state (its bytes); a run
+    preempted after step LORA_EVERY (SIGTERM -> exit 75) and resumed ends
+    in the unbroken run's adapters and moments, bit for bit."""
+    import torch
+    from skypilot_tpu_torch.train import lora as lora_lib
+    from skypilot_tpu_torch.train import sft, trainer
+    res = {'oom': {}}
+    real_build, real_step = sft.build_model, trainer.make_train_step
+    prints = {}
+
+    def build(*args, **kw):
+        model = real_build(*args, **kw)
+        prints['built'] = fingerprint(model)
+        return model
+    try:
+        sft.build_model = build
+        for batch in LORA_SFT_BATCHES:
+            data = os.path.join(out_dir, f'data_b{batch}.jsonl')
+            lora_data(data, batch)
+            argv = ['--model', LORA_MODEL, '--lora-rank', str(LORA_RANK),
+                    '--batch', str(batch), '--seq', str(LORA_SEQ),
+                    '--steps', str(LORA_STEPS), '--log-every',
+                    str(LORA_EVERY), '--data', data, '--checkpoint-every',
+                    str(LORA_EVERY)]
+            box = {}
+            trainer.make_train_step = _capture_steps(real_step, box)
+            try:
+                run = run_train(card, argv + ['--checkpoint-dir', os.path.join(
+                    out_dir, f'unbroken_b{batch}')])
+            except torch.OutOfMemoryError as e:
+                res['oom'][batch] = str(e).split('\n')[0][:300]
+                _log(f'LoRA sft {LORA_MODEL} batch {batch} [{card}]: out of '
+                     f'memory: {res["oom"][batch]}')
+            else:
+                break
+            # Out of the handler, the failed run's frames are freed.
+            box.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            raise RuntimeError(f'LoRA sft fits at none of {LORA_SFT_BATCHES}')
+        state = box.pop('state')
+        after = fingerprint(state.model)
+        frozen = all(not p.requires_grad and p.grad is None
+                     for n, p in state.model.named_parameters()
+                     if '.parametrizations.weight.0.' not in n)
+        unbroken = lora_host_state(state)
+        n_lora = lora_lib.num_lora_params(state.adapters)
+        del state, box
+        gc.collect()
+        torch.cuda.empty_cache()
+        assert after == prints['built'], 'the base changed in training'
+        assert frozen, 'a base parameter is trainable or has a gradient'
+        ckpt_dir = os.path.join(out_dir, f'unbroken_b{batch}')
+        last = os.path.join(ckpt_dir, str(LORA_STEPS), 'state.pt')
+        nbytes = os.path.getsize(last)
+        sd = torch.load(last, map_location='cpu', weights_only=True)
+        assert 'model' not in sd and set(sd['lora']) == {'layers'}, set(sd)
+        stored = sum(t.numel() for scope in sd['lora']['layers'].values()
+                     for proj in scope.values()
+                     for t in proj['kernel'].values())
+        assert stored == n_lora, (stored, n_lora)
+        del sd
+        run.update({'batch': batch, 'trainable_params': n_lora,
+                    'base_bit_unchanged': True, 'checkpoint_bytes': nbytes,
+                    'oom': res['oom']})
+        _log(f'LoRA sft [{card}]: batch {batch} x {LORA_SEQ}, {n_lora} '
+             f'trainable params (rank {LORA_RANK}, 7 projections x 32 '
+             f'layers); base bit-unchanged after {LORA_STEPS} steps; '
+             f'checkpoint {last}: {nbytes} bytes ({nbytes / 2**30:.3f} GiB), '
+             'adapter state only (step, A/B, AdamW moments, schedule)')
+        # The preemption drill: SIGTERM after step LORA_EVERY, resume.
+        ckpt = ['--checkpoint-dir', os.path.join(out_dir, 'drill')]
+        code, resumed = None, None
+        for preempt in (True, False):
+            box = {}
+            trainer.make_train_step = _capture_steps(
+                real_step, box, LORA_EVERY if preempt else None)
+            try:
+                out = sft.main(argv + ckpt)
+            except SystemExit as e:
+                assert preempt, 'the resumed run exited'
+                code = e.code
+            else:
+                assert not preempt, 'the preempted run ran to its end'
+                assert out['start_step'] == LORA_EVERY, out['start_step']
+                resumed = lora_host_state(box['state'])
+                assert fingerprint(box['state'].model) == prints['built']
+            box.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        assert code == 75, code
+        differ = [k for k, (a, b) in unbroken[0].items()
+                  if not (torch.equal(a, resumed[0][k][0]) and
+                          torch.equal(b, resumed[0][k][1]))]
+        differ += [f'moment {i} {m}' for i, ms in unbroken[1].items()
+                   for m, t in ms.items()
+                   if not torch.equal(t, resumed[1][i][m])]
+        _log(f'LoRA sft resume [{card}]: preempted after step {LORA_EVERY} '
+             f'(exit {code}), resumed to step {LORA_STEPS}: '
+             f'{2 * len(unbroken[0])} adapter tensors and '
+             f'{2 * len(unbroken[1])} moments, {len(differ)} differ from the '
+             'unbroken run\'s')
+        assert not differ, differ[:5]
+        run.update({'preempt_exit': code, 'resume_bit_equal': True})
+    finally:
+        sft.build_model, trainer.make_train_step = real_build, real_step
+    return run
+
+
+def check_lora_grads(card, seq=2048):
+    """The LoRA gradients (every A and B; B drawn N(0, 0.02) so that A's
+    are not 0) of two full-width llama3-8b layers at 1 x seq through the
+    kernels against the same weights with attn_impl='xla': rel L2 of the
+    flattened gradient <= GRAD_REL_L2, losses within LOSS_ABS; the
+    backward kernel once per layer."""
+    import dataclasses
+    import torch
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.train import lora as lora_lib
+    from skypilot_tpu_torch.train import sft, trainer
+    dev = torch.device('cuda')
+    cfg = dataclasses.replace(llama.CONFIGS[LORA_MODEL], n_layers=2)
+    batch = next(sft.synthetic_batches(cfg.vocab_size, 1, seq,
+                                       seed=SEED + 14))
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    losses, grads = {}, {}
+    for impl in ('xla', 'auto'):
+        model = llama.LlamaModel(dataclasses.replace(cfg, attn_impl=impl),
+                                 device='meta').to_empty(device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        model.init_weights(gen)
+        adapters = lora_lib.apply_lora(
+            model, lora_lib.LoRAConfig(rank=LORA_RANK), gen)
+        with torch.no_grad():
+            for _, b in adapters.values():
+                b.normal_(0.0, 0.02, generator=gen)
+        fa.reset_launches()
+        loss, _ = trainer.cross_entropy_loss(model(tb['tokens']),
+                                             tb['targets'])
+        loss.backward()
+        losses[impl] = loss.item()
+        grads[impl] = [p.grad.float() for a, b in adapters.values()
+                       for p in (a, b)]
+        del model, adapters, loss
+    launches = {'flash_fwd': fa.launches, 'flash_bwd': fa.launches_bwd}
+    num = den = 0.0
+    for a, b in zip(grads['auto'], grads['xla']):
+        num += float((a - b).square().sum())
+        den += float(b.square().sum())
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {'rel_l2': math.sqrt(num / den), 'loss_flash': losses['auto'],
+           'loss_xla': losses['xla'], 'grad_norm_xla': math.sqrt(den),
+           'launches': launches, 'seq': seq}
+    _log(f'LoRA grad check [{card}] {LORA_MODEL} (2 layers) 1 x {seq}: the '
+         f'adapters\' flattened gradient kernels vs attn_impl=xla rel L2 '
+         f'{res["rel_l2"]:.3e} (limit {GRAD_REL_L2}); loss '
+         f'{res["loss_flash"]:.5f} vs {res["loss_xla"]:.5f} (limit '
+         f'{LOSS_ABS}); |g| {res["grad_norm_xla"]:.4e}; launches {launches}')
+    assert math.isfinite(res['rel_l2']) and res['rel_l2'] <= GRAD_REL_L2, res
+    assert abs(res['loss_flash'] - res['loss_xla']) <= LOSS_ABS, res
+    assert launches['flash_bwd'] == cfg.n_layers, launches
+    return res
+
+
+def merged_vs_adapter(merged, cut, stack, aid, prompt):
+    """Prefill (per-token ids: the grouped kernel) and decode-step
+    (per-sequence ids: the gather kernel) logits of the cut serving
+    adapter `aid` against the merged model's, and the cut's without the
+    adapter: (rel L2 merged vs adapter prefill, decode; adapter vs base
+    prefill, decode; the base and merged prefill logits)."""
+    import torch
+    dev = next(cut.parameters()).device
+    toks = torch.as_tensor([prompt], device=dev)
+    with torch.inference_mode():
+        per_token = torch.full(toks.shape, aid, dtype=torch.int32,
+                               device=dev)
+        pm = kernel_last_logits(merged, toks)
+        pa = kernel_last_logits(cut, toks, (stack, per_token))
+        pb = kernel_last_logits(cut, toks)
+        live = len(STEP_LIVE)
+        ids = torch.full((8,), aid, dtype=torch.int32, device=dev)
+        cache, st, pos = step_cache(merged, False, 1)
+        dm = merged(st, positions=pos, cache=cache)[0][:live].float()
+        cache, st, pos = step_cache(cut, False, 1, lora=stack, lora_id=aid)
+        da = cut(st, positions=pos, cache=cache, lora=stack,
+                 lora_ids=ids)[0][:live].float()
+        cache, st, pos = step_cache(cut, False, 1)
+        db = cut(st, positions=pos, cache=cache)[0][:live].float()
+        del cache
+        torch.cuda.synchronize()
+    for t in (pm, pa, pb, dm, da, db):
+        assert torch.isfinite(t).all(), 'non-finite logits'
+    return {'prefill_merged_vs_adapter': rel_l2(pa, pm),
+            'decode_merged_vs_adapter': rel_l2(da, dm),
+            'prefill_adapter_vs_base': rel_l2(pa, pb),
+            'decode_adapter_vs_base': rel_l2(da, db)}, pb, pm
+
+
+def multilora_probe(port):
+    """examples/multilora_serve.yaml's checks: /v1/models lists both
+    adapters, /v1/completions on each returns 200."""
+    status, _, raw = http_call(port, 'GET', '/v1/models')
+    assert status == 200, raw[:300]
+    ids = sorted(m['id'] for m in json.loads(raw)['data'])
+    assert {'sql-ft', 'chat-ft'} <= set(ids), ids
+    codes = {}
+    for name in ('sql-ft', 'chat-ft'):
+        status, _, raw = http_call(port, 'POST', '/v1/completions', {
+            'model': name, 'prompt': list(range(1, 33)), 'max_tokens': 8})
+        assert status == 200, (name, raw[:300])
+        codes[name] = status
+    return {'models': ids, 'completions': codes}
+
+
+def admin_call(port, path, body, token=ADMIN_TOKEN):
+    """POST to an admin route with (or without: token None) the bearer:
+    (status, parsed body)."""
+    hdr = {} if token is None else {'Authorization': f'Bearer {token}'}
+    status, _, raw = http_call(port, 'POST', path, body, headers=hdr)
+    return status, json.loads(raw or b'null')
+
+
+def run_lora_admin(card, base_dir, run_dir, merged_dir, prompt, logits):
+    """(d) The admin plane in process (SKYT_ADMIN_TOKEN set) on a server
+    over build_engine(checkpoint=<cut>) serving sql-ft and chat-ft:32:
+    /admin/adapters list; a third adapter loaded while a request streams
+    (both 200); an unload of a referenced adapter 409, 200 once its
+    request ends; no token 403; /admin/weights to the merged dir
+    (weight_version + 1, the base id's logits bit-equal to the merged
+    engine's), then swap_back (the cut's logits bit-equal). Each
+    operation's duration_s and apply_s are logged."""
+    import threading
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import lora as lora_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    specs = lora_lib.parse_lora_flag([f'sql-ft={run_dir}',
+                                      f'chat-ft={run_dir}:32'])
+    stack, names = lora_lib.build_stack_from_specs(specs)
+    eng = server_lib.build_engine(checkpoint=base_dir, num_slots=8,
+                                  max_seq_len=2048, lora_stack=stack)
+    eng.start()
+    srv = server_lib.InferenceServer(eng, model_id='base', lora_names=names,
+                                     lora_specs=specs)
+    port = srv.start()
+    was = os.environ.get('SKYT_ADMIN_TOKEN')
+    os.environ['SKYT_ADMIN_TOKEN'] = ADMIN_TOKEN
+    ops = {}
+    toks = torch.as_tensor([prompt], device='cuda')
+    try:
+        st, data = admin_call(port, '/admin/adapters', {'op': 'list'})
+        assert st == 200 and set(data['adapters']) == set(names), data
+        for path in ('/admin/adapters', '/admin/weights'):
+            st, _ = admin_call(port, path, {'op': 'list'}, token=None)
+            assert st == 403, (path, st)
+        # A third adapter while a request streams on sql-ft.
+        streamed = {}
+
+        def stream():
+            streamed['r'] = http_stream(port, '/generate', {
+                'tokens': prompt[:64], 'max_tokens': 256, 'stream': True,
+                'lora': 'sql-ft'})
+        th = threading.Thread(target=stream)
+        th.start()
+        t0 = time.perf_counter()
+        while not eng.stats()['active_slots'] and \
+                time.perf_counter() - t0 < 60:
+            time.sleep(0.01)
+        assert eng.stats()['active_slots'], 'the stream never started'
+        st, ops['load'] = admin_call(port, '/admin/adapters', {
+            'op': 'load', 'name': 'third', 'checkpoint': run_dir,
+            'alpha': 8.0})
+        assert st == 200 and ops['load']['id'] == 3, (st, ops['load'])
+        th.join(timeout=300)
+        status, _, lines, _, _ = streamed['r']
+        assert status == 200 and len(lines) >= 256, (status, len(lines))
+        st, _, raw = http_call(port, 'POST', '/v1/completions', {
+            'model': 'third', 'prompt': prompt[:32], 'max_tokens': 8})
+        assert st == 200, raw[:300]
+        # An unload of a referenced adapter: 409, then 200.
+        _, q = eng.submit(prompt[:64], engine_lib.SamplingParams(
+            max_new_tokens=256, lora_id=names['chat-ft']))
+        q.get(timeout=120)
+        st, refused = admin_call(port, '/admin/adapters', {
+            'op': 'unload', 'name': 'chat-ft'})
+        assert st == 409, (st, refused)
+        drain(q)
+        st, ops['unload'] = admin_call(port, '/admin/adapters', {
+            'op': 'unload', 'name': 'chat-ft'})
+        assert st == 200, (st, ops['unload'])
+        # The weight swap and back.
+        st, ops['swap'] = admin_call(port, '/admin/weights',
+                                     {'checkpoint': merged_dir})
+        assert st == 200 and ops['swap']['weight_version'] == 2, ops['swap']
+        with torch.inference_mode():
+            swapped = kernel_last_logits(eng.model, toks)
+        assert same_bits(swapped, logits['merged']), \
+            'swapped logits differ from the merged engine\'s'
+        st, ops['swap_back'] = admin_call(port, '/admin/weights',
+                                          {'swap_back': True})
+        assert st == 200 and ops['swap_back']['weight_version'] == 1, \
+            ops['swap_back']
+        with torch.inference_mode():
+            back = kernel_last_logits(eng.model, toks)
+        assert same_bits(back, logits['base']), \
+            'swapped-back logits differ from the cut\'s'
+        assert _json_stats(port)['weight_version'] == 1
+    finally:
+        if was is None:
+            os.environ.pop('SKYT_ADMIN_TOKEN', None)
+        else:
+            os.environ['SKYT_ADMIN_TOKEN'] = was
+        srv.stop()
+        eng.stop()
+    res = {op: {k: r[k] for k in ('duration_s', 'apply_s',
+                                  'flushed_prefix_pages')}
+           for op, r in ops.items()}
+    _log(f'LoRA admin [{card}]: list 200, no token 403, load "third" '
+         'while a request streams 200 (both), unload of a referenced '
+         'adapter 409 then 200, weights to the merged dir 200 (v2; logits '
+         'bit-equal to the merged engine\'s), swap_back 200 (v1; the cut\'s '
+         'logits bit-equal); ' + '; '.join(
+             f'{op} {r["duration_s"]:.4f} s (apply {r["apply_s"]:.6f} s)'
+             for op, r in res.items()))
+    del eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _json_stats(port):
+    return json.loads(http_call(port, 'GET', '/stats')[2])
+
+
+def run_lora_roundtrip(card, d):
+    """(b) The round trip on the CKPT_LAYERS-layer cut of llama3-8b at
+    full width (ckpt_source of a bf16 llama3-8b from SEED): the cut
+    written by save_hf_checkpoint; sft --base-checkpoint <cut> --lora-rank
+    LORA_RANK (LORA_RT_ARGV); export_lora to a merged dir;
+    build_engine(checkpoint=<merged>) against build_engine(checkpoint=<cut>,
+    lora_stack= from the run's dir) on the adapter's id: prefill and
+    decode logits within LOGIT_REL_L2, the adapter's own effect (vs the
+    cut's base logits) above it; both engines serve the burst and the
+    lone prompt (kernels 6 and 7 launch on the adapter engine). Then (c)
+    examples/multilora_serve.yaml's command line and (d) the admin
+    plane."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.infer import engine as engine_lib
+    from skypilot_tpu_torch.infer import lora as lora_lib
+    from skypilot_tpu_torch.infer import server as server_lib
+    from skypilot_tpu_torch.models import llama, weights
+    from skypilot_tpu_torch.train import export_lora, sft
+    base_dir, run_dir, merged_dir = (os.path.join(d, n)
+                                     for n in ('base', 'run', 'merged'))
+    os.makedirs(base_dir)
+    cfg = dataclasses.replace(llama.CONFIGS[LORA_MODEL], dtype='bfloat16',
+                              param_dtype='bfloat16', remat=False)
+    full = llama.LlamaModel(cfg, device='meta').to_empty(device='cuda')
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    full.init_weights(gen)
+    src, free_gib = ckpt_source(full, base_dir, 'llama3-8b LoRA base')
+    n_layers = src.cfg.n_layers
+    t0 = time.perf_counter()
+    n_bytes = weights.save_hf_checkpoint(src.cfg, src.state_dict(), base_dir)
+    tok = ckpt_tokenizer(base_dir)
+    res = {'n_layers': n_layers, 'base_bytes': n_bytes,
+           'base_write_s': time.perf_counter() - t0,
+           'disk_free_gib': free_gib, 'tokenizer': tok}
+    del full, src
+    gc.collect()
+    torch.cuda.empty_cache()
+    with cut_presets([LORA_MODEL], n_layers):
+        t0 = time.perf_counter()
+        out = sft.main(['--model', LORA_MODEL, '--base-checkpoint', base_dir,
+                        '--lora-rank', str(LORA_RANK), '--checkpoint-dir',
+                        run_dir, *LORA_RT_ARGV])
+        res['sft_s'] = time.perf_counter() - t0
+    res['sft_losses'] = out['losses']
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    export_lora.main(['--base', base_dir, '--adapter', run_dir, '--out',
+                      merged_dir, '--lora-rank', str(LORA_RANK)])
+    torch.cuda.synchronize()
+    res.update({'export_s': time.perf_counter() - t0,
+                'export_peak_gib': (torch.cuda.max_memory_allocated()
+                                    - before) / 2**30,
+                'merged_bytes': os.path.getsize(
+                    os.path.join(merged_dir, 'model.safetensors'))})
+    _log(f'LoRA round trip [{card}]: the {n_layers}-layer cut '
+         f'({n_bytes} bytes bf16) in {res["base_write_s"]:.2f} s; sft '
+         f'--base-checkpoint --lora-rank {LORA_RANK} '
+         f'{" ".join(LORA_RT_ARGV)} in {res["sft_s"]:.1f} s, losses '
+         f'{[round(x, 4) for x in out["losses"]]}; export_lora in '
+         f'{res["export_s"]:.2f} s (peak {res["export_peak_gib"]:.2f} GiB '
+         f'over the allocation before it: the f32 base plus one delta), '
+         f'merged {res["merged_bytes"]} bytes (f32)')
+    specs = [lora_lib.AdapterSpec('ft', run_dir, 16.0)]
+    stack, names = lora_lib.build_stack_from_specs(specs)
+    merged = server_lib.build_engine(checkpoint=merged_dir, num_slots=8,
+                                     max_seq_len=2048)
+    adapter = server_lib.build_engine(checkpoint=base_dir, num_slots=8,
+                                      max_seq_len=2048, lora_stack=stack)
+    rng = np.random.default_rng(SEED + 15)
+    prompt = rng.integers(1, cfg.vocab_size, LORA_RT_PROMPT).tolist()
+    rel, base_logits, merged_logits = merged_vs_adapter(
+        merged.model, adapter.model,
+        adapter._lora_stack, names['ft'], prompt)  # pylint: disable=protected-access
+    res['logits'] = rel
+    _log(f'LoRA merged vs adapter [{card}]: prefill rel L2 '
+         f'{rel["prefill_merged_vs_adapter"]:.3e}, decode step '
+         f'{rel["decode_merged_vs_adapter"]:.3e} (limit {LOGIT_REL_L2}); '
+         f'the adapter\'s own effect (adapter vs base) prefill '
+         f'{rel["prefill_adapter_vs_base"]:.3e}, decode '
+         f'{rel["decode_adapter_vs_base"]:.3e} (must exceed {LOGIT_REL_L2})')
+    assert rel['prefill_merged_vs_adapter'] <= LOGIT_REL_L2, rel
+    assert rel['decode_merged_vs_adapter'] <= LOGIT_REL_L2, rel
+    assert min(rel['prefill_adapter_vs_base'],
+               rel['decode_adapter_vs_base']) > LOGIT_REL_L2, rel
+    runs = {}
+    for label, eng, lid in (('merged', merged, 0),
+                            ('adapter', adapter, names['ft'])):
+        burst, params, lone = traffic(cfg.vocab_size)
+        for p in params:
+            p.lora_id = lid
+        warm_up(eng, np.random.default_rng(SEED + 2))
+        outs, launches, burst_ttft, lone_s = serve(
+            eng, burst, params, lone, engine_lib.SamplingParams(
+                max_new_tokens=MAX_NEW, lora_id=lid))
+        runs[label] = {'outs': outs, 'launches': launches,
+                       'burst_ttft_max_s': burst_ttft,
+                       'lone_ttft_s': eng.ttfts()[-1]}
+        runs[label]['lone_ms_per_token'] = (
+            lone_s - runs[label]['lone_ttft_s']) / (MAX_NEW - 1) * 1e3
+    del merged, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    la = runs['adapter']['launches']
+    assert la['lora_gather'] > 0 and la['lora_grouped'] > 0, la
+    assert la['flash_fwd'] > 0 and la['paged_decode'] > 0, la
+    agree = float(np.mean([a == b for oa, ob in zip(runs['adapter']['outs'],
+                                                    runs['merged']['outs'])
+                           for a, b in zip(oa, ob)]))
+    _log(f'LoRA engines [{card}]: adapter engine launches {la}; merged '
+         f'engine {runs["merged"]["launches"]}; lone ms per token adapter '
+         f'{runs["adapter"]["lone_ms_per_token"]:.1f}, merged '
+         f'{runs["merged"]["lone_ms_per_token"]:.1f}; greedy tokens equal '
+         f'at {agree:.3f} of positions (bf16: the merged weights round '
+         'once, the adapter path adds its delta after the product)')
+    res['engines'] = {k: {kk: vv for kk, vv in v.items() if kk != 'outs'}
+                      for k, v in runs.items()}
+    res['token_agreement'] = agree
+    res['entry'] = run_server_entry(
+        card, argv=('--checkpoint', base_dir, '--lora', f'sql-ft={run_dir}',
+                    '--lora', f'chat-ft={run_dir}:32') + MULTILORA_ARGV
+        + (('--tokenizer', base_dir) if tok else ()),
+        text=tok, probe=multilora_probe)
+    res['admin'] = run_lora_admin(card, base_dir, run_dir, merged_dir,
+                                  prompt, {'base': base_logits,
+                                           'merged': merged_logits})
+    return res
+
+
+def run_lora(card):
+    """The LoRA lifecycle phase: (a) run_lora_train and check_lora_grads,
+    then (b)-(d) run_lora_roundtrip, in directories removed in a
+    finally."""
+    import shutil
+    import tempfile
+    live = log_live(card, 'LoRA phase')
+    d = tempfile.mkdtemp(prefix='skyt_lora_')
+    try:
+        train = run_lora_train(card, d)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        grads = check_lora_grads(card)
+        rt = run_lora_roundtrip(card, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {'live_gib_before': live, 'train': train, 'grads': grads,
+            'roundtrip': rt}
+
+
+def lora_summary(card, lora_res, tl):
+    """The {"lora": ...} line."""
+    tr, rt = lora_res['train'], lora_res['roundtrip']
+    return {
+        'card': card, 'live_gib_before': lora_res['live_gib_before'],
+        'train': {k: tr[k] for k in (
+            'batch', 'steps', 'launches', 'losses', 'step_time_s',
+            'tokens_per_sec', 'mfu', 'peak_gib', 'trainable_params',
+            'checkpoint_bytes', 'preempt_exit', 'resume_bit_equal', 'oom')},
+        'grads': lora_res['grads'],
+        'roundtrip': {k: rt[k] for k in (
+            'n_layers', 'base_bytes', 'sft_s', 'export_s', 'export_peak_gib',
+            'merged_bytes', 'logits', 'token_agreement', 'engines')},
+        'entry': {k: rt['entry'][k] for k in ('healthy_s', 'exit_code',
+                                              'model_id', 'probe')},
+        'admin': rt['admin'],
+        'flash_timed': {k: tl[k] for k in (
+            'shape', 'kv_heads', 'fwd_ms', 'fwd_plain_ms', 'fwd_bound_ms',
+            'fwd_library_ms', 'bwd_ms', 'bwd_ordered_ms', 'bwd_eager_ms',
+            'plain_ms', 'bwd_bound_ms', 'library_ms')}}
+
+
+def lora_kernels(card, lora_res, tl, fwd_res, bwd_res):
+    """Log the flash kernels' timings at the LoRA sft shape; return the
+    kernels-line entries flash_fwd_lora_sft and flash_bwd_lora_sft (the
+    LoRA sft run's launches)."""
+    log_flash_bwd_timed(card, tl)
+    launches = lora_res['train']['launches']
+    common = {'route': 'cuda', 'shape': tl['shape'],
+              'kv_heads': tl['kv_heads']}
+    return [
+        {'name': 'flash_fwd_lora_sft', **common,
+         'source': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
+         'replaces': 'skypilot_tpu/ops/flash_attention.py:108 _fwd_kernel',
+         'launches': launches['flash_fwd'],
+         'max_abs_err': fwd_res['llama3_8b_lora_sft']['max_abs_err'],
+         'ms': tl['fwd_ms'], 'kernel_ms': tl['fwd_ms'],
+         'plain_ms': tl['fwd_plain_ms'], 'bound_ms': tl['fwd_bound_ms'],
+         'bound_by': tl['fwd_bound_by'], 'library_ms': tl['fwd_library_ms']},
+        {'name': 'flash_bwd_lora_sft', **common, 'fused': True,
+         'source': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
+         'replaces': 'skypilot_tpu/ops/flash_attention.py:168 _dq_kernel, '
+                     ':216 _dkv_kernel',
+         'launches': launches['flash_bwd'],
+         'max_abs_err': bwd_res['llama3_8b_lora_sft_ordered']['max_abs_err'],
+         'ms': tl['bwd_ms'], 'kernel_ms': tl['bwd_ms'],
+         'eager_ms': tl['bwd_eager_ms'], 'ordered_ms': tl['bwd_ordered_ms'],
+         'plain_ms': tl['plain_ms'], 'bound_ms': tl['bwd_bound_ms'],
+         'bound_by': tl['bwd_bound_by'], 'library_ms': tl['library_ms'],
+         'library': f'SDPA backward, k/v expanded ({tl["library_backend"]})'}]
+
+
 def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
@@ -4162,17 +4818,13 @@ STEP_LIVE = (600, 64, 590, 300)
 STEP_FREED = (1000, 5, 2040, 77)
 
 
-def check_step(model, quant, s, lora=None, page=64, exact=False):
-    """One paged step of s tokens per slot (s = 1: decode; s = 4: verify)
-    on a fixed prefilled cache (bf16 or int8 pools of `page`-token
-    pages), through the kernels (the model's forward) and through their
-    plain versions (the same layers by hand): rel L2 of the live slots'
-    logits <= LOGIT_REL_L2. With a LoRA stack the slots take SLOT_LORA's
-    adapters (the gather kernel) and the step also runs without the
-    stack: an adapter slot's logits must move by more than LOGIT_REL_L2,
-    an id-0 slot's not at all (its rows add nothing). exact: the step also
-    runs with the plain attention in f32 (plain_step_logits), and the
-    argmax agreements and top-2 margins of the three are returned."""
+def step_cache(model, quant, s, page=64, lora=None, lora_id=0):
+    """The fixed prefilled cache of a paged step (bf16 or int8 pools of
+    `page`-token pages; STEP_LIVE prompts prefilled, STEP_FREED slots
+    released) and the step's inputs: (cache, tokens [8, s], positions
+    [8, s]). lora: a stack whose adapter lora_id the prompts' prefills
+    take (per-sequence ids; None: the base model). Inference mode is the
+    caller's."""
     import numpy as np
     import torch
     from skypilot_tpu_torch.infer.paged_cache import PagePool
@@ -4190,34 +4842,53 @@ def check_step(model, quant, s, lora=None, page=64, exact=False):
         for name in ('k_scale', 'v_scale'):
             cache[name] = torch.zeros(shape[:-1], device=dev)
     tables = np.zeros((8, mp), np.int32)
+    kw = {} if lora is None else {
+        'lora': lora, 'lora_ids': torch.tensor([lora_id], dtype=torch.int32,
+                                               device=dev)}
     nxt = 1
-    with torch.inference_mode():
-        for slot, (n, span) in enumerate(zip(STEP_LIVE, spans)):
-            tables[slot, :span] = np.arange(nxt, nxt + span)
-            nxt += span
-            n_pad = -(-n // page) * page
-            toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, n_pad)),
-                                   device=dev)
-            pshape = (cfg.n_layers, 1, n_pad, cfg.n_kv_heads, cfg.head_dim)
-            _, pc = model(toks, cache={
-                'k': torch.zeros(pshape, dtype=model.dtype, device=dev),
-                'v': torch.zeros(pshape, dtype=model.dtype, device=dev)},
-                logit_positions=torch.zeros((1, 1), dtype=torch.long,
-                                            device=dev))
-            ids = torch.as_tensor(tables[slot, :n_pad // page], device=dev)
-            for name in ('k', 'v'):
-                if quant:
-                    PagePool.insert_prompt_q(cache[name],
-                                             cache[f'{name}_scale'],
-                                             pc[name], ids)
-                else:
-                    PagePool.insert_prompt(cache[name], pc[name], ids)
-        lens = np.array(STEP_LIVE + STEP_FREED, np.int32)
-        toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (8, s)),
+    for slot, (n, span) in enumerate(zip(STEP_LIVE, spans)):
+        tables[slot, :span] = np.arange(nxt, nxt + span)
+        nxt += span
+        n_pad = -(-n // page) * page
+        toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, n_pad)),
                                device=dev)
-        positions = torch.as_tensor(lens[:, None] + np.arange(s),
-                                    device=dev)
-        cache['tables'] = torch.as_tensor(tables, device=dev)
+        pshape = (cfg.n_layers, 1, n_pad, cfg.n_kv_heads, cfg.head_dim)
+        _, pc = model(toks, cache={
+            'k': torch.zeros(pshape, dtype=model.dtype, device=dev),
+            'v': torch.zeros(pshape, dtype=model.dtype, device=dev)},
+            logit_positions=torch.zeros((1, 1), dtype=torch.long,
+                                        device=dev), **kw)
+        ids = torch.as_tensor(tables[slot, :n_pad // page], device=dev)
+        for name in ('k', 'v'):
+            if quant:
+                PagePool.insert_prompt_q(cache[name],
+                                         cache[f'{name}_scale'],
+                                         pc[name], ids)
+            else:
+                PagePool.insert_prompt(cache[name], pc[name], ids)
+    lens = np.array(STEP_LIVE + STEP_FREED, np.int32)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (8, s)),
+                           device=dev)
+    positions = torch.as_tensor(lens[:, None] + np.arange(s), device=dev)
+    cache['tables'] = torch.as_tensor(tables, device=dev)
+    return cache, toks, positions
+
+
+def check_step(model, quant, s, lora=None, page=64, exact=False):
+    """One paged step of s tokens per slot (s = 1: decode; s = 4: verify)
+    on a fixed prefilled cache (bf16 or int8 pools of `page`-token
+    pages), through the kernels (the model's forward) and through their
+    plain versions (the same layers by hand): rel L2 of the live slots'
+    logits <= LOGIT_REL_L2. With a LoRA stack the slots take SLOT_LORA's
+    adapters (the gather kernel) and the step also runs without the
+    stack: an adapter slot's logits must move by more than LOGIT_REL_L2,
+    an id-0 slot's not at all (its rows add nothing). exact: the step also
+    runs with the plain attention in f32 (plain_step_logits), and the
+    argmax agreements and top-2 margins of the three are returned."""
+    import torch
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        cache, toks, positions = step_cache(model, quant, s, page)
         copy = {k: v.clone() for k, v in cache.items()}
         kw, plain_lora = {}, None
         if lora is not None:
@@ -5259,6 +5930,14 @@ def main() -> int:
     phase('moe')
     gc.collect()
     torch.cuda.empty_cache()
+    lora_res = run_lora(card)
+    gen_lora = torch.Generator(device='cuda')
+    gen_lora.manual_seed(SEED + 48)
+    tlora = time_bwd_at(gen_lora, 4, LORA_SEQ, 32, 8, 128)
+    kernels += lora_kernels(card, lora_res, tlora, fwd_res, bwd_res)
+    phase('lora')
+    gc.collect()
+    torch.cuda.empty_cache()
     train_res = run_train(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5387,6 +6066,17 @@ def main() -> int:
                           'eager_ms': tw['bwd_eager_ms']})
         kernels.append(entry)
     phase('timings')
+    # Kernels 1, 2, 6-9 also carry the LoRA phase's launches: the llama3-8b
+    # LoRA sft run's (flash) and the adapter engine's (serving).
+    served = lora_res['roundtrip']['engines']['adapter']['launches']
+    for entry in kernels:
+        if entry['name'] in ('flash_fwd', 'flash_bwd'):
+            entry['lora_train_launches'] = \
+                lora_res['train']['launches'][entry['name']]
+        if entry['name'] in ('flash_fwd', 'paged_decode', 'lora_gather',
+                             'lora_grouped'):
+            entry['adapter_serving_launches'] = served[entry['name']]
+    details.update({'lora_lifecycle': lora_res, 'lora_sft_timed': tlora})
     details.update({'train': train_res, 'train_grads': grads_res,
                     'moe': moe_res, 'moe_timed': tm,
                     'checkpoint': ckpt_res,
@@ -5430,6 +6120,7 @@ def main() -> int:
                                               'model_id')}}}))
     print(json.dumps({'families': family_summary(card, fam_res)}))
     print(json.dumps({'moe': moe_summary(card, moe_res)}))
+    print(json.dumps({'lora': lora_summary(card, lora_res, tlora)}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': device_kind,
@@ -5519,7 +6210,7 @@ def run_serving(args, card, gen, checks):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    lora_run = run_lora(card, eng_res, args.profile)
+    lora_run = run_multilora(card, eng_res, args.profile)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -71,6 +71,14 @@ skypilot_tpu/infer/engine.py in paged mode).
     requests stay on their adapter) and flushes the prefix cache;
     adapter_in_use backs the unload refusal. int8 KV and spec_decode
     compose with it.
+  * Weight swap (request_weight_swap, infer/weight_swap.py's apply): a
+    new state_dict, already on the device, becomes the model's at a tick
+    boundary (each parameter and buffer re-pointed, nothing copied);
+    drain=True (SKYT_SWAP_DRAIN) first lets in-flight requests finish on
+    the old weights while admissions hold. The prefix cache is flushed
+    and weight_version (skyt_infer_weight_version) moves. A swap and an
+    adapter update share one pending slot. build_engine(checkpoint=)
+    sets checkpoint_path and a param_loader for the swap manager.
   * cancel(req_id): a waiting request ends at admission, a running or
     chunk-prefilling one is released at the next loop boundary.
   * Request options (SamplingParams): presence and frequency penalties
@@ -96,10 +104,9 @@ Not ported (raise): the fleet KV tier (SKYT_KV_TIER=fleet: it needs
 the /kv/prefix and /kv/index routes), meshes and multi-host lockstep.
 Not ported (absent): the dense (non-paged) cache mode (a draft model's
 own dense cache aside), the padded batched admission, the capacity
-ledger and the tick plane (and their metric families, with the weight
-version's, the virtual nodes' and the host-finish counter), tracing
-spans, warmup(), and the weight swap and reshard (only the adapter
-stack hot-loads).
+ledger and the tick plane (and their metric families, with the virtual
+nodes' and the host-finish counter), tracing spans, warmup(), and the
+reshard (ROADMAP queue 1 item 13).
 """
 import collections
 import dataclasses
@@ -400,6 +407,12 @@ def kv_bytes_per_token(cfg, kv_dtype: str = 'auto') -> int:
 class InferenceEngine:
     """Slot-based continuous batching over the paged KV cache."""
 
+    # Set by build_engine(checkpoint=): the dir the weights came from and
+    # path -> state_dict of a checkpoint of the same config in the
+    # engine's weight mode (the weight swap manager's loader).
+    param_loader = None
+    checkpoint_path: Optional[str] = None
+
     def __init__(self, model, *, num_slots: int = 8,
                  max_seq_len: Optional[int] = None,
                  decode_chunk: int = 16,
@@ -602,8 +615,11 @@ class InferenceEngine:
             self.num_adapters = int(lora_stack['scaling'].shape[0])
         self._slot_lora = np.zeros((n,), np.int32)
         self._d_lora = torch.zeros((n,), dtype=torch.int32, device=dev)
-        # The one pending adapter update (applied at a tick boundary).
+        # The one pending weight swap or adapter update (applied at a tick
+        # boundary); weight_version counts applied swaps (1: the launch
+        # weights).
         self._swap_req: Optional[Dict[str, Any]] = None
+        self.weight_version = 1
         self._next_id = 0
         self._lock = threading.Lock()
         self._stop = threading.Event()
@@ -624,6 +640,11 @@ class InferenceEngine:
         self._last_deadline_scan = 0.0
         self.metrics_registry = metrics_registry or metrics_lib.REGISTRY
         self._init_metrics()
+        self._m_weight_version = self.metrics_registry.gauge(
+            'skyt_infer_weight_version',
+            'Weight version the engine is serving (starts at 1; each '
+            'in-place swap moves it)')
+        self._m_weight_version.set(self.weight_version)
         # Version stamped on host-tier pages; every prefix flush bumps it,
         # so pages spilled before the flush are never promoted after it.
         self.kv_version = 1
@@ -1316,6 +1337,43 @@ class InferenceEngine:
         lora_lib.validate_stack(stack, self.model)
         return lora_lib.place_stack(stack, self.dtype, self.device)
 
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The live weights: the model's state_dict (parameters and
+        buffers, sharing their storage)."""
+        return self.model.state_dict()
+
+    def request_weight_swap(self, new_params: Dict[str, torch.Tensor], *,
+                            version: Optional[int] = None,
+                            drain: Optional[bool] = None,
+                            timeout: Optional[float] = None
+                            ) -> Dict[str, Any]:
+        """Install `new_params` (a state_dict of the live model's keys,
+        shapes and dtypes, already on the engine's device: staging is the
+        caller's) as the live weights at a tick boundary: each parameter
+        and buffer is re-pointed at its new tensor, nothing is copied.
+        drain=True (the SKYT_SWAP_DRAIN default) lets in-flight requests
+        finish on the old weights while admissions hold; drain=False
+        applies at the next boundary and running requests continue on the
+        new weights. The prefix cache is flushed (pages computed under
+        the old weights) and weight_version becomes `version` (default
+        +1). Blocks until applied; returns {'weight_version',
+        'flushed_prefix_pages', 'apply_s'}. Raises TimeoutError if no
+        applicable boundary comes within `timeout` (SKYT_SWAP_TIMEOUT_S);
+        the old weights then stay live."""
+        if drain is None:
+            drain = env.get_bool('SKYT_SWAP_DRAIN')
+        if timeout is None:
+            timeout = env.get_float('SKYT_SWAP_TIMEOUT_S')
+        if version is None:
+            version = self.weight_version + 1
+        swap: Dict[str, Any] = {'params': new_params,
+                                'version': int(version),
+                                'drain': bool(drain),
+                                'event': threading.Event(),
+                                'result': None}
+        return self._submit_swap(swap, timeout, 'weight swap')
+
     def request_adapter_update(self, lora_stack, *, num_adapters: int,
                                flush_prefix: bool = True,
                                drain: bool = False,
@@ -1323,19 +1381,21 @@ class InferenceEngine:
                                ) -> Dict[str, Any]:
         """Install a new multi-LoRA stack as the live one at a tick
         boundary (the adapter hot-load apply; counterpart of the JAX
-        engine's, adapter branch). The base weights are untouched: only
-        the stack reference moves. Adapter ids are stable across updates
-        (a registry appends or zero-fills slots, never renumbers), so
-        in-flight requests stay on their adapter; drain=True waits until
-        no slot is occupied (admissions are held meanwhile), for an
-        in-place replacement of a referenced id. flush_prefix (the
-        default) unpublishes the prefix cache and the host tier's pages:
-        pages are salted by adapter id, and a reused id would otherwise
-        hit KV computed under its old values. The stack is validated and
-        placed on the caller's thread. Blocks until applied; returns
-        {'num_adapters', 'flushed_prefix_pages', 'apply_s'}. Raises
-        TimeoutError if no applicable boundary comes within `timeout`
-        (SKYT_ADAPTER_TIMEOUT_S); the old stack then stays live."""
+        engine's, adapter branch). The base weights and weight_version are
+        untouched: only the stack reference moves. Adapter ids are stable
+        across updates (a registry appends or zero-fills slots, never
+        renumbers), so in-flight requests stay on their adapter;
+        drain=True waits until no slot is occupied (admissions are held
+        meanwhile), for an in-place replacement of a referenced id.
+        flush_prefix (the default) unpublishes the prefix cache and the
+        host tier's pages: pages are salted by adapter id, and a reused id
+        would otherwise hit KV computed under its old values. The stack is
+        validated and placed on the caller's thread. Shares the weight
+        swap's pending slot. Blocks until applied; returns
+        {'weight_version', 'num_adapters', 'flushed_prefix_pages',
+        'apply_s'}. Raises TimeoutError if no applicable boundary comes
+        within `timeout` (SKYT_ADAPTER_TIMEOUT_S); the old stack then
+        stays live."""
         if int(num_adapters) != int(lora_stack['scaling'].shape[0]):
             raise ValueError(
                 f'num_adapters={num_adapters} but the stack has '
@@ -1348,10 +1408,15 @@ class InferenceEngine:
                                 'drain': bool(drain),
                                 'event': threading.Event(),
                                 'result': None}
+        return self._submit_swap(swap, timeout, 'adapter update')
+
+    def _submit_swap(self, swap: Dict[str, Any], timeout: float,
+                     what: str) -> Dict[str, Any]:
         running = self._thread is not None and self._thread.is_alive()
         with self._lock:
             if self._swap_req is not None:
-                raise RuntimeError('an adapter update is already pending')
+                raise RuntimeError('a weight swap or adapter update is '
+                                   'already pending')
             self._swap_req = swap
         if not running:
             # No engine loop: every moment is a tick boundary.
@@ -1361,22 +1426,35 @@ class InferenceEngine:
                 if self._swap_req is swap:
                     self._swap_req = None
                     raise TimeoutError(
-                        f'engine did not reach an adapter update boundary '
-                        f'within {timeout}s (drain={drain}); the old '
-                        'stack stays live')
+                        f'engine did not reach a {what} boundary within '
+                        f'{timeout}s (drain={swap["drain"]}); the old '
+                        'state stays live')
             # Lost the race: the loop claimed it while we timed out.
             swap['event'].wait(5)
         if swap['result'] is None:
-            raise RuntimeError('engine loop died before the adapter update '
-                               'applied; the old stack stays live')
+            raise RuntimeError(f'engine loop died before the {what} '
+                               'applied; the old state stays live')
         return swap['result']
 
+    def _install_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Re-point each parameter and buffer of the model at its tensor
+        in `params` (a reference swap; the old tensors live on only where
+        a caller keeps them)."""
+        for name, t in params.items():
+            mod_name, _, leaf = name.rpartition('.')
+            mod = self.model.get_submodule(mod_name)
+            if leaf in mod._parameters:   # pylint: disable=protected-access
+                mod._parameters[leaf].data = t  # pylint: disable=protected-access
+            else:
+                mod._buffers[leaf] = t   # pylint: disable=protected-access
+
     def _maybe_apply_swap(self) -> None:
-        """Apply a pending adapter update if this tick boundary is
-        eligible (a draining update waits for every slot to be free).
-        The eligibility check and the claim are one lock hold: once
-        claimed, the waiter's timeout can no longer abort it, so a
-        replica never serves a stack its caller believes was refused."""
+        """Apply a pending weight swap or adapter update if this tick
+        boundary is eligible (a draining one waits for every slot to be
+        free). The eligibility check and the claim are one lock hold:
+        once claimed, the waiter's timeout can no longer abort it, so a
+        replica never serves weights or a stack its caller believes was
+        refused."""
         with self._lock:
             swap = self._swap_req
             if swap is None:
@@ -1386,17 +1464,30 @@ class InferenceEngine:
                 return
             self._swap_req = None   # claimed: the apply is now inevitable
         t0 = time.perf_counter()
-        self._lora_stack = swap['lora_stack']
-        self.num_adapters = swap['num_adapters']
-        flushed = 0
-        if swap['flush_prefix'] and self.prefix_caching:
-            flushed = self.flush_prefix()
-        swap['result'] = {'num_adapters': self.num_adapters,
-                          'flushed_prefix_pages': flushed,
-                          'apply_s': time.perf_counter() - t0}
-        logger.info('adapter stack applied: %d slot(s) (drain=%s, %d prefix '
-                    'pages flushed)', self.num_adapters, swap['drain'],
-                    flushed)
+        if 'lora_stack' in swap:
+            self._lora_stack = swap['lora_stack']
+            self.num_adapters = swap['num_adapters']
+            flushed = 0
+            if swap['flush_prefix'] and self.prefix_caching:
+                flushed = self.flush_prefix()
+            swap['result'] = {'weight_version': self.weight_version,
+                              'num_adapters': self.num_adapters,
+                              'flushed_prefix_pages': flushed,
+                              'apply_s': time.perf_counter() - t0}
+            logger.info('adapter stack applied: %d slot(s) (drain=%s, %d '
+                        'prefix pages flushed)', self.num_adapters,
+                        swap['drain'], flushed)
+        else:
+            self._install_params(swap['params'])
+            self.weight_version = swap['version']
+            flushed = self.flush_prefix() if self.prefix_caching else 0
+            self._m_weight_version.set(self.weight_version)
+            swap['result'] = {'weight_version': self.weight_version,
+                              'flushed_prefix_pages': flushed,
+                              'apply_s': time.perf_counter() - t0}
+            logger.info('weight swap applied: version %d (drain=%s, %d '
+                        'prefix pages flushed)', self.weight_version,
+                        swap['drain'], flushed)
         swap['event'].set()
 
     def flush_prefix(self) -> int:
@@ -1475,6 +1566,7 @@ class InferenceEngine:
             'waiting': self._waiting.qsize() + (
                 1 if self._deferred is not None else 0),
             'ready': self.ready.is_set(),
+            'weight_version': self.weight_version,
             'kernel_paths': dict.fromkeys(
                 ('flash_attention', 'paged_attention', 'lora'), impl),
             **self.perf_stats()}
@@ -2018,8 +2110,9 @@ class InferenceEngine:
                 self._trace_event(req.req_id, 'done', status='failed')
                 req.out_queue.put(None)
         finally:
-            # A pending adapter update must not wedge its waiter on a
-            # stopped or dead loop: it fails (the old stack stays live).
+            # A pending swap or adapter update must not wedge its waiter
+            # on a stopped or dead loop: it fails (the old state stays
+            # live).
             with self._lock:
                 swap, self._swap_req = self._swap_req, None
             if swap is not None:
@@ -2030,9 +2123,10 @@ class InferenceEngine:
         # tokens, so the card computes through the host's delivery work.
         pending = None   # (toks_dev, entries)
         while not self._stop.is_set():
-            # A pending adapter update applies at this tick boundary when
-            # eligible; while a draining one waits, admissions hold so the
-            # drain converges. (A stale lock-free read delays by a tick.)
+            # A pending swap or adapter update applies at this tick
+            # boundary when eligible; while a draining one waits,
+            # admissions hold so the drain converges. (A stale lock-free
+            # read delays by a tick.)
             if self._swap_req is not None:
                 self._maybe_apply_swap()
             swap = self._swap_req

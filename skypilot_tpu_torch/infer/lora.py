@@ -17,18 +17,23 @@ scaling[i] = alpha_i / rank_i (0 for id 0 and every empty slot). Ranks
 may differ between adapters: each is zero-padded to the stack's largest,
 which leaves its delta unchanged.
 
-Adapters come in the training layout (train/lora.py init_lora_params) as
-nested dicts of numpy arrays,
+Adapters come in the training layout (the JAX package's init_lora_params,
+and the port's train/lora.py adapter_tree) as nested dicts of numpy
+arrays or CPU tensors,
 {'layers': {'attn': {'wq': {'kernel': {'a', 'b'}}}}} with a leading layer
 axis (scanned) or {'layer_3': {...}} per layer (unscanned); both map to
 the same module paths. The build functions return CPU tensors; the
 engine places the stack on its device in the model dtype once, when it
 installs it.
 
-Not ported: load_adapter_dir and build_stack_from_specs (they read
-Orbax, which needs jax).
+Adapter dirs: load_adapter_dir reads the latest step of a port sft
+--lora-rank run's checkpoint dir (<dir>/<step>/state.pt, its 'lora'
+tree), and build_stack_from_specs serves --lora name=dir[:alpha] flags
+from such dirs. The JAX package's adapter dirs are Orbax checkpoints,
+which need jax: the port refuses them (no converter yet).
 """
 import dataclasses
+import os
 import re
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -106,7 +111,7 @@ def module_entries(ckey: tuple, a: np.ndarray, b: np.ndarray):
     return [(f'layers.{m.group(1)}.{rest}', a, b)]
 
 
-def _module_adapter(tree: Mapping[str, Any]
+def module_adapter(tree: Mapping[str, Any]
                     ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
     """Training-layout tree -> {module path: (a [in, r], b [r, out])}."""
     out = {}
@@ -160,7 +165,7 @@ def build_stack(adapters: Sequence[Tuple[Mapping[str, Any], float]],
     adapter (scaling 0), adapter i gets id i+1."""
     if not adapters:
         raise ValueError('build_stack needs at least one adapter')
-    mods = {i: _module_adapter(t) for i, (t, _) in enumerate(adapters, 1)}
+    mods = {i: module_adapter(t) for i, (t, _) in enumerate(adapters, 1)}
     alphas = {i: float(al) for i, (_, al) in enumerate(adapters, 1)}
     stack = _assemble(mods, alphas, len(adapters) + 1, dtype, device)
     logger.info('multi-LoRA stack: %d adapters, ranks %s (padded to %d), '
@@ -200,7 +205,7 @@ def build_stack_assigned(
         if not 1 <= aid < num_slots:
             raise ValueError(f'adapter id {aid} out of range '
                              f'[1, {num_slots})')
-    mods = {aid: _module_adapter(t) for aid, (t, _) in assigned.items()}
+    mods = {aid: module_adapter(t) for aid, (t, _) in assigned.items()}
     alphas = {aid: float(al) for aid, (_, al) in assigned.items()}
     stack = _assemble(mods, alphas, num_slots, dtype, device)
     logger.info('multi-LoRA stack (assigned): %d/%d slot(s) occupied, '
@@ -216,7 +221,7 @@ def graft_adapter(stack: Stack, aid: int, tree: Mapping[str, Any],
     Pure: returns a new stack, the input is untouched. Raises ValueError
     when the adapter targets different projections than the stack or its
     rank exceeds the stack's padded rank."""
-    mod = _module_adapter(tree)
+    mod = module_adapter(tree)
     n = int(stack['scaling'].shape[0])
     if not 1 <= aid <= n:
         raise ValueError(f'adapter id {aid} out of range [1, {n}]')
@@ -333,6 +338,47 @@ def place_stack(stack: Stack, dtype: torch.dtype, device) -> Stack:
     out['scaling'] = stack['scaling'].to(device=device,
                                          dtype=torch.float32)
     return out
+
+
+def load_adapter_dir(path: str) -> Dict[str, Any]:
+    """The adapter tree (training layout, numpy leaves) of the latest step
+    of a port sft --lora-rank checkpoint dir. Raises FileNotFoundError
+    when the dir holds no step, ValueError when the step is not the
+    port's (an Orbax dir of the JAX package) or holds no adapters."""
+    from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+    steps = sorted(int(n) for n in os.listdir(path) if n.isdigit()) \
+        if os.path.isdir(path) else []
+    if not steps:
+        raise FileNotFoundError(f'no checkpoint found under {path}')
+    state = os.path.join(path, str(steps[-1]), ckpt_lib.STATE_FILE)
+    if not os.path.isfile(state):
+        raise ValueError(
+            f'{path} step {steps[-1]} has no {ckpt_lib.STATE_FILE}: not an '
+            'adapter dir of the port\'s sft (the JAX package\'s Orbax '
+            'adapter dirs need jax and are not readable here)')
+    # Mapped, not read: only the adapters' bytes are touched, not the
+    # optimizer's moments beside them (twice the adapters' size).
+    sd = torch.load(state, map_location='cpu', weights_only=True, mmap=True)
+    if 'lora' not in sd:
+        raise ValueError(f'{state} holds no adapters (a full-finetune '
+                         'checkpoint, not an sft --lora-rank run\'s)')
+
+    def to_numpy(node):
+        if isinstance(node, Mapping):
+            return {k: to_numpy(v) for k, v in node.items()}
+        return node.float().numpy().copy()
+    return to_numpy(sd['lora'])
+
+
+def build_stack_from_specs(specs: Sequence[AdapterSpec],
+                           dtype: str = 'bfloat16'
+                           ) -> Tuple[Stack, Dict[str, int]]:
+    """AdapterSpecs (--lora flags) -> (the stack, {adapter name: id}):
+    each spec's dir read by load_adapter_dir, ids from 1 in spec order;
+    id 0, the base model, is not in the map."""
+    trees = [(load_adapter_dir(s.path), s.alpha) for s in specs]
+    stack = build_stack(trees, dtype=dtype)
+    return stack, {s.name: i + 1 for i, s in enumerate(specs)}
 
 
 def parse_lora_flag(values: Optional[List[str]]) -> List[AdapterSpec]:

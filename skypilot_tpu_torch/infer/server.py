@@ -23,6 +23,19 @@ and chunked transfer encoding on streams. Endpoints:
   POST /v1/chat/completions  OpenAI chat: the messages rendered through
                           the checkpoint's jinja chat template (jinja2's
                           sandbox), else a generic role-tag format.
+  POST /admin/weights     {"checkpoint": dir, "version"?, "drain"?} or
+                          {"swap_back": true}: the in-place weight swap
+                          (infer/weight_swap.py WeightSwapManager).
+  POST /admin/adapters    {"op": "load", "name", "checkpoint": dir,
+                          "alpha"?, "drain"?} | {"op": "unload", "name"}
+                          | {"op": "list"}: adapter hot-load
+                          (AdapterRegistry); /v1/models, the 'model'
+                          routing and the QoS labels follow it.
+  The admin routes need SKYT_ADMIN_TOKEN set and presented as a bearer
+  (403 otherwise); 400 on a malformed body or a failed load, 409 while
+  another swap or update is in flight or an unloaded adapter is still
+  referenced. /admin/reshard and /admin/kv_prewarm answer 501 naming
+  what they wait for.
 
 Headers: X-Request-Id on every generation response; X-Priority,
 X-Tenant (and the OpenAI body's service_tier) name the QoS class and
@@ -44,13 +57,15 @@ quantized as they load (a MoE model: int8 only, its experts too).
 --spec-decode k with --draft-checkpoint (an HF checkpoint of a small
 model of the same vocab) or --draft-model (a preset, random weights; or
 'self', the served model drafting for itself) drafts with a model
-instead of the n-gram lookup.
+instead of the n-gram lookup. --lora name=dir[:alpha] (repeatable)
+serves the adapters of port sft --lora-rank runs (infer/lora.py
+build_stack_from_specs; ids from 1 in flag order) by name.
 
 Not ported yet (ROADMAP queue 1): the fleet KV tier's /kv/prefix and
-/kv/index, /admin/* (weights, reshard, adapters, kv_prewarm) with the
-weight swap, /debug/* with the tracing plane, the SLO goodput and
-capacity counters, adapter dirs (--lora), tensor parallelism and
-multi-host replicas: their flags exit naming the queue item.
+/kv/index and /admin/kv_prewarm (item 6.1), /admin/reshard (item 13),
+/debug/* with the tracing plane, the SLO goodput and capacity counters,
+tensor parallelism and multi-host replicas (item 13): their flags exit
+naming the queue item.
 
 Run:
   python -m skypilot_tpu_torch.infer.server --checkpoint /ckpt/llama3-8b \
@@ -67,6 +82,8 @@ import argparse
 import concurrent.futures
 import dataclasses
 import datetime
+import functools
+import hmac
 import http.server
 import json
 import os
@@ -82,7 +99,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from skypilot_tpu_torch.infer import engine as engine_lib
+from skypilot_tpu_torch.infer import lora as lora_lib
 from skypilot_tpu_torch.infer import tokenizer as tokenizer_lib
+from skypilot_tpu_torch.infer import weight_swap as weight_swap_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.models import quant as quant_lib
@@ -218,13 +237,27 @@ def build_engine(model_name: str = 'llama3-8b',
     if spec_decode > 0 and (draft_model_name or draft_checkpoint):
         draft = _build_draft(model, draft_model_name, draft_checkpoint,
                              dtype, dev, seed, model.cfg.max_seq_len)
-    return engine_lib.InferenceEngine(
+    engine = engine_lib.InferenceEngine(
         model, num_slots=num_slots, max_seq_len=model.cfg.max_seq_len,
         decode_chunk=decode_chunk, page_size=page_size,
         pool_tokens=pool_tokens, prefix_caching=prefix_caching,
         prefill_chunk=prefill_chunk, spec_decode=spec_decode,
         kv_dtype=kv_dtype, device=dev, draft_model=draft,
         lora_stack=lora_stack, metrics_registry=metrics_registry)
+    # The weight swap's loader (infer/weight_swap.py): a checkpoint of
+    # this config read in this engine's weight mode (dtype, quantize)
+    # straight onto the device, so the swap validates like with like.
+    engine.checkpoint_path = checkpoint
+    cfg, moe = model.cfg, getattr(model, 'moe', None)
+
+    def param_loader(path: str) -> Dict[str, torch.Tensor]:
+        if moe is not None:
+            return weights_lib.load_mixtral_params(
+                cfg, moe, path, quantize=quantize, device=dev)
+        return weights_lib.load_llama_params(cfg, path, quantize=quantize,
+                                             device=dev)
+    engine.param_loader = param_loader
+    return engine
 
 
 def _build_draft(model, name: Optional[str], checkpoint: Optional[str],
@@ -419,10 +452,12 @@ class _BadRequest(Exception):
 
 
 class InferenceServer:
-    """The replica's HTTP server over one engine. lora_names: a static
-    {adapter name: stack id} map for the adapters of the engine's stack
-    (a request's 'model', or /generate's 'lora', names one; hot-loading
-    waits for /admin/adapters)."""
+    """The replica's HTTP server over one engine. lora_names: {adapter
+    name: stack id} of the engine's boot stack (a request's 'model', or
+    /generate's 'lora', names one); lora_specs: the --lora specs that
+    built it (their host trees are then retained, so a rank-growing
+    hot-load can rebuild the stack). POST /admin/adapters changes the
+    map at run time."""
 
     ROUTES = {('GET', '/health'): '_health',
               ('GET', '/stats'): '_stats',
@@ -430,13 +465,18 @@ class InferenceServer:
               ('GET', '/v1/models'): '_models',
               ('POST', '/generate'): '_generate',
               ('POST', '/v1/completions'): '_completions',
-              ('POST', '/v1/chat/completions'): '_chat_completions'}
+              ('POST', '/v1/chat/completions'): '_chat_completions',
+              ('POST', '/admin/weights'): '_admin_weights',
+              ('POST', '/admin/adapters'): '_admin_adapters',
+              ('POST', '/admin/reshard'): '_admin_reshard',
+              ('POST', '/admin/kv_prewarm'): '_admin_kv_prewarm'}
 
     def __init__(self, engine: engine_lib.InferenceEngine,
                  tokenizer=None, model_id: str = 'skypilot-tpu',
                  lora_names: Optional[Dict[str, int]] = None,
                  chat_template: Optional[str] = None,
-                 special_tokens: Optional[Dict[str, str]] = None) -> None:
+                 special_tokens: Optional[Dict[str, str]] = None,
+                 lora_specs=None) -> None:
         self.engine = engine
         self.tokenizer = tokenizer or tokenizer_lib.ByteTokenizer(
             engine.cfg.vocab_size)
@@ -447,8 +487,18 @@ class InferenceServer:
             # unreachable.
             raise ValueError(f'adapter name {model_id!r} collides with the '
                              'served model id; rename the adapter')
-        engine.model_labels = {0: model_id, **{
-            lid: name for name, lid in self.lora_names.items()}}
+        # The in-place weight swap and the adapter registry (one
+        # single-flight lock); every adapter change resyncs the routing
+        # map and the engine's model labels.
+        self._swap_mgr = weight_swap_lib.WeightSwapManager(engine)
+        self._adapters = weight_swap_lib.AdapterRegistry(
+            engine, self._swap_mgr, reserved_names={model_id},
+            on_change=self._adapters_changed)
+        if lora_specs:
+            self._adapters.seed(lora_specs)
+        elif self.lora_names:
+            self._adapters.seed_names(self.lora_names)
+        self._adapters_changed()
         self._special_tokens = dict(special_tokens or {})
         self._chat_template = self._compile_template(chat_template) \
             if chat_template else None
@@ -469,6 +519,13 @@ class InferenceServer:
             'the full stream)', ('path',))
         self._httpd: Optional[http.server.ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+
+    def _adapters_changed(self) -> None:
+        """The registry's change hook: the routing map and the engine's
+        model labels (QoS flows, bounded by the adapters) follow it."""
+        self.lora_names = self._adapters.name_ids()
+        self.engine.model_labels = {0: self.model_id, **{
+            lid: name for name, lid in self.lora_names.items()}}
 
     @staticmethod
     def _compile_template(source: str):
@@ -919,13 +976,6 @@ class InferenceServer:
             return _Reply(200, {'status': 'ok'})
         return _Reply(503, {'status': 'starting'})
 
-    def _adapters_snapshot(self) -> Dict[str, Any]:
-        return {'count': len(self.lora_names),
-                'stack_slots': int(self.engine.num_adapters or 0),
-                'adapters': {n: {'id': lid, 'version': 1, 'alpha': None,
-                                 'rank': None, 'path': None}
-                             for n, lid in self.lora_names.items()}}
-
     def _stats(self, ex: _Exchange) -> _Reply:
         rid = ex.query.get('request_id')
         if rid is not None:
@@ -943,7 +993,7 @@ class InferenceServer:
                             'X-Request-Id response header'})
             return _Reply(200, trace)
         data = self.engine.stats()
-        data['adapters'] = self._adapters_snapshot()
+        data['adapters'] = self._adapters.snapshot()
         if self._qos is not None:
             data['qos'] = self._qos.snapshot(self.engine.qos_depths())
         return _Reply(200, data)
@@ -1208,6 +1258,125 @@ class InferenceServer:
                       'total_tokens': len(tokens) + total_out}},
             {'X-Request-Id': str(rid)})
 
+    # ---------------------------------------------------------- admin
+    @staticmethod
+    def _require_admin(ex: _Exchange) -> Optional[_Reply]:
+        """The admin routes' bearer gate: SKYT_ADMIN_TOKEN must be set
+        and presented (403 otherwise: reachability is never enough). A
+        refused request's body is left unread, so its connection
+        closes."""
+        token = env_lib.get('SKYT_ADMIN_TOKEN')
+        if not token:
+            ex.h.close_connection = True
+            return _error(403, 'admin API disabled: start the replica with '
+                               'SKYT_ADMIN_TOKEN set')
+        got = ex.headers.get('Authorization', '')
+        if not hmac.compare_digest(
+                got.encode('utf-8', 'surrogateescape'),
+                f'Bearer {token}'.encode('utf-8')):
+            ex.h.close_connection = True
+            return _error(403, 'unauthorized: missing or bad Authorization '
+                               'bearer token')
+        return None
+
+    @staticmethod
+    def _drain_flag(payload) -> Optional[bool]:
+        drain = payload.get('drain')
+        if drain is not None and not isinstance(drain, bool):
+            raise _BadRequest(f'drain must be a boolean, got {drain!r}')
+        return drain
+
+    def _admin_weights(self, ex: _Exchange) -> _Reply:
+        """POST /admin/weights: {"checkpoint": dir, "version": N?,
+        "drain": bool?} or {"swap_back": true}. 400 on a malformed body or
+        a failed swap (weight_version beside the error), 409 while a swap
+        or adapter update is in flight; the old weights stay live in every
+        error case."""
+        denied = self._require_admin(ex)
+        if denied is not None:
+            return denied
+        payload = ex.json_body()
+        drain = self._drain_flag(payload)
+        version = payload.get('version')
+        if version is not None and (isinstance(version, bool) or
+                                    not isinstance(version, int) or
+                                    version < 1):
+            return _error(400, f'version must be an integer >= 1, got '
+                               f'{version!r}')
+        if payload.get('swap_back'):
+            op = functools.partial(self._swap_mgr.swap_back, drain=drain)
+        else:
+            ckpt = payload.get('checkpoint')
+            if not isinstance(ckpt, str) or not ckpt:
+                return _error(400, 'checkpoint must be a non-empty path (or '
+                                   'pass swap_back: true)')
+            op = functools.partial(self._swap_mgr.swap, checkpoint=ckpt,
+                                   version=version, drain=drain)
+        try:
+            return _Reply(200, op())
+        except weight_swap_lib.SwapInFlight as e:
+            return _error(409, str(e))
+        except weight_swap_lib.WeightSwapError as e:
+            return _error(400, {'error': str(e),
+                                'weight_version': self.engine.weight_version})
+
+    def _admin_adapters(self, ex: _Exchange) -> _Reply:
+        """POST /admin/adapters: {"op": "load", "name", "checkpoint":
+        dir, "alpha": f?, "drain": bool?} | {"op": "unload", "name",
+        "drain": bool?} | {"op": "list"}. 400 on a malformed body or a
+        failed load, 409 while any swap or update is in flight or while
+        an unloaded adapter's id is still referenced; the old stack stays
+        live in every error case."""
+        denied = self._require_admin(ex)
+        if denied is not None:
+            return denied
+        payload = ex.json_body()
+        op_name = payload.get('op', 'load')
+        if op_name == 'list':
+            snap = self._adapters.snapshot()
+            snap['last'] = self._adapters.last
+            return _Reply(200, snap)
+        if op_name not in ('load', 'unload'):
+            return _error(400, f"op must be 'load', 'unload', or 'list', "
+                               f'got {op_name!r}')
+        name = payload.get('name')
+        if not isinstance(name, str) or not name:
+            return _error(400, f'name must be a non-empty string, got '
+                               f'{name!r}')
+        drain = self._drain_flag(payload)
+        if op_name == 'load':
+            ckpt = payload.get('checkpoint')
+            if not isinstance(ckpt, str) or not ckpt:
+                return _error(400, f'checkpoint must be a non-empty string '
+                                   f'(an adapter dir an `sft --lora-rank` '
+                                   f'run wrote), got {ckpt!r}')
+            alpha = payload.get('alpha', 16.0)
+            if isinstance(alpha, bool) or not isinstance(alpha,
+                                                         (int, float)):
+                return _error(400, f'alpha must be a number, got {alpha!r}')
+            op = functools.partial(self._adapters.load, name,
+                                   checkpoint=ckpt, alpha=float(alpha),
+                                   drain=drain)
+        else:
+            op = functools.partial(self._adapters.unload, name, drain=drain)
+        try:
+            return _Reply(200, op())
+        except (weight_swap_lib.AdapterInUse,
+                weight_swap_lib.SwapInFlight) as e:
+            return _error(409, str(e))
+        except weight_swap_lib.WeightSwapError as e:
+            return _error(400, str(e))
+
+    def _admin_reshard(self, ex: _Exchange) -> _Reply:
+        denied = self._require_admin(ex)
+        return denied or _error(501, weight_swap_lib.RESHARD_UNPORTED)
+
+    def _admin_kv_prewarm(self, ex: _Exchange) -> _Reply:
+        denied = self._require_admin(ex)
+        return denied or _error(
+            501, 'kv_prewarm is not ported yet: it pulls from the fleet KV '
+                 'tier (ROADMAP queue 1 item 6.1)')
+
 
 def _make_handler(server: InferenceServer):
     class Handler(http.server.BaseHTTPRequestHandler):
@@ -1228,7 +1397,6 @@ def _make_handler(server: InferenceServer):
 # The reference's flags the port does not take yet: the ROADMAP queue 1
 # item each waits for, and the values that ask for nothing unported.
 _UNPORTED_FLAGS = {
-    'lora': ('item 10 (the adapter plane)', (None,)),
     'tp': ('item 13 (parallelism, multi-host and comms)', (None, 1)),
     'multihost': ('item 13 (parallelism, multi-host and comms)',
                   (None, 'auto', 'off'))}
@@ -1284,9 +1452,12 @@ def main(argv=None) -> int:
     parser.add_argument('--chat-template', default=None,
                         help='path to a jinja chat template file (a '
                              'missing file fails start-up)')
+    parser.add_argument('--lora', action='append', default=None,
+                        help='name=dir[:alpha] (repeatable): serve the '
+                             'adapters of an sft --lora-rank run\'s '
+                             'checkpoint dir under this model name')
     for flag in _UNPORTED_FLAGS:
         parser.add_argument('--' + flag.replace('_', '-'),
-                            action='append' if flag == 'lora' else 'store',
                             type=int if flag == 'tp' else str,
                             help='not ported yet')
     args = parser.parse_args(argv)
@@ -1320,8 +1491,17 @@ def main(argv=None) -> int:
         if chat_template is None:
             chat_template = tokenizer_lib.load_chat_template(tok_path)
         special_tokens = tokenizer_lib.special_token_strings(tok_path)
+    lora_stack, lora_names, lora_specs = None, {}, None
+    if args.lora:
+        try:
+            lora_specs = lora_lib.parse_lora_flag(args.lora)
+            lora_stack, lora_names = lora_lib.build_stack_from_specs(
+                lora_specs, dtype=args.dtype)
+        except (OSError, ValueError) as e:
+            parser.exit(2, f'--lora: {e}\n')
     engine = build_engine(args.model, args.num_slots, args.max_seq_len,
                           dtype=args.dtype, device=args.device,
+                          lora_stack=lora_stack,
                           prefix_caching=not args.no_prefix_caching,
                           spec_decode=args.spec_decode,
                           draft_model_name=args.draft_model,
@@ -1338,6 +1518,7 @@ def main(argv=None) -> int:
     model_id = (os.path.basename(args.checkpoint.rstrip('/'))
                 if args.checkpoint else args.model)
     server = InferenceServer(engine, tokenizer, model_id=model_id,
+                             lora_names=lora_names, lora_specs=lora_specs,
                              chat_template=chat_template,
                              special_tokens=special_tokens)
     stop = threading.Event()

@@ -28,7 +28,7 @@ from skypilot_tpu_torch.utils import log_utils
 logger = log_utils.init_logger(__name__)
 
 EXIT_CODE_PREEMPTED = 75
-_STATE_FILE = 'state.pt'
+STATE_FILE = 'state.pt'
 
 
 class PreemptionGuard:
@@ -144,7 +144,7 @@ class Checkpointer:
         try:
             tmp = os.path.join(self.directory, f'.tmp-{step}-{os.getpid()}')
             os.makedirs(tmp, exist_ok=True)
-            torch.save(host, os.path.join(tmp, _STATE_FILE))
+            torch.save(host, os.path.join(tmp, STATE_FILE))
             os.rename(tmp, os.path.join(self.directory, str(step)))
             for old in self.all_steps()[:-self.keep]:
                 shutil.rmtree(os.path.join(self.directory, str(old)),
@@ -161,7 +161,7 @@ class Checkpointer:
             step = self.latest_step()
         if step is None:
             return None
-        sd = torch.load(os.path.join(self.directory, str(step), _STATE_FILE),
+        sd = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
                         map_location='cpu', weights_only=False)
         state.load_state_dict(sd)
         return state

@@ -16,7 +16,20 @@ JSONL data, the same batches as the JAX entrypoint for the same seed:
 mistral, gemma, qwen2, qwen3, gemma2 and phi3 families;
 models/weights.py), checked against --model's sizes and family knobs
 before a weight is read and streamed into the f32 masters one tensor at
-a time; a resume skips it.
+a time; a resume skips it unless the run is LoRA's.
+
+--lora-rank R (> 0) trains LoRA adapters instead (train/lora.py): the
+base (random from the seed, or --base-checkpoint's, which then loads
+even when a resume checkpoint exists: a LoRA checkpoint holds no base)
+is frozen, every attention and MLP projection gains A [in, R] and
+B [R, out] merged at use with scaling --lora-alpha / R, AdamW covers
+A and B only, and the checkpoints hold only the adapter state (step,
+A/B in the training layout, the optimizer's state, the schedule's
+position), which export_lora merges and the server's --lora serves.
+MFU counts 6 * params + 12 * layers * dim * seq FLOPs a token, as for
+a full finetune: the merge-at-use backward still computes each merged
+weight's gradient on its way to dA and dB (only the optimizer and the
+gradients kept shrink).
 
 The run is bit-reproducible, as the JAX entrypoint's is: main() runs
 with torch.use_deterministic_algorithms(True, warn_only=True), so the
@@ -30,8 +43,8 @@ are restored when main() returns or exits.
 
 The flags are the JAX entrypoint's. Those whose machinery belongs to
 another slice exit with the reason instead of being ignored: a mesh of
-more than one device, --dcn-mesh and --attn ring (parallelism),
---lora-rank > 0 (LoRA training) and the MoE presets and checkpoints.
+more than one device, --dcn-mesh and --attn ring (parallelism), the
+MoE presets and checkpoints, and --lora-rank on them (MoE training).
 """
 import argparse
 import dataclasses
@@ -139,8 +152,10 @@ def _refuse(args) -> None:
     if args.attn == 'ring':
         raise SystemExit('--attn ring is not ported yet (ring attention '
                          'is the parallelism slice\'s)')
-    if args.lora_rank > 0:
-        raise SystemExit('--lora-rank > 0: LoRA training is not ported yet')
+    if args.lora_rank > 0 and args.model in MOE_MODELS:
+        raise SystemExit(f'--lora-rank on {args.model}: LoRA training on a '
+                         'MoE model waits for MoE training (ROADMAP queue 1 '
+                         'item 11)')
 
 
 def load_data_tokenizer(path: Optional[str]):
@@ -269,7 +284,8 @@ def _main(argv) -> Dict[str, Any]:
                         help='tokenizer.json (or its dir) for JSONL text '
                              'rows; without it text rows are byte-level')
     parser.add_argument('--lora-rank', type=int, default=0,
-                        help='> 0 enables LoRA (not ported yet)')
+                        help='> 0 trains LoRA adapters of this rank over '
+                             'the frozen base')
     parser.add_argument('--lora-alpha', type=float, default=16.0)
     parser.add_argument('--base-checkpoint', default=None,
                         help='HF checkpoint dir to finetune from (config.json '
@@ -313,7 +329,6 @@ def _main(argv) -> Dict[str, Any]:
         tcfg = trainer.TrainerConfig(learning_rate=args.lr,
                                      total_steps=args.steps)
         tx = trainer.make_optimizer(tcfg)
-        state = trainer.create_state(model, tx)
 
         ckpt = None
         if args.checkpoint_dir:
@@ -322,7 +337,7 @@ def _main(argv) -> Dict[str, Any]:
                 save_interval_steps=args.checkpoint_every)
         will_resume = (ckpt is not None and args.resume == 'auto'
                        and ckpt.latest_step() is not None)
-        if args.base_checkpoint and will_resume:
+        if args.base_checkpoint and will_resume and args.lora_rank == 0:
             # The resume checkpoint holds the whole state: streaming the
             # base in first would only add restart latency.
             logger.info('resume checkpoint found; skipping base load')
@@ -331,6 +346,21 @@ def _main(argv) -> Dict[str, Any]:
             load_base_checkpoint(model, args.base_checkpoint, dev)
             logger.info('loaded base checkpoint %s in %.1f s',
                         args.base_checkpoint, time.perf_counter() - t_load)
+        if args.lora_rank > 0:
+            from skypilot_tpu_torch.train import lora as lora_lib
+            lora_cfg = lora_lib.LoRAConfig(rank=args.lora_rank,
+                                           alpha=args.lora_alpha)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(1)
+            adapters = lora_lib.apply_lora(model, lora_cfg, gen)
+            state = lora_lib.create_lora_state(model, tx, lora_cfg, adapters)
+            trainable = lora_lib.num_lora_params(adapters)
+        else:
+            state = trainer.create_state(model, tx)
+            trainable = cfg.num_params()
+        logger.info('%d trainable params; MFU counts 6 * %d params + 12 * '
+                    'layers * dim * seq FLOPs a token', trainable,
+                    cfg.num_params())
         start_step = 0
         if ckpt is not None and args.resume == 'auto':
             if ckpt.restore(state) is not None:
@@ -362,7 +392,9 @@ def _main(argv) -> Dict[str, Any]:
         losses = torch.zeros((max(args.steps - start_step, 0),),
                              dtype=torch.float32, device=dev)
         summary: Dict[str, Any] = {'start_step': start_step,
-                                   'flops_per_step': flops, 'logs': []}
+                                   'flops_per_step': flops,
+                                   'trainable_params': trainable,
+                                   'logs': []}
 
         # Step loop from here: checkpoint writes begin, so preemption
         # waits for a step boundary instead of exiting mid-write.

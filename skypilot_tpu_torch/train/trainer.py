@@ -173,15 +173,19 @@ def warmup_cosine_schedule(tcfg: TrainerConfig) -> Callable[[int], float]:
 class Optimizer:
     """make_optimizer's result (the optax chain's counterpart): the
     config and its learning-rate schedule; init(model) builds the AdamW
-    over the model's parameters."""
+    over the model's trainable parameters."""
     tcfg: TrainerConfig
     schedule: Callable[[int], float]
 
     def init(self, model: nn.Module) -> torch.optim.AdamW:
+        return self.init_params(
+            [p for p in model.parameters() if p.requires_grad])
+
+    def init_params(self, params: List[torch.Tensor]) -> torch.optim.AdamW:
+        """The AdamW over `params` (a LoRA run's adapters)."""
         t = self.tcfg
         return torch.optim.AdamW(
-            [p for p in model.parameters() if p.requires_grad],
-            lr=self.schedule(0), betas=(t.b1, t.b2), eps=1e-8,
+            params, lr=self.schedule(0), betas=(t.b1, t.b2), eps=1e-8,
             weight_decay=t.weight_decay)
 
 

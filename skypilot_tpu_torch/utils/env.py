@@ -46,6 +46,22 @@ _var('SKYT_ADAPTER_TIMEOUT_S', 'float', 120.0,
      'How long an adapter hot-load waits for the engine to reach an '
      'applicable decode-tick boundary before aborting (the old adapter '
      'stack stays live).')
+_var('SKYT_ADAPTER_MAX', 'int', 32,
+     'Max adapters loadable on one replica via POST /admin/adapters '
+     '(bounds the stack\'s device memory and per-model metric '
+     'cardinality).')
+_var('SKYT_SWAP_DRAIN', 'bool', True,
+     'In-place weight swap: drain in-flight requests to the decode-'
+     'tick boundary (finish on the OLD weights) before applying; '
+     '"0" applies at the next boundary and in-flight requests '
+     'continue on the new weights.')
+_var('SKYT_SWAP_TIMEOUT_S', 'float', 120.0,
+     'How long a weight swap waits for the engine to reach an '
+     'applicable tick boundary before aborting (old weights stay '
+     'live).')
+_var('SKYT_ADMIN_TOKEN', 'str', None,
+     'Bearer token guarding the replica admin API (POST /admin/weights, '
+     '/admin/adapters). Unset disables the routes (403).')
 _var('SKYT_PROFILE_DIR', 'str', None,
      'Where the sft StepProfiler writes its torch.profiler trace (unset: '
      'no profile).')

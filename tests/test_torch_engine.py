@@ -182,12 +182,14 @@ def test_port_module_list_covers_every_slice():
     KV tier: infer/kv_tier.py; the HTTP front door: infer/server.py,
     infer/tokenizer.py, serve/qos.py; HF checkpoints and weight
     quantization: models/safetensors_io.py, models/quant.py; MoE:
-    models/moe.py)."""
+    models/moe.py; the LoRA lifecycle and the swap plane: train/lora.py,
+    train/export_lora.py, infer/weight_swap.py)."""
     mods = _port_modules()
     for mod in ('skypilot_tpu_torch.infer.engine',
                 'skypilot_tpu_torch.infer.kv_tier',
                 'skypilot_tpu_torch.infer.lora',
                 'skypilot_tpu_torch.infer.server',
+                'skypilot_tpu_torch.infer.weight_swap',
                 'skypilot_tpu_torch.infer.tokenizer',
                 'skypilot_tpu_torch.serve.qos',
                 'skypilot_tpu_torch.ops.lora',
@@ -198,6 +200,8 @@ def test_port_module_list_covers_every_slice():
                 'skypilot_tpu_torch.models.moe',
                 'skypilot_tpu_torch.train.trainer',
                 'skypilot_tpu_torch.train.sft',
+                'skypilot_tpu_torch.train.lora',
+                'skypilot_tpu_torch.train.export_lora',
                 'skypilot_tpu_torch.train.prefetch',
                 'skypilot_tpu_torch.train.checkpoint',
                 'skypilot_tpu_torch.utils.metrics',

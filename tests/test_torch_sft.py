@@ -96,7 +96,9 @@ def test_checkpointer_keeps_the_newest(tmp_path):
 
 
 def _sft_env():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # One intra-op thread, as in-process: the debug model's tensors are
+    # tiny, and a thread pool a worker makes each step ~15x slower.
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     env.pop('JAX_COMPILATION_CACHE_DIR', None)
     return env
 
@@ -167,7 +169,7 @@ def test_sft_main_runs_on_cpu(tmp_path):
     (['--mesh', 'bogus=1'], 'unknown mesh axes'),
     (['--dcn-mesh', 'dp=2'], 'dcn-mesh'),
     (['--attn', 'ring'], 'ring'),
-    (['--lora-rank', '8'], 'LoRA'),
+    (['--lora-rank', '8', '--model', 'debug-moe'], 'LoRA'),
     (['--base-checkpoint', '/nonexistent'], 'safetensors'),
     (['--data-tokenizer', '/nonexistent'], 'tokenizer'),
     (['--model', 'debug-moe'], 'MoE'),

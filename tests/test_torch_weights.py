@@ -379,7 +379,9 @@ def _start_server(argv, env_extra):
     port = _free_port()
     env = dict(os.environ)
     env.pop('SKYT_WEIGHTS_CHECKPOINT', None)
-    env.update(PYTHONPATH=REPO, **env_extra)
+    # One intra-op thread, as in-process (the module's fixture): the
+    # debug-sized tensors gain nothing from a thread pool a server.
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS='1', **env_extra)
     proc = subprocess.Popen(
         [sys.executable, '-m', 'skypilot_tpu_torch.infer.server',
          '--device', 'cpu', '--dtype', 'float32', '--num-slots', '2',

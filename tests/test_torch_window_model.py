@@ -380,8 +380,8 @@ def test_sft_main_runs_deterministic_and_restores(monkeypatch, before):
         assert out['steps'] == 2 and seen == [(True, False)] * 2
         assert torch.are_deterministic_algorithms_enabled() == before
         with pytest.raises(SystemExit):
-            sft.main(['--device', 'cpu', '--model', 'debug', '--lora-rank',
-                      '4'])
+            sft.main(['--device', 'cpu', '--model', 'debug-moe',
+                      '--lora-rank', '4'])
         assert torch.are_deterministic_algorithms_enabled() == before
         assert not torch.is_deterministic_algorithms_warn_only_enabled()
         assert det.fill_uninitialized_memory
